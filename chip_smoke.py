@@ -1,0 +1,516 @@
+#!/usr/bin/env python
+"""Drive the PyTorch/CUDA port (``clip_embedder_tpu_torch``) on one NVIDIA
+card, in phases, and fail loudly if any phase fails.
+
+    python3 chip_smoke.py
+
+1. environment — the card's name and power limit, torch/CUDA versions, the
+   compute capability (must be 9.0);
+2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a;
+3. kernels — each kernel against its plain PyTorch version at the main
+   path's shapes (max error beside the tolerance), and its time (CUDA
+   events, median of 20) beside the plain version's, one PyTorch library
+   call's (a yardstick the port never calls) and the bound;
+4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
+   ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
+   embeddings and classify results;
+5. main path — ViT-SO400M-16-SigLIP2-384 (vision + SigLIP text tower) at
+   full width and depth with seeded random bf16 weights through ``Clip``:
+   ``embed_images`` on a mixed-size batch of the JPEGs under ``assets/img``
+   and ``classify``; unit norms, launch counts (27 per tower forward per
+   kernel), kernel-vs-plain cosine, images/s at batch 32 and the p50 latency
+   of one image.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
+repo beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+FIXTURES = REPO / "tests" / "fixtures"
+IMAGES = REPO / "assets" / "img"
+
+# Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, f32
+# (non-tensor) FLOP/s, device-memory bytes/s. Rates assume the full power
+# limit (700 W SXM, 350 W PCIe).
+PEAKS = {
+    "sxm": {"bf16": 989e12, "f32": 67e12, "bytes": 3.35e12},
+    "pcie": {"bf16": 756e12, "f32": 51e12, "bytes": 2.0e12},
+}
+
+# open_clip model_configs/ViT-SO400M-16-SigLIP2-384.json, written out here.
+SO400M_SIGLIP2_384 = {
+    "embed_dim": 1152,
+    "init_logit_bias": -10,
+    "custom_text": True,
+    "vision_cfg": {
+        "image_size": 384,
+        "timm_model_name": "vit_so400m_patch16_siglip_384",
+        "timm_model_pretrained": False,
+        "timm_pool": "map",
+        "timm_proj": "none",
+    },
+    "text_cfg": {
+        "context_length": 64,
+        "vocab_size": 256000,
+        "hf_tokenizer_name": "timm/ViT-SO400M-16-SigLIP2-384",
+        "tokenizer_kwargs": {"clean": "canonicalize"},
+        "width": 1152,
+        "heads": 16,
+        "layers": 27,
+        "mlp_ratio": 3.7362,
+        "no_causal_mask": True,
+        "proj_bias": True,
+        "pool_type": "last",
+        "norm_kwargs": {"eps": 1e-6},
+        "act_kwargs": {"approximate": "tanh"},
+    },
+}
+SIGLIP_PREPROCESS = {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5],
+                     "interpolation": "bicubic", "resize_mode": "squash"}
+LABELS = ["a photo of a city at night", "a desert", "a forest", "the ocean",
+          "a red balloon"]
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def peaks_for(name: str) -> dict:
+    return PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median over ``iters`` back-to-back calls of the time between the CUDA
+    events recorded around each call. No synchronize separates the calls, so
+    while the device is the slower side a call's time is the device's, not
+    the host's Python and launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for i in range(iters):
+        fn()
+        events[i + 1].record()
+    events[-1].synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(iters))
+
+
+def max_err(got, ref) -> float:
+    return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+
+
+def hold(name, got, ref, atol, rtol) -> float:
+    """Fail unless |got - ref| <= atol + rtol·|ref| everywhere."""
+    err = max_err(got, ref)
+    ok = all(bool(((g.float() - r.float()).abs()
+                   <= atol + rtol * r.float().abs()).all()) for g, r in zip(got, ref))
+    say(f"  {name}: max_abs_err={err:.3e} (tol atol={atol:g} rtol={rtol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels
+# ---------------------------------------------------------------------------
+
+def qkv_inputs(rows, width, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    params = {n: {"w": t(width, width, scale=width ** -0.5), "b": t(width, scale=0.1)}
+              for n in "qkv"}
+    pre_ln = {"scale": 1 + t(width, scale=0.1), "bias": t(width, scale=0.1)}
+    return params, pre_ln, t(rows, width)
+
+
+def attn_inputs(b, h, s, d, dtype, dev, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h * d), generator=g, device=dev).to(dtype) for _ in range(3)]
+
+
+def ln_qkv_library(params, pre_ln, x, eps):
+    import torch.nn.functional as F
+
+    y = F.layer_norm(x, (x.shape[-1],), pre_ln["scale"], pre_ln["bias"], eps)
+    return tuple(torch.addmm(params[n]["b"], y, params[n]["w"]) for n in "qkv")
+
+
+def phase_kernels(dev, peaks) -> dict:
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import flash, qkv
+    from clip_embedder_tpu_torch.ops.attention import causal_mask
+
+    width, seq, heads, hdim = 1152, 576, 16, 72
+    say("[3] kernels against their plain versions")
+    for dtype, atol, rtol in ((torch.bfloat16, 1e-2, 2 ** -7), (torch.float32, 1e-4, 1e-4)):
+        params, pre_ln, x = qkv_inputs(8 * seq, width, dtype, dev)
+        got = qkv.ln_qkv(params, pre_ln, x, eps=1e-6)
+        torch.cuda.synchronize()
+        hold(f"ln_qkv rows=8x576 W=1152 {dtype}", got,
+             qkv.ln_qkv_plain(params, pre_ln, x, eps=1e-6), atol, rtol)
+    cases = [("exact", torch.bfloat16, {}, 2e-2),
+             ("fast_softmax", torch.bfloat16, {"fast_softmax": True}, 2e-2),
+             ("fast_softmax+exp_bf16", torch.bfloat16,
+              {"fast_softmax": True, "exp_bf16": True}, 2e-2),
+             ("exact", torch.float32, {}, 2e-5)]
+    for label, dtype, kw, tol in cases:
+        q, k, v = attn_inputs(8, heads, seq, hdim, dtype, dev)
+        got = flash.flash_attention_packed(q, k, v, num_heads=heads, **kw)
+        torch.cuda.synchronize()
+        hold(f"flash_attention_packed B=8 H=16 S=576 D=72 {label} {dtype}", [got],
+             [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw)], tol, tol)
+    q, k, v = attn_inputs(8, heads, 64, hdim, torch.bfloat16, dev)
+    mask = causal_mask(64, device=dev)
+    got = flash.flash_attention_packed(q, k, v, num_heads=heads, mask=mask)
+    torch.cuda.synchronize()
+    hold("flash_attention_packed B=8 H=16 S=64 D=72 causal mask bf16", [got],
+         [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, mask=mask)],
+         2e-2, 2e-2)
+
+    # timing at the main path's batch-32 shapes, bf16
+    say("[3] kernel times at batch 32, bf16 (CUDA events, median of 20 back-to-back calls)")
+    b, es = 32, 2
+    rows = b * seq
+    params, pre_ln, x = qkv_inputs(rows, width, torch.bfloat16, dev)
+    err_qkv = hold("ln_qkv rows=32x576 W=1152 bf16", qkv.ln_qkv(params, pre_ln, x),
+                   qkv.ln_qkv_plain(params, pre_ln, x), 1e-2, 2 ** -7)
+    t_qkv = cuda_ms(lambda: qkv.ln_qkv(params, pre_ln, x))
+    t_qkv_plain = cuda_ms(lambda: qkv.ln_qkv_plain(params, pre_ln, x))
+    t_qkv_lib = cuda_ms(lambda: ln_qkv_library(params, pre_ln, x, 1e-6))
+    qkv_bytes = (4 * rows * width + 3 * width * width) * es + 5 * width * 4
+    qkv_ops = 6 * rows * width * width
+    b_qkv = max(qkv_bytes / peaks["bytes"], qkv_ops / peaks["bf16"]) * 1e3
+
+    q, k, v = attn_inputs(b, heads, seq, hdim, torch.bfloat16, dev)
+    err_fl = hold("flash_attention_packed B=32 exact bf16",
+                  [flash.flash_attention_packed(q, k, v, num_heads=heads)],
+                  [flash.flash_attention_packed_plain(q, k, v, num_heads=heads)], 2e-2, 2e-2)
+    t_fl = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads))
+    t_fl_fast = cuda_ms(lambda: flash.flash_attention_packed(
+        q, k, v, num_heads=heads, fast_softmax=True, exp_bf16=True))
+    t_fl_plain = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads))
+    qh, kh, vh = (t.view(b, seq, heads, hdim).transpose(1, 2) for t in (q, k, v))
+    t_fl_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    fl_bytes = 4 * b * seq * heads * hdim * es
+    fl_ops = 4 * b * heads * seq * seq * hdim
+    b_fl = max(fl_bytes / peaks["bytes"], fl_ops / peaks["bf16"]) * 1e3
+    say(f"  ln_qkv: {t_qkv:.4f} ms; plain {t_qkv_plain:.4f} ms; F.layer_norm+3 addmm "
+        f"{t_qkv_lib:.4f} ms; bound {b_qkv:.4f} ms ({qkv_ops:.3e} FLOP, {qkv_bytes:.3e} B)")
+    say(f"  flash_attention_packed: exact {t_fl:.4f} ms, fast+exp_bf16 {t_fl_fast:.4f} ms; "
+        f"plain {t_fl_plain:.4f} ms; F.scaled_dot_product_attention {t_fl_lib:.4f} ms; "
+        f"bound {b_fl:.4f} ms ({fl_ops:.3e} FLOP, {fl_bytes:.3e} B)")
+    return {
+        "ln_qkv": {"name": "ln_qkv", "route": "cuda",
+                   "source": "clip_embedder_tpu_torch/csrc/ln_qkv.cu",
+                   "replaces": "clip_embedder_tpu/ops/qkv.py:216", "max_abs_err": err_qkv,
+                   "ms": t_qkv, "plain_ms": t_qkv_plain, "bound_ms": b_qkv,
+                   "bound_by": "operations" if qkv_ops / peaks["bf16"]
+                   > qkv_bytes / peaks["bytes"] else "bytes",
+                   "library_ms": t_qkv_lib},
+        "flash_attention_packed": {
+            "name": "flash_attention_packed", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/flash_packed.cu",
+            "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err_fl,
+            "ms": t_fl, "plain_ms": t_fl_plain, "bound_ms": b_fl,
+            "bound_by": "operations" if fl_ops / peaks["bf16"]
+            > fl_bytes / peaks["bytes"] else "bytes",
+            "library_ms": t_fl_lib},
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 4: fixtures
+# ---------------------------------------------------------------------------
+
+def cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def phase_fixtures(device) -> None:
+    from clip_embedder_tpu_torch import Clip
+    from clip_embedder_tpu_torch.ops import flash, qkv
+
+    say("[4] golden fixtures, f32")
+    for name in ("golden_siglip", "golden_model"):
+        fixture = FIXTURES / name
+        clip = Clip.from_local_dir(fixture, device=device)
+        img = np.load(fixture / "golden_image.npy")
+        golden = np.load(fixture / "golden_outputs.npz")
+        n0 = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+        img_emb = clip.vision.embed_image(img)
+        txt_emb = clip.text.embed_texts(["a photo of a cat", "the dog!"])
+        expect = json.loads((fixture / "golden_classify.json").read_text())
+        results = clip.classify(img, [label for label, _ in expect])
+        n1 = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+        cos = min(cosines(img_emb, golden["image_embedding"]).min(),
+                  cosines(txt_emb, golden["text_embeddings"]).min())
+        err = max(np.abs(img_emb - golden["image_embedding"]).max(),
+                  np.abs(txt_emb - golden["text_embeddings"]).max())
+        perr = max(abs(r[1] - e[1]) for r, e in zip(results, expect))
+        order = [r[0] for r in results] == [e[0] for e in expect]
+        say(f"  {name}: attn_impl={clip.vision.attn_impl} min cos={cos:.9f} "
+            f"max abs err={err:.3e} classify order={'same' if order else 'DIFFERENT'} "
+            f"prob err={perr:.3e} launches ln_qkv+{n1[0] - n0[0]} flash+{n1[1] - n0[1]}")
+        if not (cos > 1 - 1e-6 and err <= 5e-4 and order and perr <= 1e-4):
+            raise AssertionError(f"{name} does not reproduce its golden outputs")
+        if device == "cuda" and not (n1[0] > n0[0] and n1[1] > n0[1]):
+            raise AssertionError(f"{name} did not go through both kernels")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the full-width main path
+# ---------------------------------------------------------------------------
+
+def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0):
+    """ViT-SO400M-16-SigLIP2-384 ``Clip`` with seeded random weights, resolved
+    through the port's config → build (``layers``/``vocab_size`` cut it for a
+    CPU rehearsal)."""
+    import copy
+
+    from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
+    from clip_embedder_tpu_torch.config import ModelConfig, OpenClipConfig
+    from clip_embedder_tpu_torch.models import text_transformer, vit
+    from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
+    from clip_embedder_tpu_torch.text import configure_tokenizer
+    from clip_embedder_tpu_torch.tokenizer import Tokenizer
+
+    model_cfg = copy.deepcopy(SO400M_SIGLIP2_384)
+    if layers is not None:
+        model_cfg["vision_cfg"]["vit_cfg"] = {"layers": layers}
+        model_cfg["text_cfg"]["layers"] = layers
+    if vocab_size is not None:
+        model_cfg["text_cfg"]["vocab_size"] = vocab_size
+    config = OpenClipConfig.from_dict({"model_cfg": model_cfg,
+                                       "preprocess_cfg": SIGLIP_PREPROCESS})
+    fixture = FIXTURES / "golden_siglip"  # tokenizer (ids < 512) + scoring config
+    model_config = ModelConfig.from_file(fixture / "model_config.json")
+    tokenizer = Tokenizer.from_file(fixture / "tokenizer.json")
+    configure_tokenizer(tokenizer, model_config, config.model_cfg.text_cfg.context_length)
+    vspec, tspec = resolve_vision(config.model_cfg), resolve_text(config.model_cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vtower = vit.ViT(vspec.cfg, vit.init(vspec.cfg, generator=gen, device=device,
+                                         dtype=dtype))
+    ttower = text_transformer.TextTransformer(
+        tspec.cfg, text_transformer.init(tspec.cfg, generator=gen, device=device,
+                                         dtype=dtype))
+    common = {"config": config, "model_config": model_config, "model_dir": fixture,
+              "device": device, "dtype": dtype}
+    vision = VisionEmbedder(tower=vtower, spec=vspec, **common)
+    text = TextEmbedder(tower=ttower, spec=tspec, tokenizer=tokenizer, **common)
+    return Clip(vision=vision, text=text, model_dir=fixture), vspec, tspec
+
+
+def mixed_batch(n: int) -> list:
+    """The JPEGs under assets/img as files, then resized copies of them at
+    assorted sizes, ``n`` images in all."""
+    from PIL import Image
+
+    paths = sorted(IMAGES.glob("*.jpg"))
+    if not paths:
+        raise FileNotFoundError(f"no JPEGs under {IMAGES}")
+    sizes = [(384, 384), (512, 384), (640, 480), (300, 500), (1024, 768), (200, 200)]
+    batch: list = [str(p) for p in paths]
+    i = 0
+    while len(batch) < n:
+        with Image.open(paths[i % len(paths)]) as im:
+            batch.append(np.asarray(im.convert("RGB").resize(sizes[i % len(sizes)])))
+        i += 1
+    return batch[:n]
+
+
+def kernel_group(name: str) -> str:
+    n = name.lower()
+    if "qkv_gemm_kernel" in n or "ln_kernel<" in n:
+        return "ln_qkv"
+    if "flash" in n:
+        return "flash_attention_packed"
+    if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul (cuBLAS)"
+    return "other"
+
+
+def device_breakdown(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (CUDA activity): device time
+    by kernel group and the share of the wall time the device sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        groups[kernel_group(e.key)] = groups.get(kernel_group(e.key), 0.0) + us / 1e3
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {"groups_ms": groups, "busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1 - busy / wall_ms)}
+
+
+def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
+                    batch=32, timed=True) -> dict:
+    from clip_embedder_tpu_torch import VisionEmbedder
+    from clip_embedder_tpu_torch.ops import flash, qkv
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    say(f"[5] main path: ViT-SO400M-16-SigLIP2-384, {dtype}, random weights (seed 0)")
+    t0 = time.perf_counter()
+    clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size)
+    say(f"  built vision {vspec.cfg.layers}x{vspec.cfg.width} ({vspec.cfg.seq_len} tokens, "
+        f"{vspec.cfg.heads}x{vspec.cfg.head_dim} heads), text {tspec.cfg.layers}x"
+        f"{tspec.cfg.width} (vocab {tspec.cfg.vocab_size}, ctx {tspec.cfg.context_length}) "
+        f"in {time.perf_counter() - t0:.1f} s; attn_impl={clip.vision.attn_impl}")
+    images = mixed_batch(batch)
+    depth_v, depth_t = vspec.cfg.layers, tspec.cfg.layers
+
+    qkv.ln_qkv.launches = 0
+    flash.flash_attention_packed.launches = 0
+    embs = clip.vision.embed_images(images)
+    after_embed = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+    results = clip.classify(images[0], LABELS)
+    launches = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+
+    norms = np.linalg.norm(embs, axis=-1)
+    say(f"  embed_images: {embs.shape}, finite={bool(np.isfinite(embs).all())}, "
+        f"norms in [{norms.min():.6f}, {norms.max():.6f}]")
+    say(f"  classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
+    say(f"  launches: after embed_images ln_qkv={after_embed[0]} "
+        f"flash={after_embed[1]}; after classify ln_qkv={launches[0]} flash={launches[1]}")
+    if embs.shape != (batch, vspec.cfg.embed_dim) or not np.isfinite(embs).all():
+        raise AssertionError("embed_images returned bad embeddings")
+    if np.abs(norms - 1).max() > 1e-2:
+        raise AssertionError("embeddings are not unit-norm")
+    probs = [p for _, p in results]
+    if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
+        raise AssertionError("classify returned bad probabilities")
+    if device == "cuda":
+        want = (depth_v, depth_v)
+        if after_embed != want or launches != (2 * depth_v + depth_t, 2 * depth_v + depth_t):
+            raise AssertionError(f"kernel launches {after_embed}/{launches} are not one "
+                                 "per layer per tower forward")
+
+    plain = VisionEmbedder(tower=clip.vision.tower, spec=vspec, config=clip.vision.config,
+                           model_config=clip.vision.model_config,
+                           model_dir=clip.vision.model_dir, device=device, dtype=dtype,
+                           attn_impl="eager")
+    cos = cosines(embs, plain.embed_images(images))
+    say(f"  kernel vs eager (bf16, same weights): min cosine {cos.min():.6f} (need >= 0.999)")
+    if cos.min() < 0.999:
+        raise AssertionError("the kernel path disagrees with the eager path")
+
+    out = {"launches": {"ln_qkv": launches[0], "flash_attention_packed": launches[1]}}
+    if not timed:
+        return out
+    arrays = [to_rgb_array(im) for im in images]
+    for impl in ("kernel", "kernel_fast", "eager"):
+        emb = VisionEmbedder(tower=clip.vision.tower, spec=vspec, config=clip.vision.config,
+                             model_config=clip.vision.model_config,
+                             model_dir=clip.vision.model_dir, device=device, dtype=dtype,
+                             attn_impl=impl)
+        emb.embed_images(arrays)  # warm-up
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            emb.embed_images(arrays)
+            times.append(time.perf_counter() - t)
+        ips = batch / statistics.median(times)
+        lat = []
+        for _ in range(20):
+            t = time.perf_counter()
+            emb.embed_image(arrays[0])
+            lat.append(time.perf_counter() - t)
+        p50 = statistics.median(lat) * 1e3
+        say(f"  {impl}: {ips:.2f} images/s at batch {batch} (median of 5, host clock, "
+            f"decoded arrays in, preprocess included); single image p50 {p50:.2f} ms")
+        out[impl] = {"images_per_s": ips, "p50_ms": p50}
+        if impl == "kernel":
+            bd = device_breakdown(lambda: emb.embed_images(arrays))
+            groups = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                bd["groups_ms"].items(), key=lambda kv: -kv[1]))
+            say(f"  {impl} batch {batch} under torch.profiler: device ms by kernel group: "
+                f"{groups}; busy {bd['busy_ms']:.3f} of {bd['wall_ms']:.3f} ms wall, "
+                f"idle share {bd['idle_share']:.3f}")
+            out["breakdown"] = bd
+    return out
+
+
+def main() -> int:
+    say("[1] environment")
+    if not torch.cuda.is_available():
+        say("  torch.cuda.is_available() is false: this script needs an NVIDIA card")
+        return 2
+    card = nvidia_smi()
+    cap = torch.cuda.get_device_capability(0)
+    say(f"  {card}")
+    say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, capability {cap[0]}.{cap[1]}, "
+        f"count {torch.cuda.device_count()}")
+    if cap != (9, 0):
+        say("  the kernels are built for sm_90a: need compute capability 9.0")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    peaks = peaks_for(card)
+
+    from clip_embedder_tpu_torch.ops import cuda as kernels
+
+    say("[2] build")
+    t = time.perf_counter()
+    libs = kernels.build_all()
+    say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
+        f"one process per source)")
+    for stem, path in sorted(libs.items()):
+        log = path.with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.is_file() else []):
+            if "registers" in line or "spill" in line:
+                say(f"  {stem}: {line.strip()}")
+
+    record = phase_kernels(dev, peaks)
+    phase_fixtures("cuda")
+    main_path = phase_main_path("cuda")
+    for name, n in main_path["launches"].items():
+        record[name]["launches"] = n
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    say(card)
+    say(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in record.values()]}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                          "kind": torch.cuda.get_device_name(0),
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,208 @@
+"""Config-driven architecture resolution: ``open_clip_config.json`` →
+``TowerSpec``.
+
+Counterpart of ``clip_embedder_tpu.models.build`` for the families ported so
+far: timm ViTs (SigLIP/SigLIP2, gap/avg/tok pools, register tokens),
+classic open_clip ViTs, and open_clip text transformers. Every other family
+raises ``ConfigError`` naming it as not yet ported.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any
+
+from ..config import ModelCfg
+from ..errors import ConfigError
+from .text_transformer import TextCfgResolved
+from .vit import ViTCfg
+
+# width, layers, heads, mlp_hidden for timm ViT size names.
+_TIMM_VIT_SIZES: dict[str, tuple[int, int, int, int]] = {
+    "tiny": (192, 12, 3, 768),
+    "small": (384, 12, 6, 1536),
+    "base": (768, 12, 12, 3072),
+    "large": (1024, 24, 16, 4096),
+    "huge": (1280, 32, 16, 5120),
+    "so150m": (896, 18, 14, 2304),
+    "so400m": (1152, 27, 16, 4304),
+    "giant": (1408, 40, 16, 6144),
+    "giantopt": (1536, 40, 16, 6144),
+    "gopt": (1536, 40, 16, 6144),
+}
+
+
+@dataclass(frozen=True)
+class TowerSpec:
+    """A resolved tower: family name + its config object."""
+
+    family: str  # "vit" | "text_transformer"
+    cfg: Any
+
+
+def _not_ported(what: str) -> ConfigError:
+    return ConfigError(f"{what} is not yet ported to the torch package")
+
+
+def _parse_timm_vit(name: str, vcfg, embed_dim: int, timm_pool: str | None,
+                    timm_proj: str | None) -> ViTCfg:
+    """Resolve a timm ViT name like ``vit_so400m_patch16_siglip_384``."""
+    size_key = None
+    for key in sorted(_TIMM_VIT_SIZES, key=len, reverse=True):
+        if f"_{key}_" in name or name.endswith(f"_{key}"):
+            size_key = key
+            break
+    if size_key is None:
+        raise ConfigError(f"Unknown timm ViT size in '{name}'")
+    width, layers, heads, mlp_hidden = _TIMM_VIT_SIZES[size_key]
+    override = vcfg.extra.get("vit_cfg", {})  # test/fixture hook
+    width = override.get("width", width)
+    layers = override.get("layers", layers)
+    heads = override.get("heads", heads)
+    mlp_hidden = override.get("mlp_hidden", mlp_hidden)
+
+    m = re.search(r"patch(\d+)", name)
+    if not m:
+        raise ConfigError(f"No patch size in timm model name '{name}'")
+    patch = int(m.group(1))
+    reg = re.search(r"_reg(\d+)", name)
+    reg_tokens = int(reg.group(1)) if reg else 0
+
+    is_siglip = "siglip" in name
+    norm_after_pool = False
+    if timm_pool:
+        pool = timm_pool
+    elif "gap" in name.split("_"):
+        pool = "gap"
+    elif is_siglip:
+        pool = "map"
+    else:
+        pool = "tok"
+    if pool == "avg":
+        pool = "gap"
+        norm_after_pool = True
+    if timm_proj == "mlp":
+        raise _not_ported("The timm_proj='mlp' head")
+
+    use_proj = (timm_proj or "linear") not in ("none", "")
+    return ViTCfg(
+        image_size=vcfg.image_size,
+        patch_size=patch,
+        width=width,
+        layers=layers,
+        heads=heads,
+        mlp_hidden=mlp_hidden,
+        embed_dim=embed_dim if use_proj else width,
+        activation="gelu_tanh" if is_siglip else "gelu",
+        use_class_token=(not is_siglip and pool != "gap" and reg_tokens == 0),
+        use_ln_pre=False,
+        pool=pool,
+        use_proj=use_proj,
+        proj_bias=True,
+        ln_eps=1e-6,
+        pos_embed_cls=(not is_siglip and pool != "gap" and reg_tokens == 0),
+        norm_after_pool=norm_after_pool,
+        reg_tokens=reg_tokens,
+    )
+
+
+def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
+    """open_clip vision_cfg → TowerSpec."""
+    v = model_cfg.vision_cfg
+    embed_dim = model_cfg.embed_dim
+
+    if v.timm_model_name:
+        name = v.timm_model_name
+        if "_pe_core_" in name or name.startswith("pe_core"):
+            raise _not_ported("The PE-Core vision tower (2-D axial rope)")
+        if name.startswith("eva02_"):
+            raise _not_ported("The EVA02 vision tower")
+        if name.startswith(("vit_", "eva_")):
+            return TowerSpec(
+                "vit", _parse_timm_vit(name, v, embed_dim, v.timm_pool, v.timm_proj))
+        if name.startswith(("fastvit", "mci", "mobileclip")):
+            raise _not_ported("The FastViT (MobileCLIP) vision tower")
+        if name.startswith("convnext"):
+            raise _not_ported("The ConvNeXt vision tower")
+        raise ConfigError(f"Unsupported timm vision tower '{name}'")
+
+    if isinstance(v.layers, (list, tuple)):
+        raise _not_ported("The ModifiedResNet vision tower")
+
+    # Classic open_clip ViT.
+    if v.layers is None or v.width is None:
+        raise ConfigError("vision_cfg requires layers/width or timm_model_name")
+    if v.patch_size is None:
+        raise ConfigError("vision_cfg requires patch_size for ViT towers")
+    if v.extra.get("attentional_pool", False):
+        raise _not_ported("The CoCa attentional pooler")
+    head_width = v.head_width or 64
+    mlp_ratio = v.mlp_ratio or 4.0
+    return TowerSpec(
+        "vit",
+        ViTCfg(
+            image_size=v.image_size,
+            patch_size=v.patch_size,
+            width=v.width,
+            layers=v.layers,
+            heads=v.width // head_width,
+            mlp_hidden=int(round(v.width * mlp_ratio)),
+            embed_dim=embed_dim,
+            activation="quick_gelu" if model_cfg.quick_gelu else "gelu",
+            use_class_token=True,
+            use_ln_pre=True,
+            pool="cls",
+            use_proj=True,
+            proj_bias=False,
+            ln_eps=1e-5,
+        ),
+    )
+
+
+def resolve_text(model_cfg: ModelCfg) -> TowerSpec:
+    """open_clip text_cfg → TowerSpec."""
+    t = model_cfg.text_cfg
+    if t.hf_model_name or t.extra.get("hf_model_name"):
+        raise _not_ported("The HF (BERT-style) text tower")
+    if t.extra.get("mct_cfg"):
+        raise _not_ported("The MCT hybrid text tower")
+    if t.extra.get("embed_cls", False):
+        raise _not_ported("The CoCa text tower (embed_cls)")
+
+    width = t.width or 512
+    heads = t.heads or width // 64
+    layers = t.layers or 12
+    vocab = t.vocab_size or 49408
+    mlp_ratio = t.extra.get("mlp_ratio", 4.0)
+    no_causal = bool(t.extra.get("no_causal_mask", False))
+    pool = t.extra.get("pool_type", "last" if no_causal else "argmax")
+    proj_bias = bool(t.extra.get("proj_bias", False))
+    act_kwargs = t.extra.get("act_kwargs") or {}
+    if model_cfg.quick_gelu:
+        activation = "quick_gelu"
+    elif act_kwargs.get("approximate") == "tanh":
+        activation = "gelu_tanh"
+    else:
+        activation = "gelu"
+    norm_kwargs = t.extra.get("norm_kwargs") or {}
+    ln_eps = float(norm_kwargs.get("eps", 1e-5))
+
+    return TowerSpec(
+        "text_transformer",
+        TextCfgResolved(
+            context_length=t.context_length,
+            vocab_size=vocab,
+            width=width,
+            heads=heads,
+            layers=layers,
+            mlp_hidden=int(round(width * mlp_ratio)),
+            embed_dim=model_cfg.embed_dim,
+            activation=activation,
+            causal=not no_causal,
+            pool=pool,
+            proj_bias=proj_bias,
+            ln_eps=ln_eps,
+            pad_id=int(t.extra.get("pad_id", 0)),
+        ),
+    )

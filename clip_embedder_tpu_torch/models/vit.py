@@ -1,0 +1,288 @@
+"""Vision Transformer towers.
+
+Counterpart of ``clip_embedder_tpu.models.vit``: one config-driven tower for
+
+* classic CLIP ViTs (class token, ln_pre, quick_gelu option, bias-free
+  projection, CLS pooling);
+* timm/SigLIP ViTs (no class token, tanh-gelu, the attention-pool "map"
+  head with a learned probe, layer scale, register tokens, gap pooling).
+
+Not yet ported, and refused with ``ConfigError``: 2-D axial rope (PE-Core,
+``rope_2d``), the CoCa attentional pooler (``pool="attn"``) and the
+``timm_proj="mlp"`` head.
+
+Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
+(py, px, c) order, matching the weight layout of the JAX package).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping
+
+import torch
+from torch import nn
+
+from ..errors import ConfigError
+from ..ops.attention import multi_head_attention
+from ..ops.layers import ACTIVATIONS, layer_norm, linear, mlp
+from ..ops.normalize import l2_normalize
+from ..weights import ParamTree, unstack
+
+
+@dataclass(frozen=True)
+class ViTCfg:
+    """Resolved architecture of one vision tower (same fields as the JAX
+    package's ``ViTCfg``; built by ``models.build.resolve_vision``)."""
+
+    image_size: int
+    patch_size: int
+    width: int
+    layers: int
+    heads: int
+    mlp_hidden: int
+    embed_dim: int
+    activation: str = "gelu"          # gelu | gelu_tanh | quick_gelu
+    use_class_token: bool = True
+    use_ln_pre: bool = True
+    pool: str = "cls"                 # cls | map | gap | tok
+    use_proj: bool = True
+    proj_bias: bool = False
+    use_layer_scale: bool = False
+    ln_eps: float = 1e-5
+    pos_embed_cls: bool = True
+    norm_after_pool: bool = False
+    reg_tokens: int = 0
+    rope_2d: bool = False
+    rope_temperature: float = 10000.0
+    pool_heads: int = 0
+    pool_mlp_hidden: int = 0
+    attn_pool_queries: int = 0
+    attn_pool_dim: int = 0
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def prefix_tokens(self) -> int:
+        return (1 if self.use_class_token else 0) + self.reg_tokens
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + self.prefix_tokens
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+def check_ported(cfg: ViTCfg) -> None:
+    if cfg.rope_2d:
+        raise ConfigError("2-D axial rope (PE-Core) is not yet ported to the "
+                          "torch package")
+    if cfg.pool not in ("cls", "tok", "map", "gap"):
+        raise ConfigError(f"vision pool '{cfg.pool}' is not yet ported to the "
+                          "torch package")
+
+
+def _normal(shape, std, gen, device, dtype):
+    t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (t * std).to(dtype)
+
+
+def _init_linear(gen, d_in, d_out, *, bias=True, std=None, layers=None,
+                 device="cpu", dtype=torch.float32):
+    lead = () if layers is None else (layers,)
+    std = std if std is not None else d_in ** -0.5
+    p = {"w": _normal(lead + (d_in, d_out), std, gen, device, dtype)}
+    if bias:
+        p["b"] = torch.zeros(lead + (d_out,), device=device, dtype=dtype)
+    return p
+
+
+def _init_ln(d, *, layers=None, device="cpu", dtype=torch.float32):
+    lead = () if layers is None else (layers,)
+    return {"scale": torch.ones(lead + (d,), device=device, dtype=dtype),
+            "bias": torch.zeros(lead + (d,), device=device, dtype=dtype)}
+
+
+def _init_attn(gen, width, *, layers=None, device="cpu", dtype=torch.float32):
+    return {n: _init_linear(gen, width, width, layers=layers, device=device, dtype=dtype)
+            for n in ("q", "k", "v", "out")}
+
+
+def init_blocks(gen, *, layers, width, mlp_hidden, layer_scale=False,
+                device="cpu", dtype=torch.float32) -> dict:
+    """Stacked block parameters ([layers, ...] leaves)."""
+    kw = {"layers": layers, "device": device, "dtype": dtype}
+    blocks = {
+        "ln1": _init_ln(width, **kw),
+        "attn": _init_attn(gen, width, **kw),
+        "ln2": _init_ln(width, **kw),
+        "mlp": {"fc": _init_linear(gen, width, mlp_hidden, **kw),
+                "proj": _init_linear(gen, mlp_hidden, width, **kw)},
+    }
+    if layer_scale:
+        for n in ("ls1", "ls2"):
+            blocks[n] = torch.full((layers, width), 1e-5, device=device, dtype=dtype)
+    return blocks
+
+
+def init(cfg: ViTCfg, *, generator: torch.Generator | None = None,
+         device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32) -> dict:
+    """Random-init parameter tree in the JAX package's layout (blocks
+    stacked on axis 0). ``device="meta"`` gives the shapes alone (and takes
+    no generator)."""
+    check_ported(cfg)
+    g, dev, dt = generator, device, dtype
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    params = {
+        "patch_embed": _init_linear(g, patch_dim, cfg.width, device=dev, dtype=dt),
+        "pos_embed": _normal(
+            (1, cfg.num_patches + (1 if cfg.pos_embed_cls else 0), cfg.width),
+            0.02, g, dev, dt),
+        "ln_post": _init_ln(cfg.width, device=dev, dtype=dt),
+    }
+    if cfg.use_class_token:
+        params["cls_token"] = _normal((1, 1, cfg.width), 0.02, g, dev, dt)
+    if cfg.reg_tokens:
+        params["reg_tokens"] = _normal((1, cfg.reg_tokens, cfg.width), 0.02, g, dev, dt)
+    if cfg.use_ln_pre:
+        params["ln_pre"] = _init_ln(cfg.width, device=dev, dtype=dt)
+    params["blocks"] = init_blocks(
+        g, layers=cfg.layers, width=cfg.width, mlp_hidden=cfg.mlp_hidden,
+        layer_scale=cfg.use_layer_scale, device=dev, dtype=dt)
+    if cfg.pool == "map":
+        pool_hidden = cfg.pool_mlp_hidden or cfg.mlp_hidden
+        params["attn_pool"] = {
+            "probe": _normal((1, 1, cfg.width), 0.02, g, dev, dt),
+            "attn": _init_attn(g, cfg.width, device=dev, dtype=dt),
+            "ln": _init_ln(cfg.width, device=dev, dtype=dt),
+            "mlp": {"fc": _init_linear(g, cfg.width, pool_hidden, device=dev, dtype=dt),
+                    "proj": _init_linear(g, pool_hidden, cfg.width, device=dev, dtype=dt)},
+        }
+    if cfg.use_proj:
+        params["proj"] = _init_linear(g, cfg.width, cfg.embed_dim, bias=cfg.proj_bias,
+                                      device=dev, dtype=dt)
+    return params
+
+
+def patchify(x: torch.Tensor, patch_size: int, channels_first: bool = False) -> torch.Tensor:
+    """[B, H, W, 3] (or [B, 3, H, W] with ``channels_first``) → [B, N, P·P·3]
+    patch rows in (py, px, c) order."""
+    p = patch_size
+    if channels_first:
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // p, p, w // p, p).permute(0, 2, 4, 3, 5, 1)
+    else:
+        b, h, w, c = x.shape
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+class Block(ParamTree):
+    """One pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x)),
+    with optional layer scale (``ls1``/``ls2``). Shared by the text tower."""
+
+    def __init__(self, params: Mapping, *, heads: int, activation: str, ln_eps: float):
+        super().__init__(params)
+        self.heads = heads
+        self.act = ACTIVATIONS[activation]
+        self.ln_eps = ln_eps
+
+    def forward(self, x: torch.Tensor, *, impl: str, mask=None) -> torch.Tensor:
+        if "ls1" in self:
+            h = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
+                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps)
+            x = x + h * self["ls1"]
+        else:
+            x = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
+                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps,
+                                     residual=x)
+        if "ls2" in self:
+            h = mlp(self["mlp"], x, activation=self.act, pre_ln=self["ln2"],
+                    ln_eps=self.ln_eps)
+            return x + h * self["ls2"]
+        return mlp(self["mlp"], x, activation=self.act, pre_ln=self["ln2"],
+                   ln_eps=self.ln_eps, residual=True)
+
+
+def blocks_from_tree(stacked: Mapping, *, layers: int, heads: int, activation: str,
+                     ln_eps: float) -> nn.ModuleList:
+    return nn.ModuleList(
+        Block(unstack(stacked, i), heads=heads, activation=activation, ln_eps=ln_eps)
+        for i in range(layers))
+
+
+class ViT(ParamTree):
+    """The vision tower over a parameter tree from ``init`` or
+    ``weights.load_pytree``."""
+
+    def __init__(self, cfg: ViTCfg, params: Mapping):
+        check_ported(cfg)
+        proj = params.get("proj")
+        if isinstance(proj, Mapping) and "fc" in proj:
+            raise ConfigError("the timm_proj='mlp' head is not yet ported to the "
+                              "torch package")
+        super().__init__({k: v for k, v in params.items() if k != "blocks"})
+        self.cfg = cfg
+        self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
+                                       activation=cfg.activation, ln_eps=cfg.ln_eps)
+        self.act = ACTIVATIONS[cfg.activation]
+
+    def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """timm AttentionPoolLatent: a learned probe cross-attends over the
+        tokens (plain attention on every impl), then a residual MLP."""
+        cfg, p = self.cfg, self["attn_pool"]
+        probe = p["probe"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
+        pooled = multi_head_attention(p["attn"], probe, kv=x,
+                                      num_heads=cfg.pool_heads or cfg.heads)
+        pooled = pooled + mlp(p["mlp"], layer_norm(p["ln"], pooled, eps=cfg.ln_eps),
+                              activation=self.act)
+        return pooled[:, 0]
+
+    def forward(self, pixels: torch.Tensor, *, attn_impl: str = "eager",
+                channels_first: bool = False, normalize: bool = True) -> torch.Tensor:
+        """[B, H, W, 3] preprocessed pixels ([B, 3, H, W] with
+        ``channels_first``) → [B, embed_dim]."""
+        cfg = self.cfg
+        x = linear(self["patch_embed"], patchify(pixels, cfg.patch_size, channels_first))
+        b = x.shape[0]
+        pos = self["pos_embed"].to(x.dtype)
+        prefix = []
+        if cfg.use_class_token:
+            prefix.append(self["cls_token"].to(x.dtype).expand(b, 1, cfg.width))
+        if cfg.reg_tokens:
+            prefix.append(self["reg_tokens"].to(x.dtype).expand(b, cfg.reg_tokens, cfg.width))
+        if pos.shape[1] == cfg.num_patches and prefix:
+            # timm no_embed_class: pos covers patches only
+            x = torch.cat(prefix + [x + pos], dim=1)
+        else:
+            x = torch.cat(prefix + [x], dim=1) if prefix else x
+            x = x + pos
+        if cfg.use_ln_pre:
+            x = layer_norm(self["ln_pre"], x, eps=cfg.ln_eps)
+
+        for blk in self.blocks:
+            x = blk(x, impl=attn_impl)
+
+        if cfg.pool == "map":
+            pooled = self._map_pool(layer_norm(self["ln_post"], x, eps=cfg.ln_eps))
+        elif cfg.pool == "gap":
+            start = cfg.prefix_tokens
+            if cfg.norm_after_pool:
+                pooled = layer_norm(self["ln_post"], x[:, start:].mean(dim=1), eps=cfg.ln_eps)
+            else:
+                x = layer_norm(self["ln_post"], x, eps=cfg.ln_eps)
+                pooled = x[:, start:].mean(dim=1)
+        else:  # cls / tok
+            pooled = layer_norm(self["ln_post"], x[:, 0], eps=cfg.ln_eps)
+
+        if cfg.use_proj and "proj" in self:
+            pooled = linear(self["proj"], pooled)
+        return l2_normalize(pooled) if normalize else pooled

@@ -1,0 +1,105 @@
+"""Core transformer layers as plain functions on tensors.
+
+Counterpart of ``clip_embedder_tpu.ops.layers``, with the same numerics
+contract:
+
+* LayerNorm statistics, softmax and activations compute in
+  ``promote(dtype, float32)`` — at least f32, so bf16 activations get f32
+  math, and f64 stays f64 for numerics checks;
+* a linear layer accumulates in f32 and adds its bias before the single
+  rounding to the activation dtype (``torch.addmm``; on the card cuBLAS
+  applies the bias in its f32 epilogue).
+
+Parameters use the JAX package's layout (see ``weights.py``): a linear is
+``{"w": [in, out], "b": [out]}``, a LayerNorm ``{"scale": [d], "bias": [d]}``.
+Any mapping with ``__getitem__``/``get``/``in`` works — nested dicts of
+tensors, or the ``weights.ParamTree`` modules the towers hold.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+
+def promote(dtype: torch.dtype) -> torch.dtype:
+    """Compute dtype: at least f32, f64 kept."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) — original CLIP's approximation, in ≥f32."""
+    x32 = x.to(promote(x.dtype))
+    return (x32 * torch.sigmoid(1.702 * x32)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) gelu, in ≥f32."""
+    return F.gelu(x.to(promote(x.dtype)), approximate="none").to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate gelu (timm default; SigLIP towers), in ≥f32."""
+    return F.gelu(x.to(promote(x.dtype)), approximate="tanh").to(x.dtype)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": gelu,
+    "gelu_tanh": gelu_tanh,
+    "quick_gelu": quick_gelu,
+    "relu": relu,
+}
+
+
+def layer_norm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: f32 statistics (two-pass variance),
+    affine in the compute dtype, one rounding back to ``x.dtype``."""
+    ct = promote(x.dtype)
+    x32 = x.to(ct)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(ct) + params["bias"].to(ct)
+    return y.to(x.dtype)
+
+
+def linear(params, x: torch.Tensor) -> torch.Tensor:
+    """Affine map on the last axis. ``w: [in, out]``; bias optional."""
+    w = params["w"].to(x.dtype)
+    b = params.get("b")
+    x2 = x.reshape(-1, x.shape[-1])
+    if b is None:
+        y = x2 @ w
+    else:
+        y = torch.addmm(b.to(x.dtype), x2, w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def mlp(
+    params,
+    x: torch.Tensor,
+    *,
+    activation: Callable[[torch.Tensor], torch.Tensor],
+    pre_ln=None,
+    ln_eps: float = 1e-6,
+    residual: bool = False,
+) -> torch.Tensor:
+    """Transformer MLP block: [LayerNorm →] linear → act → linear.
+
+    ``params``: {"fc": linear, "proj": linear}. ``residual=True`` (requires
+    ``pre_ln``) returns ``x + mlp(ln(x))``.
+    """
+    if residual and pre_ln is None:
+        raise ValueError("mlp(residual=True) requires pre_ln")
+    res = x if residual else None
+    if pre_ln is not None:
+        x = layer_norm(pre_ln, x, eps=ln_eps)
+    h = activation(linear(params["fc"], x))
+    h = linear(params["proj"], h)
+    return h if res is None else res + h

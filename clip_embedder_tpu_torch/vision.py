@@ -1,0 +1,177 @@
+"""VisionEmbedder: image → L2-normalized embedding.
+
+Counterpart of ``clip_embedder_tpu.vision`` (reference: src/vision.rs:20-140):
+``from_local_dir`` / ``from_local_id`` / ``from_hf``, ``embed_image(s)``,
+``preprocess_batch``, ``duplicate``. Preprocessing is the two-matmul resize
+of ``ops.preprocess`` on the device; the tower is ``models.vit.ViT``.
+
+The device is explicit: ``device=None`` means ``"cuda"``, which raises
+``DeviceError`` when CUDA is missing — the embedders never drop to the CPU
+on their own; ask for ``device="cpu"`` to run there.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import ModelConfig, OpenClipConfig
+from .errors import ConfigError, DeviceError, InferenceError
+from .model_manager import (
+    NATIVE_VISUAL,
+    get_default_base_folder,
+    get_hf_model,
+    verify_model_dir,
+)
+from .models.build import TowerSpec, resolve_vision
+from .models.vit import ViT
+from .ops.attention import ATTN_IMPLS
+from .ops.preprocess import Preprocessor
+from .utils.images import to_rgb_array
+from .weights import load_pytree, validate_tower_pytree
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``None`` → ``"cuda"``. A CUDA device must exist (``DeviceError``
+    otherwise); on it, TF32 is turned off for matmuls and convolutions, so
+    f32 products run in full f32 (the preprocess resize needs that for
+    Pillow pixel parity)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise DeviceError(f"Unsupported device '{dev}' (cuda or cpu)")
+    return dev
+
+
+def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
+    """``"auto"`` → ``"kernel"`` on CUDA and ``"eager"`` on the CPU;
+    explicit names are validated and kept (on the CPU the kernel impls run
+    the kernels' plain PyTorch versions)."""
+    if attn_impl == "auto":
+        return "kernel" if device.type == "cuda" else "eager"
+    if attn_impl not in ATTN_IMPLS:
+        raise ConfigError(f"Unknown attn_impl '{attn_impl}' (choices: auto, "
+                          f"{', '.join(ATTN_IMPLS)})")
+    return attn_impl
+
+
+def _load_visual(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
+    native = model_dir / NATIVE_VISUAL
+    if not native.is_file():
+        # the ONNX conversion / executor fallback is not yet ported
+        raise ConfigError(f"No native vision weights ({NATIVE_VISUAL}) in "
+                          f"{model_dir}; the ONNX path is not yet ported")
+    params = load_pytree(native, device=device, dtype=dtype)
+    validate_tower_pytree(params, spec, source=native)
+    return params
+
+
+class VisionEmbedder:
+    """Image tower + preprocessing (reference: src/vision.rs:20-27)."""
+
+    def __init__(
+        self,
+        *,
+        tower: nn.Module,
+        spec: TowerSpec,
+        config: OpenClipConfig,
+        model_config: ModelConfig,
+        model_dir: Path | str,
+        device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32,
+        attn_impl: str = "auto",
+    ):
+        self.device = resolve_device(device)
+        self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.tower = tower.to(self.device)
+        self.spec = spec
+        self.config = config
+        self.model_config = model_config
+        self.model_dir = Path(model_dir)
+        self.dtype = dtype
+        pp = config.preprocess_cfg
+        self.preprocessor = Preprocessor(
+            image_size=config.model_cfg.vision_cfg.image_size,
+            mean=pp.mean,
+            std=pp.std,
+            interpolation=pp.interpolation,
+            resize_mode=pp.resize_mode,
+            device=self.device,
+            out_dtype=dtype,
+            layout="nchw",  # the ViT's patchify reads channels-first
+        )
+
+    # -- construction (reference: src/vision.rs:31-84) ---------------------
+
+    @classmethod
+    def from_local_dir(
+        cls, model_dir: Path | str, *, device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+    ) -> "VisionEmbedder":
+        model_dir = Path(model_dir)
+        dev = resolve_device(device)
+        verify_model_dir(model_dir)
+        config = OpenClipConfig.from_file(model_dir / "open_clip_config.json")
+        model_config = ModelConfig.from_file(model_dir / "model_config.json")
+        spec = resolve_vision(config.model_cfg)
+        params = _load_visual(model_dir, spec, dev, dtype)
+        return cls(tower=ViT(spec.cfg, params), spec=spec, config=config,
+                   model_config=model_config, model_dir=model_dir, device=dev,
+                   dtype=dtype, attn_impl=attn_impl)
+
+    @classmethod
+    def from_local_id(
+        cls, model_id: str, *, base_folder: Path | str | None = None, **kw
+    ) -> "VisionEmbedder":
+        base = Path(base_folder) if base_folder else get_default_base_folder()
+        return cls.from_local_dir(base / model_id, **kw)
+
+    @classmethod
+    def from_hf(cls, model_id: str, **kw) -> "VisionEmbedder":
+        return cls.from_local_dir(get_hf_model(model_id), **kw)
+
+    def duplicate(self) -> "VisionEmbedder":
+        """A fresh instance sharing this one's weights
+        (reference: src/vision.rs:87-91)."""
+        return VisionEmbedder(
+            tower=self.tower, spec=self.spec, config=self.config,
+            model_config=self.model_config, model_dir=self.model_dir,
+            device=self.device, dtype=self.dtype, attn_impl=self.attn_impl,
+        )
+
+    # -- embedding (reference: src/vision.rs:94-117) -----------------------
+
+    def embed_image(self, image: Any) -> np.ndarray:
+        return self.embed_images([image])[0]
+
+    def embed_images(self, images: Sequence[Any]) -> np.ndarray:
+        """[N, embed_dim] f32 embeddings, L2-normalized."""
+        if len(images) == 0:
+            raise InferenceError("Empty batch")
+        arrays = [to_rgb_array(img) for img in images]
+        with torch.inference_mode():
+            pixels = self.preprocessor(arrays)  # [bucket, 3, S, S]
+            embs = self.tower(pixels, attn_impl=self.attn_impl, channels_first=True)
+            return embs[: len(arrays)].float().cpu().numpy()
+
+    # -- preprocessing only (reference: src/vision.rs:120-138) -------------
+
+    def preprocess(self, image: Any) -> np.ndarray:
+        return self.preprocess_batch([image])
+
+    def preprocess_batch(self, images: Sequence[Any]) -> np.ndarray:
+        """The preprocessed tensor in the reference's NCHW f32 layout
+        ([B, 3, S, S] — reference: src/vision.rs:120-135)."""
+        arrays = [to_rgb_array(img) for img in images]
+        with torch.inference_mode():
+            pixels = self.preprocessor(arrays)[: len(images)]
+            return pixels.float().cpu().numpy()

@@ -1,0 +1,156 @@
+"""The torch port end to end on the committed golden fixtures, on the CPU:
+``Clip.from_local_dir(fixture, device="cpu")`` reproduces the pinned
+embeddings and classify results (tests/test_golden.py's tolerances) and
+agrees with the JAX ``Clip`` on the same inputs."""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from clip_embedder_tpu import Clip as JaxClip
+from clip_embedder_tpu.tokenizer import Tokenizer as JaxTokenizer
+from clip_embedder_tpu_torch import Clip
+from clip_embedder_tpu_torch.errors import (ConfigError, InferenceError,
+                                            ModelFolderNotFoundError)
+from clip_embedder_tpu_torch.tokenizer import Tokenizer
+
+FIXTURES = Path(__file__).parent / "fixtures"
+PORTED = ["golden_siglip", "golden_model"]
+TEXTS = ["a photo of a cat", "the dog!"]
+
+
+def cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+@pytest.fixture(scope="module")
+def clips():
+    return {name: Clip.from_local_dir(FIXTURES / name, device="cpu") for name in PORTED}
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_golden_embeddings(clips, name):
+    fixture = FIXTURES / name
+    clip = clips[name]
+    img = np.load(fixture / "golden_image.npy")
+    golden = np.load(fixture / "golden_outputs.npz")
+    img_emb = clip.vision.embed_image(img)
+    assert cosines(img_emb, golden["image_embedding"]).min() > 1 - 1e-6
+    np.testing.assert_allclose(img_emb, golden["image_embedding"], atol=5e-4)
+    txt_emb = clip.text.embed_texts(TEXTS)
+    assert cosines(txt_emb, golden["text_embeddings"]).min() > 1 - 1e-6
+    np.testing.assert_allclose(txt_emb, golden["text_embeddings"], atol=5e-4)
+
+
+@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("impl", ["eager", "kernel", "kernel_fast"])
+def test_golden_classify(name, impl):
+    """Every attn impl (the kernel impls run the kernels' plain versions on
+    the CPU) keeps the golden label order and probabilities."""
+    fixture = FIXTURES / name
+    clip = Clip.from_local_dir(fixture, device="cpu", attn_impl=impl)
+    img = np.load(fixture / "golden_image.npy")
+    golden = json.loads((fixture / "golden_classify.json").read_text())
+    results = clip.classify(img, [label for label, _ in golden])
+    assert [r[0] for r in results] == [g[0] for g in golden]
+    # kernel_fast's bf16 exp (head dim 16 < 96) moves probabilities by ~2e-4
+    atol = 1e-3 if impl == "kernel_fast" else 1e-4
+    np.testing.assert_allclose([r[1] for r in results], [g[1] for g in golden], atol=atol)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_agrees_with_jax_clip(clips, name):
+    fixture = FIXTURES / name
+    jclip = JaxClip.from_local_dir(fixture)
+    clip = clips[name]
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in ((40, 48), (97, 61))]
+    texts = TEXTS + ["", "an unusually long caption " * 8]
+    np.testing.assert_allclose(clip.vision.embed_images(images),
+                               jclip.vision.embed_images(images), atol=1e-5)
+    np.testing.assert_allclose(clip.vision.preprocess_batch(images),
+                               jclip.vision.preprocess_batch(images), atol=1e-5)
+    np.testing.assert_allclose(clip.text.embed_texts(texts),
+                               jclip.text.embed_texts(texts), atol=1e-5)
+    for a, b in zip(clip.text.tokenize(texts), jclip.text.tokenize(texts)):
+        np.testing.assert_array_equal(a, b)
+    assert abs(clip.compare(images[0], TEXTS[0]) - jclip.compare(images[0], TEXTS[0])) < 1e-4
+    got = clip.rank_images(images, TEXTS[1])
+    ref = jclip.rank_images(images, TEXTS[1])
+    assert [i for i, _ in got] == [i for i, _ in ref]
+
+
+@pytest.mark.parametrize("name", [p.name for p in sorted(FIXTURES.iterdir())
+                                  if (p / "tokenizer.json").is_file()])
+def test_tokenizer_copy_matches_jax(name):
+    path = FIXTURES / name / "tokenizer.json"
+    texts = ["A photo of a CAT.", "the dog!", "", "naïve café, 2 beignets", "x" * 300]
+    ours, ref = Tokenizer.from_file(path), JaxTokenizer.from_file(path)
+    for tok in (ours, ref):
+        tok.with_padding(length=16, pad_id=0)
+        tok.with_truncation(max_length=16)
+    for a, b in zip(ours.encode_batch(texts), ref.encode_batch(texts)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_duplicate_shares_weights(clips):
+    clip = clips["golden_model"]
+    dup = clip.duplicate()
+    assert dup.vision.tower is clip.vision.tower and dup.text.tower is clip.text.tower
+    img = np.load(FIXTURES / "golden_model" / "golden_image.npy")
+    np.testing.assert_array_equal(dup.vision.embed_image(img), clip.vision.embed_image(img))
+    np.testing.assert_array_equal(dup.text.embed_text("a cat"), clip.text.embed_text("a cat"))
+
+
+def test_error_surface(clips, tmp_path):
+    clip = clips["golden_siglip"]
+    with pytest.raises(InferenceError, match="Empty batch"):
+        clip.vision.embed_images([])
+    with pytest.raises(InferenceError, match="Empty batch"):
+        clip.text.embed_texts([])
+    with pytest.raises(ModelFolderNotFoundError):
+        Clip.from_local_dir(tmp_path / "nope", device="cpu")
+    with pytest.raises(ConfigError, match="attn_impl"):
+        Clip.from_local_dir(FIXTURES / "golden_siglip", device="cpu", attn_impl="pallas")
+
+
+def test_onnx_only_dir_is_refused(tmp_path):
+    """Without native npz weights the port has no path yet (the ONNX
+    conversion and executor are not ported): a typed error, not a crash."""
+    src = FIXTURES / "golden_model"
+    for f in ("open_clip_config.json", "model_config.json", "tokenizer.json", "text.npz"):
+        (tmp_path / f).write_bytes((src / f).read_bytes())
+    (tmp_path / "visual.onnx").write_bytes(b"")
+    with pytest.raises(ConfigError, match="ONNX path is not yet ported"):
+        Clip.from_local_dir(tmp_path, device="cpu")
+
+
+def test_auto_impl_is_eager_on_cpu(clips):
+    assert clips["golden_siglip"].vision.attn_impl == "eager"
+    assert clips["golden_siglip"].text.attn_impl == "eager"
+    assert clips["golden_siglip"].vision.tower.patch_embed.w.device == torch.device("cpu")
+
+
+def test_chip_smoke_main_path_rehearses_on_cpu():
+    """chip_smoke.py's main-path phase (ViT-SO400M-16-SigLIP2-384 through the
+    port's config → build → Clip) at full width, cut to one layer and a
+    small vocabulary, on the CPU: unit-norm embeddings, sorted probabilities,
+    and the plain path agreeing with itself."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.phase_main_path("cpu", torch.float32, layers=1, vocab_size=512, batch=3,
+                                timed=False)
+    assert out["launches"] == {"ln_qkv": 0, "flash_attention_packed": 0}
+    _, vspec, tspec = smoke.build_clip("cpu", torch.float32, layers=1, vocab_size=512)
+    assert (vspec.cfg.width, vspec.cfg.heads, vspec.cfg.head_dim, vspec.cfg.seq_len,
+            vspec.cfg.mlp_hidden, vspec.cfg.pool) == (1152, 16, 72, 576, 4304, "map")
+    assert (tspec.cfg.width, tspec.cfg.mlp_hidden, tspec.cfg.context_length,
+            tspec.cfg.pool, tspec.cfg.causal) == (1152, 4304, 64, "last", False)

@@ -1,0 +1,170 @@
+"""The CUDA kernels' plain PyTorch versions against the JAX Pallas kernels
+(run in interpret mode on the CPU), and the wrappers' dispatch and gates.
+
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
+and chip_smoke.py hold them against these plain versions there).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clip_embedder_tpu.ops.attention import causal_mask as jcausal
+from clip_embedder_tpu.ops.flash import flash_attention_packed as jflash
+from clip_embedder_tpu.ops.qkv import ln_qkv as jln_qkv
+from clip_embedder_tpu_torch.ops import attention as tattn
+from clip_embedder_tpu_torch.ops import flash, qkv
+
+
+def _arr(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _qkv_case(width=256, rows=(2, 61), seed=0):
+    rng = np.random.default_rng(seed)
+    params = {n: {"w": _arr(rng, width, width, scale=0.03), "b": _arr(rng, width, scale=0.01)}
+              for n in "qkv"}
+    pre_ln = {"scale": 1 + _arr(rng, width, scale=0.1), "bias": _arr(rng, width, scale=0.01)}
+    return params, pre_ln, _arr(rng, *rows, width)
+
+
+def _tree(tree, fn):
+    return {k: _tree(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _bf16_ulp(x):
+    """One bf16 unit in the last place at each element's magnitude."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_plain_matches_jax_kernel(dtype):
+    params, pre_ln, x = _qkv_case()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jln_qkv(_tree(params, lambda a: jnp.asarray(a, jdt)),
+                  _tree(pre_ln, jnp.asarray), jnp.asarray(x, jdt), eps=1e-6, interpret=True)
+    got = qkv.ln_qkv(_tree(params, lambda a: torch.from_numpy(a).to(tdt)),
+                     _tree(pre_ln, torch.from_numpy), torch.from_numpy(x).to(tdt), eps=1e-6)
+    for g, r in zip(got, ref):
+        assert g.dtype == tdt and g.shape == (2, 61, 256)
+        g, r = g.float().numpy(), np.asarray(r, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=1e-6, rtol=0)
+        else:
+            # x̂ rounds to bf16 after f32 statistics summed in another
+            # order: an output may land one rounding step away (ulps
+            # taken at ≥1e-3, as near-zero outputs are cancellations)
+            mag = np.maximum(np.maximum(np.abs(g), np.abs(r)), 1e-3)
+            assert (np.abs(g - r) <= _bf16_ulp(mag)).all()
+
+
+def _attn_case(b, s, h, d, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    return [_arr(rng, b, s, h * d) for _ in range(3)]
+
+
+def _run_both(arrs, dtype, h, **kw):
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jmask = kw.pop("mask", None)
+    tmask = None if jmask is None else torch.from_numpy(np.array(jmask))
+    ref = jflash(*(jnp.asarray(a, jdt) for a in arrs), num_heads=h, mask=jmask,
+                 interpret=True, **kw)
+    got = flash.flash_attention_packed(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                                       num_heads=h, mask=tmask, **kw)
+    return got.float().numpy(), np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 16, 61, 72), (2, 8, 64, 64), (1, 16, 33, 8)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_plain_matches_jax_kernel(b, h, s, d, fast):
+    got, ref = _run_both(_attn_case(b, s, h, d, "float32"), "float32", h, fast_softmax=fast)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+
+
+def test_flash_plain_matches_jax_kernel_causal():
+    b, h, s, d = 2, 8, 77, 64
+    got, ref = _run_both(_attn_case(b, s, h, d, "float32", seed=6), "float32", h,
+                         mask=jcausal(s))
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_plain_matches_jax_kernel_bf16_exp_bf16(fast):
+    b, h, s, d = 2, 16, 32, 72
+    got, ref = _run_both(_attn_case(b, s, h, d, "bfloat16", seed=7), "bfloat16", h,
+                         fast_softmax=fast, exp_bf16=True)
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_flash_plain_lane_multiple_head_dim_sums_unrounded_p():
+    """D a multiple of 128: the denominator is the f32 sum of p itself."""
+    b, h, s, d = 1, 2, 16, 128
+    got, ref = _run_both(_attn_case(b, s, h, d, "bfloat16", seed=8), "bfloat16", h)
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_flash_mask_forms():
+    q = torch.zeros(2, 8, 32)
+    for m in (torch.zeros(8, 8), torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, 1, 8)):
+        assert flash.shared_mask(m, 2, 8).shape == (8, 8)
+    for m in (torch.zeros(2, 1, 1, 8), torch.zeros(2, 1, 8, 8)):
+        with pytest.raises(ValueError, match="per-batch"):
+            flash.flash_attention_packed(q, q, q, num_heads=4, mask=m)
+    with pytest.raises(ValueError, match="unsupported mask"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, mask=torch.zeros(2, 4, 8, 8))
+    with pytest.raises(NotImplementedError, match="rope"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, rope=(q, q))
+
+
+def test_kernel_gates():
+    assert qkv.tile_config(1152, torch.bfloat16) == (256, 128)
+    assert qkv.tile_config(1536, torch.bfloat16) == (256, 128)
+    assert qkv.tile_config(1728, torch.bfloat16) == (64, 64)     # not a 128-multiple
+    assert qkv.tile_config(64, torch.bfloat16) == (64, 64)
+    assert qkv.tile_config(1152, torch.float32) == (64, 64)
+    assert qkv.tile_config(64, torch.float32) == (64, 64)
+    assert qkv.tile_config(100, torch.float32) is None          # not a 64-multiple
+    assert qkv.tile_config(1152, torch.float16) is None         # dtype
+    x = torch.zeros(2, 3, 64)
+    square = {n: {"w": torch.zeros(64, 64)} for n in "qkv"}
+    assert qkv.fits_fused_qkv(square, x)
+    assert not qkv.fits_fused_qkv({**square, "v": {"w": torch.zeros(64, 32)}}, x)
+    assert not qkv.fits_fused_qkv(square, x.to(torch.bfloat16))     # weight dtype
+    assert not qkv.fits_fused_qkv({**square, "k": {"w_q": torch.zeros(64, 64)}}, x)
+    t = torch.zeros(2, 5, 4 * 72)
+    assert flash.fits_packed(t, t, t, 4)
+    assert not flash.fits_packed(t, t[:, :3], t[:, :3], 4)           # cross-attention
+    assert not flash.fits_packed(*(torch.zeros(1, 5, 2 * 160),) * 3, 2)  # D > 128
+
+
+@pytest.mark.parametrize("impl", ["kernel", "kernel_fast"])
+def test_mha_kernel_impl_dispatches_to_both_kernels(impl, monkeypatch):
+    """On the kernel impls, pre-LN self-attention goes through ln_qkv and
+    flash_attention_packed (their plain versions on the CPU), with the
+    kernel_fast flags of the JAX package's pallas_fast."""
+    calls = []
+    real_qkv, real_flash = qkv.ln_qkv, flash.flash_attention_packed
+
+    def spy_qkv(*a, **kw):
+        calls.append("ln_qkv")
+        return real_qkv(*a, **kw)
+
+    def spy_flash(*a, **kw):
+        calls.append(("flash", kw["fast_softmax"], kw["exp_bf16"]))
+        return real_flash(*a, **kw)
+
+    monkeypatch.setattr(tattn, "ln_qkv", spy_qkv)
+    monkeypatch.setattr(tattn, "flash_attention_packed", spy_flash)
+    rng = np.random.default_rng(9)
+    p = {n: {"w": torch.from_numpy(_arr(rng, 64, 64, scale=0.125)),
+             "b": torch.from_numpy(_arr(rng, 64, scale=0.1))} for n in ("q", "k", "v", "out")}
+    ln = {"scale": torch.ones(64), "bias": torch.zeros(64)}
+    x = torch.from_numpy(_arr(rng, 2, 9, 64))
+    got = tattn.multi_head_attention(p, x, num_heads=4, impl=impl, pre_ln=ln, residual=x)
+    ref = tattn.multi_head_attention(p, x, num_heads=4, impl="eager", pre_ln=ln, residual=x)
+    fast = impl == "kernel_fast"
+    assert calls == ["ln_qkv", ("flash", fast, fast)]
+    # exp_bf16 (d=16 < 96) rounds the softmax weights to bf16
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-2 if fast else 1e-6)
