@@ -10,16 +10,23 @@ card, in phases, and fail loudly if any phase fails.
 3. kernels — each kernel against its plain PyTorch version at the main
    path's shapes (max error beside the tolerance), and its time (CUDA
    events, median of 20) beside the plain version's, one PyTorch library
-   call's (a yardstick the port never calls) and the bound;
+   call's or, for the int8 kernels, a composition of PyTorch ops around
+   ``torch._int_mm`` (a yardstick the port never calls) and the bound;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
-   embeddings and classify results;
+   embeddings and classify results; ``golden_siglip`` under
+   ``quantize="int8"`` and ``"int8_all"`` against the same on the CPU;
 5. main path — ViT-SO400M-16-SigLIP2-384 (vision + SigLIP text tower) at
    full width and depth with seeded random bf16 weights through ``Clip``:
    ``embed_images`` on a mixed-size batch of the JPEGs under ``assets/img``
    and ``classify``; unit norms, launch counts (27 per tower forward per
    kernel), kernel-vs-plain cosine, images/s at batch 32 and the p50 latency
-   of one image.
+   of one image;
+6. int8 paths — the same ``Clip`` with phase 5's weights quantized on the
+   card, under ``quantize="int8"`` and ``"int8_all"``: unit norms, the int8
+   kernels' launch counts, the kernel path against the same ``Clip`` with
+   the int8 wrappers swapped for their plain versions, the cosine to the
+   bf16 path (printed only: random weights), images/s and p50.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -46,9 +53,10 @@ IMAGES = REPO / "assets" / "img"
 # (non-tensor) FLOP/s, device-memory bytes/s. Rates assume the full power
 # limit (700 W SXM, 350 W PCIe).
 PEAKS = {
-    "sxm": {"bf16": 989e12, "f32": 67e12, "bytes": 3.35e12},
-    "pcie": {"bf16": 756e12, "f32": 51e12, "bytes": 2.0e12},
+    "sxm": {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "bytes": 3.35e12},
+    "pcie": {"bf16": 756e12, "int8": 1513e12, "f32": 51e12, "bytes": 2.0e12},
 }
+QUANT_MODES = ("int8", "int8_all")
 
 # open_clip model_configs/ViT-SO400M-16-SigLIP2-384.json, written out here.
 SO400M_SIGLIP2_384 = {
@@ -243,6 +251,189 @@ def phase_kernels(dev, peaks) -> dict:
     }
 
 
+def hold_int8(name, got, ref, dtype) -> float:
+    """Kernel against plain for the int8 kernels. The LayerNorm's row sums
+    are taken in another order, which can flip an int8 code by one and move
+    that row (through the MLP's requantization, a few more codes). So fail
+    unless at most 2% of the rows leave atol + rtol·|ref| (f32: 1e-5 and
+    1e-5; bf16: 0 and one bf16 step, 2^-7 of the larger magnitude) and
+    every row keeps a cosine of at least 1 - 1e-4 to its plain row."""
+    n_rows = off_total = 0
+    cos_min = 1.0
+    for g, r in zip(got, ref):
+        g = g.float().reshape(-1, g.shape[-1])
+        r = r.float().reshape(-1, r.shape[-1])
+        if dtype == torch.float32:
+            base = 1e-5 + 1e-5 * r.abs()
+        else:
+            base = 2.0 ** -7 * torch.maximum(g.abs(), r.abs())
+        off_total += int(((g - r).abs() > base).any(dim=-1).sum())
+        n_rows += g.shape[0]
+        cos = (g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1)).clamp_min(1e-30)
+        cos_min = min(cos_min, float(cos.min()))
+    err = max_err(got, ref)
+    off_rows = off_total / n_rows
+    ok = off_rows <= 0.02 and cos_min >= 1 - 1e-4
+    say(f"  {name}: max_abs_err={err:.3e}, rows off the base tolerance {off_rows:.4%} "
+        f"(need <= 2%), min row cosine {cos_min:.8f} (need >= 1-1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def int8_inputs(rows, k_in, k_out, dtype, dev, *, hidden=None, seed=2):
+    """A quantized linear [k_in, k_out] (or an MLP k_in → hidden → k_in),
+    quantized on the card from weights in ``dtype``, a LayerNorm and x."""
+    from clip_embedder_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def qlinear(k, n):
+        return {**quantize_weight(t(k, n, scale=k ** -0.5)), "b": t(n, scale=0.1)}
+
+    params = ({"fc": qlinear(k_in, hidden), "proj": qlinear(hidden, k_in)}
+              if hidden else qlinear(k_in, k_out))
+    pre_ln = {"scale": 1 + t(k_in, scale=0.1), "bias": t(k_in, scale=0.1)}
+    return params, pre_ln, t(rows, k_in)
+
+
+def _lib_row_quant(x32):
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    xs = torch.where(amax == 0, 1.0, amax / 127.0)
+    return torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8), xs
+
+
+def _col_major(w):
+    return w.t().contiguous().t()
+
+
+def int8_linear_library(p, w_cm, x, residual):
+    """Row quant, torch._int_mm (cuBLASLt) and the epilogue as PyTorch ops."""
+    xq, xs = _lib_row_quant(x.float())
+    y = torch._int_mm(xq, w_cm).float() * (xs * p["w_scale"]) + p["b"].float()
+    return (y + residual.float()).to(x.dtype)
+
+
+def ln_qkv_int8_library(s_cat, b_cat, w_cm, pre_ln, x, eps):
+    import torch.nn.functional as F
+
+    w = x.shape[-1]
+    y = F.layer_norm(x.float(), (w,), pre_ln["scale"].float(), pre_ln["bias"].float(), eps)
+    yq, xs = _lib_row_quant(y)
+    o = torch._int_mm(yq, w_cm).float() * (xs * s_cat) + b_cat
+    return o.to(x.dtype).split(w, dim=-1)
+
+
+def int8_mlp_library(p, w1_cm, w2_cm, pre_ln, x, eps):
+    import torch.nn.functional as F
+
+    w = x.shape[-1]
+    y = F.layer_norm(x.float(), (w,), pre_ln["scale"].float(), pre_ln["bias"].float(), eps)
+    xq, xs = _lib_row_quant(y)
+    h = torch._int_mm(xq, w1_cm).float() * (xs * p["fc"]["w_scale"]) + p["fc"]["b"].float()
+    hq, hs = _lib_row_quant(F.gelu(h, approximate="tanh"))
+    out = torch._int_mm(hq, w2_cm).float() * (hs * p["proj"]["w_scale"]) \
+        + p["proj"]["b"].float() + x.float()
+    return out.to(x.dtype)
+
+
+def phase_int8_kernels(dev, peaks) -> dict:
+    from clip_embedder_tpu_torch.ops import int8_mlp, qkv
+
+    width, hidden, seq, eps = 1152, 4304, 576, 1e-6
+    say("[3] int8 kernels against their plain versions (main-path shapes)")
+    for b in (8, 32):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = b * seq
+            p, ln, x = int8_inputs(rows, width, width, dtype, dev, hidden=hidden)
+            kw = {"activation": "gelu_tanh", "pre_ln": ln, "add_residual": True}
+            got = int8_mlp.int8_mlp(p, x, **kw)
+            torch.cuda.synchronize()
+            hold_int8(f"int8_mlp rows={b}x576 1152->4304->1152 gelu_tanh+LN+res {dtype}",
+                      [got], [int8_mlp.int8_mlp_plain(p, x, **kw)], dtype)
+            qp = {n: int8_inputs(1, width, width, dtype, dev, seed=3 + i)[0]
+                  for i, n in enumerate("qkv")}
+            got = qkv.ln_qkv_int8(qp, ln, x, eps=eps)
+            torch.cuda.synchronize()
+            hold_int8(f"ln_qkv_int8 rows={b}x576 W=1152 {dtype}", got,
+                      qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps), dtype)
+            r = x.flip(0).contiguous()
+            got = int8_mlp.int8_linear_fused(qp["q"], x, residual=r)
+            torch.cuda.synchronize()
+            hold_int8(f"int8_linear_fused rows={b}x576 1152x1152 +residual {dtype}", [got],
+                      [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype)
+
+    say("[3] int8 kernel times at batch 32, bf16 (CUDA events, median of 20 back-to-back "
+        "calls); library = PyTorch ops around torch._int_mm")
+    rows, es = 32 * seq, 2
+    dtype = torch.bfloat16
+    p, ln, x = int8_inputs(rows, width, width, dtype, dev, hidden=hidden)
+    qp = {n: int8_inputs(1, width, width, dtype, dev, seed=3 + i)[0]
+          for i, n in enumerate("qkv")}
+    r = x.flip(0).contiguous()
+    kw = {"activation": "gelu_tanh", "pre_ln": ln, "add_residual": True}
+    errs = {
+        "int8_mlp": hold_int8("int8_mlp rows=32x576 bf16", [int8_mlp.int8_mlp(p, x, **kw)],
+                              [int8_mlp.int8_mlp_plain(p, x, **kw)], dtype),
+        "ln_qkv_int8": hold_int8("ln_qkv_int8 rows=32x576 bf16", qkv.ln_qkv_int8(qp, ln, x),
+                                 qkv.ln_qkv_int8_plain(qp, ln, x), dtype),
+        "int8_linear_fused": hold_int8(
+            "int8_linear_fused rows=32x576 +residual bf16",
+            [int8_mlp.int8_linear_fused(qp["q"], x, residual=r)],
+            [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype),
+    }
+    w1_cm, w2_cm = _col_major(p["fc"]["w_q"]), _col_major(p["proj"]["w_q"])
+    wqkv_cm = _col_major(torch.cat([qp[n]["w_q"] for n in "qkv"], dim=1))
+    s_cat = torch.cat([qp[n]["w_scale"] for n in "qkv"])
+    b_cat = torch.cat([qp[n]["b"].float() for n in "qkv"])
+    wq_cm = _col_major(qp["q"]["w_q"])
+    calls = {
+        "int8_mlp": (lambda: int8_mlp.int8_mlp(p, x, **kw),
+                     lambda: int8_mlp.int8_mlp_plain(p, x, **kw),
+                     lambda: int8_mlp_library(p, w1_cm, w2_cm, ln, x, eps)),
+        "ln_qkv_int8": (lambda: qkv.ln_qkv_int8(qp, ln, x, eps=eps),
+                        lambda: qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps),
+                        lambda: ln_qkv_int8_library(s_cat, b_cat, wqkv_cm, ln, x, eps)),
+        "int8_linear_fused": (lambda: int8_mlp.int8_linear_fused(qp["q"], x, residual=r),
+                              lambda: int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r),
+                              lambda: int8_linear_library(qp["q"], wq_cm, x, r)),
+    }
+    vec = 4 * 2  # an f32 scale and bias per output column
+    work = {  # (operations, bytes: each input read once, each output written once)
+        "int8_mlp": (4 * rows * width * hidden,
+                     2 * rows * width * es + 2 * width * hidden + vec * (hidden + width)
+                     + 4 * 2 * width),
+        "ln_qkv_int8": (6 * rows * width * width,
+                        4 * rows * width * es + 3 * width * width + 3 * vec * width
+                        + 4 * 2 * width),
+        "int8_linear_fused": (2 * rows * width * width,
+                              3 * rows * width * es + width * width + vec * width),
+    }
+    sources = {"int8_mlp": ("int8_mlp.cu", "clip_embedder_tpu/ops/int8_mlp.py:181"),
+               "ln_qkv_int8": ("ln_qkv_int8.cu", "clip_embedder_tpu/ops/qkv.py:142"),
+               "int8_linear_fused": ("int8_linear.cu",
+                                     "clip_embedder_tpu/ops/int8_mlp.py:511")}
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        t_k, t_p, t_l = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+        ops, nbytes = work[name]
+        t_ops, t_bytes = ops / peaks["int8"], nbytes / peaks["bytes"]
+        bound = max(t_ops, t_bytes) * 1e3
+        say(f"  {name}: {t_k:.4f} ms; plain {t_p:.4f} ms; library {t_l:.4f} ms; bound "
+            f"{bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B)")
+        src, tpu = sources[name]
+        out[name] = {"name": name, "route": "cuda",
+                     "source": f"clip_embedder_tpu_torch/csrc/{src}", "replaces": tpu,
+                     "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "library_ms": t_l}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: fixtures
 # ---------------------------------------------------------------------------
@@ -281,16 +472,49 @@ def phase_fixtures(device) -> None:
             raise AssertionError(f"{name} does not reproduce its golden outputs")
         if device == "cuda" and not (n1[0] > n0[0] and n1[1] > n0[1]):
             raise AssertionError(f"{name} did not go through both kernels")
+    phase_fixtures_quantized(device)
+
+
+def phase_fixtures_quantized(device) -> None:
+    """golden_siglip under both int8 modes, f32: the device's path (the
+    fused kernels on the card) against the CPU's (the unfused path), at
+    cosine >= 1 - 1e-4. The kernels sum a LayerNorm's row in another order
+    than PyTorch does, which can flip one int8 code; in this 64-wide model
+    one flipped code in the text tower's first block moves a text embedding
+    by 6.3e-5 in cosine (measured on the H100), so 1 - 1e-5 would test the
+    luck of the rounding, not the kernels."""
+    from clip_embedder_tpu_torch import Clip
+    from clip_embedder_tpu_torch.ops import int8_mlp, qkv
+
+    fixture = FIXTURES / "golden_siglip"
+    img = np.load(fixture / "golden_image.npy")
+    texts = ["a photo of a cat", "the dog!"]
+    for mode in QUANT_MODES:
+        n0 = (int8_mlp.int8_mlp.launches, qkv.ln_qkv_int8.launches)
+        clip = Clip.from_local_dir(fixture, device=device, quantize=mode)
+        got = (clip.vision.embed_image(img), clip.text.embed_texts(texts))
+        n1 = (int8_mlp.int8_mlp.launches, qkv.ln_qkv_int8.launches)
+        cpu = Clip.from_local_dir(fixture, device="cpu", quantize=mode)
+        ref = (cpu.vision.embed_image(img), cpu.text.embed_texts(texts))
+        cos = min(float(np.min(cosines(g, r))) for g, r in zip(got, ref))
+        say(f"  golden_siglip quantize={mode}: {device} against the CPU, min cos={cos:.9f} "
+            f"(need >= 1-1e-4); launches int8_mlp+{n1[0] - n0[0]} "
+            f"ln_qkv_int8+{n1[1] - n0[1]}")
+        if cos < 1 - 1e-4:
+            raise AssertionError(f"golden_siglip quantize={mode} disagrees with the CPU")
+        if device == "cuda" and not (n1[0] > n0[0] and (n1[1] > n0[1]) == (mode == "int8_all")):
+            raise AssertionError(f"golden_siglip quantize={mode} missed its int8 kernels")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the full-width main path
 # ---------------------------------------------------------------------------
 
-def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0):
+def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None):
     """ViT-SO400M-16-SigLIP2-384 ``Clip`` with seeded random weights, resolved
     through the port's config → build (``layers``/``vocab_size`` cut it for a
-    CPU rehearsal)."""
+    CPU rehearsal); ``quantize`` converts those same weights on the device,
+    as ``from_local_dir(..., quantize=...)`` converts loaded ones."""
     import copy
 
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
@@ -299,6 +523,7 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0):
     from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
     from clip_embedder_tpu_torch.text import configure_tokenizer
     from clip_embedder_tpu_torch.tokenizer import Tokenizer
+    from clip_embedder_tpu_torch.vision import quantize_params
 
     model_cfg = copy.deepcopy(SO400M_SIGLIP2_384)
     if layers is not None:
@@ -314,13 +539,13 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0):
     configure_tokenizer(tokenizer, model_config, config.model_cfg.text_cfg.context_length)
     vspec, tspec = resolve_vision(config.model_cfg), resolve_text(config.model_cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    vtower = vit.ViT(vspec.cfg, vit.init(vspec.cfg, generator=gen, device=device,
-                                         dtype=dtype))
+    vparams = vit.init(vspec.cfg, generator=gen, device=device, dtype=dtype)
+    tparams = text_transformer.init(tspec.cfg, generator=gen, device=device, dtype=dtype)
+    vtower = vit.ViT(vspec.cfg, quantize_params(vparams, vspec, quantize, device, dtype))
     ttower = text_transformer.TextTransformer(
-        tspec.cfg, text_transformer.init(tspec.cfg, generator=gen, device=device,
-                                         dtype=dtype))
+        tspec.cfg, quantize_params(tparams, tspec, quantize, device, dtype))
     common = {"config": config, "model_config": model_config, "model_dir": fixture,
-              "device": device, "dtype": dtype}
+              "device": device, "dtype": dtype, "quantize": quantize}
     vision = VisionEmbedder(tower=vtower, spec=vspec, **common)
     text = TextEmbedder(tower=ttower, spec=tspec, tokenizer=tokenizer, **common)
     return Clip(vision=vision, text=text, model_dir=fixture), vspec, tspec
@@ -346,6 +571,10 @@ def mixed_batch(n: int) -> list:
 
 def kernel_group(name: str) -> str:
     n = name.lower()
+    if "i8::row_quant_kernel" in n:
+        return "int8 row passes (LayerNorm + quantization)"
+    if "i8::gemm_kernel" in n:
+        return "int8 products (with their epilogues)"
     if "qkv_gemm_kernel" in n or "ln_kernel<" in n:
         return "ln_qkv"
     if "flash" in n:
@@ -381,7 +610,6 @@ def device_breakdown(fn) -> dict:
 def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
                     batch=32, timed=True) -> dict:
     from clip_embedder_tpu_torch import VisionEmbedder
-    from clip_embedder_tpu_torch.ops import flash, qkv
     from clip_embedder_tpu_torch.utils.images import to_rgb_array
 
     say(f"[5] main path: ViT-SO400M-16-SigLIP2-384, {dtype}, random weights (seed 0)")
@@ -394,12 +622,13 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     images = mixed_batch(batch)
     depth_v, depth_t = vspec.cfg.layers, tspec.cfg.layers
 
-    qkv.ln_qkv.launches = 0
-    flash.flash_attention_packed.launches = 0
+    reset_launch_counts()
     embs = clip.vision.embed_images(images)
-    after_embed = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+    n = launch_counts()
+    after_embed = (n["ln_qkv"], n["flash_attention_packed"])
     results = clip.classify(images[0], LABELS)
-    launches = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+    n = launch_counts()
+    launches = (n["ln_qkv"], n["flash_attention_packed"])
 
     norms = np.linalg.norm(embs, axis=-1)
     say(f"  embed_images: {embs.shape}, finite={bool(np.isfinite(embs).all())}, "
@@ -429,7 +658,8 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     if cos.min() < 0.999:
         raise AssertionError("the kernel path disagrees with the eager path")
 
-    out = {"launches": {"ln_qkv": launches[0], "flash_attention_packed": launches[1]}}
+    out = {"launches": {"ln_qkv": launches[0], "flash_attention_packed": launches[1]},
+           "embeddings": embs}
     if not timed:
         return out
     arrays = [to_rgb_array(im) for im in images]
@@ -438,30 +668,150 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
                              model_config=clip.vision.model_config,
                              model_dir=clip.vision.model_dir, device=device, dtype=dtype,
                              attn_impl=impl)
-        emb.embed_images(arrays)  # warm-up
-        times = []
-        for _ in range(5):
-            t = time.perf_counter()
-            emb.embed_images(arrays)
-            times.append(time.perf_counter() - t)
-        ips = batch / statistics.median(times)
-        lat = []
-        for _ in range(20):
-            t = time.perf_counter()
-            emb.embed_image(arrays[0])
-            lat.append(time.perf_counter() - t)
-        p50 = statistics.median(lat) * 1e3
-        say(f"  {impl}: {ips:.2f} images/s at batch {batch} (median of 5, host clock, "
-            f"decoded arrays in, preprocess included); single image p50 {p50:.2f} ms")
-        out[impl] = {"images_per_s": ips, "p50_ms": p50}
+        out[impl] = time_embedder(emb, arrays, impl)
         if impl == "kernel":
-            bd = device_breakdown(lambda: emb.embed_images(arrays))
-            groups = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-                bd["groups_ms"].items(), key=lambda kv: -kv[1]))
-            say(f"  {impl} batch {batch} under torch.profiler: device ms by kernel group: "
-                f"{groups}; busy {bd['busy_ms']:.3f} of {bd['wall_ms']:.3f} ms wall, "
-                f"idle share {bd['idle_share']:.3f}")
-            out["breakdown"] = bd
+            out["breakdown"] = profile_embedder(emb, arrays, impl)
+    return out
+
+
+def time_embedder(emb, arrays, label) -> dict:
+    """images/s at the batch of ``arrays`` (median of 5 calls) and the p50
+    latency of one image (median of 20), host clock."""
+    emb.embed_images(arrays)  # warm-up
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        emb.embed_images(arrays)
+        times.append(time.perf_counter() - t)
+    ips = len(arrays) / statistics.median(times)
+    lat = []
+    for _ in range(20):
+        t = time.perf_counter()
+        emb.embed_image(arrays[0])
+        lat.append(time.perf_counter() - t)
+    p50 = statistics.median(lat) * 1e3
+    say(f"  {label}: {ips:.2f} images/s at batch {len(arrays)} (median of 5, host clock, "
+        f"decoded arrays in, preprocess included); single image p50 {p50:.2f} ms")
+    return {"images_per_s": ips, "p50_ms": p50}
+
+
+def profile_embedder(emb, arrays, label) -> dict:
+    bd = device_breakdown(lambda: emb.embed_images(arrays))
+    groups = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+        bd["groups_ms"].items(), key=lambda kv: -kv[1]))
+    say(f"  {label} batch {len(arrays)} under torch.profiler: device ms by kernel group: "
+        f"{groups}; busy {bd['busy_ms']:.3f} of {bd['wall_ms']:.3f} ms wall, "
+        f"idle share {bd['idle_share']:.3f}")
+    return bd
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the int8 paths
+# ---------------------------------------------------------------------------
+
+INT8_WRAPPERS = ("int8_mlp", "ln_qkv_int8", "int8_linear_fused")
+
+
+def launch_counts() -> dict:
+    from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
+
+    return {"ln_qkv": qkv.ln_qkv.launches,
+            "flash_attention_packed": flash.flash_attention_packed.launches,
+            "int8_mlp": int8_mlp.int8_mlp.launches,
+            "ln_qkv_int8": qkv.ln_qkv_int8.launches,
+            "int8_linear_fused": int8_mlp.int8_linear_fused.launches}
+
+
+def reset_launch_counts() -> None:
+    from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
+
+    for fn in (qkv.ln_qkv, flash.flash_attention_packed, int8_mlp.int8_mlp,
+               qkv.ln_qkv_int8, int8_mlp.int8_linear_fused):
+        fn.launches = 0
+
+
+def expected_int8_launches(mode, depth_v, depth_t) -> dict:
+    """One embed_images (vision) plus one classify (vision + text), from the
+    gates: every block's MLP and the map-pool head's MLP take int8_mlp; under
+    int8_all every block's q/k/v takes ln_qkv_int8 and every out-projection
+    (with its residual) and the map-pool k/v (B·576 rows) int8_linear_fused,
+    while the map-pool q and out (B rows, under 128) take the unfused
+    int8_linear."""
+    forwards = 2 * depth_v + depth_t
+    if mode == "int8":
+        return {"ln_qkv": forwards, "flash_attention_packed": forwards,
+                "int8_mlp": forwards + 2, "ln_qkv_int8": 0, "int8_linear_fused": 0}
+    return {"ln_qkv": 0, "flash_attention_packed": forwards, "int8_mlp": forwards + 2,
+            "ln_qkv_int8": forwards, "int8_linear_fused": forwards + 4}
+
+
+def plain_int8_wrappers():
+    """The int8 wrappers swapped for their plain versions where the layers
+    call them, so that the same Clip runs the plain path."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from clip_embedder_tpu_torch.ops import attention, int8_mlp, layers, qkv
+
+    stack = ExitStack()
+    for module in (layers, attention):
+        stack.enter_context(mock.patch.object(module, "int8_linear_fused",
+                                              int8_mlp.int8_linear_fused_plain))
+    stack.enter_context(mock.patch.object(layers, "int8_mlp", int8_mlp.int8_mlp_plain))
+    stack.enter_context(mock.patch.object(attention, "ln_qkv_int8", qkv.ln_qkv_int8_plain))
+    return stack
+
+
+def phase_int8_paths(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
+                     batch=32, timed=True, bf16_embeddings=None) -> dict:
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    out = {}
+    for mode in QUANT_MODES:
+        say(f"[6] int8 path: ViT-SO400M-16-SigLIP2-384, quantize={mode}, {dtype}, phase 5's "
+            "weights quantized on the device")
+        t0 = time.perf_counter()
+        clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                        quantize=mode)
+        say(f"  built and quantized in {time.perf_counter() - t0:.1f} s")
+        images = mixed_batch(batch)
+        reset_launch_counts()
+        embs = clip.vision.embed_images(images)
+        results = clip.classify(images[0], LABELS)
+        counts = launch_counts()
+        norms = np.linalg.norm(embs, axis=-1)
+        say(f"  embed_images: {embs.shape}, norms in [{norms.min():.6f}, {norms.max():.6f}]; "
+            f"classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
+        say(f"  launches (one embed_images + one classify): {counts}")
+        if embs.shape != (batch, vspec.cfg.embed_dim) or not np.isfinite(embs).all():
+            raise AssertionError(f"quantize={mode}: embed_images returned bad embeddings")
+        if np.abs(norms - 1).max() > 1e-2:
+            raise AssertionError(f"quantize={mode}: embeddings are not unit-norm")
+        probs = [p for _, p in results]
+        if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
+            raise AssertionError(f"quantize={mode}: classify returned bad probabilities")
+        if device == "cuda":
+            want = expected_int8_launches(mode, vspec.cfg.layers, tspec.cfg.layers)
+            if counts != want:
+                raise AssertionError(f"quantize={mode}: launches {counts}, expected {want}")
+
+        with plain_int8_wrappers():
+            cos = cosines(embs, clip.vision.embed_images(images))
+        say(f"  kernel path vs plain path (quantize={mode}, same weights): min cosine "
+            f"{cos.min():.6f} (need >= 0.999)")
+        if cos.min() < 0.999:
+            raise AssertionError(f"quantize={mode}: the kernel path disagrees with the plain path")
+        if bf16_embeddings is not None:
+            say(f"  against the bf16 path (not gated: random weights): min cosine "
+                f"{cosines(embs, bf16_embeddings).min():.6f}, mean "
+                f"{cosines(embs, bf16_embeddings).mean():.6f}")
+        out[mode] = {"launches": counts}
+        if timed:
+            arrays = [to_rgb_array(im) for im in images]
+            out[mode].update(time_embedder(clip.vision, arrays, f"quantize={mode}"))
+            if mode == "int8_all":
+                out[mode]["breakdown"] = profile_embedder(clip.vision, arrays,
+                                                          f"quantize={mode}")
     return out
 
 
@@ -498,10 +848,16 @@ def main() -> int:
                 say(f"  {stem}: {line.strip()}")
 
     record = phase_kernels(dev, peaks)
+    record.update(phase_int8_kernels(dev, peaks))
     phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
+    int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
+    # launches: each kernel's count from its own path's run (int8_all runs
+    # all three int8 kernels)
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
+    for name in INT8_WRAPPERS:
+        record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

@@ -9,6 +9,7 @@ JAX package has Pallas kernels. Imports neither ``jax`` nor the JAX package.
     from clip_embedder_tpu_torch import Clip
     clip = Clip.from_local_dir(model_dir)                 # on the card
     clip = Clip.from_local_dir(model_dir, device="cpu")   # on the CPU
+    clip = Clip.from_local_dir(model_dir, quantize="int8_all")  # W8A8 on the card
     results = clip.classify("cat.jpg", ["a cat", "a dog"])
 """
 

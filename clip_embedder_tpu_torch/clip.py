@@ -38,7 +38,7 @@ class Clip:
     @classmethod
     def from_local_dir(cls, model_dir: Path | str, **kw) -> "Clip":
         """Both embedders from one model dir; ``kw`` (``device``, ``dtype``,
-        ``attn_impl``) passes to each."""
+        ``attn_impl``, ``quantize``) passes to each."""
         model_dir = Path(model_dir)
         verify_model_dir(model_dir)
         vision = VisionEmbedder.from_local_dir(model_dir, **kw)

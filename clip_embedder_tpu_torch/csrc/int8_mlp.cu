@@ -1,0 +1,90 @@
+// Fused W8A8 transformer MLP for Hopper (sm_90a).
+//
+// Replaces the TPU kernel clip_embedder_tpu/ops/int8_mlp.py `int8_mlp`
+// (`_mlp_kernel`):
+//   x -> [f32 LayerNorm] -> per-row int8 quantization -> int8 fc1 ->
+//   acc * (xs * s1) + b1 -> activation in f32 (gelu_tanh, erf-gelu with the
+//   Abramowitz-Stegun erf, quick_gelu or relu) -> per-row requantization with
+//   the GLOBAL row amax over the whole hidden -> int8 fc2 -> acc * (hs * s2)
+//   + b2 [+ x, the raw residual stream] in f32 -> one rounding to x's type.
+// Used for every MLP block (and the map-pool head's MLP) under
+// quantize="int8" and "int8_all".
+//
+// What bounds it on the H100: at the main-path shape (rows = B*576,
+// 1152 -> 4304 -> 1152, bf16) it does 4*rows*1152*4304 int8 operations
+// against x and the output (2 * rows * 1152 * 2 bytes) plus 9.9 MB of
+// weights, about 3,800 operations per byte: the tensor cores bound it
+// (0.185 ms at batch 32).
+//
+// What the design does about that, and what it costs. The requantization
+// needs each row's amax over all 4304 f32 hidden values before any of them
+// is quantized. The TPU kernel holds the f32 [tile, 4304] hidden in VMEM;
+// one row of it is 17 KB here, 16 rows already more than a block's 227 KB of
+// shared memory. This first design takes the simple route, four launches:
+// 1. the row pass (int8.cuh `row_quant_kernel`, LayerNorm fused) writes x's
+//    int8 codes and scales;
+// 2. fc1 (`gemm_kernel`, epilogue kAct) writes act(acc * (xs * s1) + b1) as
+//    an f32 workspace [rows, hidden];
+// 3. the row pass (no LayerNorm) reads each workspace row twice, for its
+//    amax and then its codes, and writes int8 codes and one scale per row;
+// 4. fc2 (`gemm_kernel`, epilogue kOut) adds the bias and the residual.
+// The workspace costs 2 * rows * hidden * 4 bytes of traffic (0.63 GB, about
+// 0.19 ms at batch 32, as much as the whole kernel's bound) plus the codes'
+// rows * hidden * 2 bytes. Recomputing fc1 for the amax instead (no
+// workspace, 1.5x the operations), or a persistent grid that keeps a row
+// tile's hidden in the shared memory of a cluster, are for a later PR.
+
+#include "int8.cuh"
+
+namespace i8 = clipk::i8;
+
+namespace {
+
+template <typename T>
+int run(const void* x, const void* gamma, const void* beta, void* xq, void* xs, const void* w1,
+        const void* s1, const void* b1, void* h, void* hq, void* hs, const void* w2,
+        const void* s2, const void* b2, void* out, int rows, int k_in, int hidden, int k_out,
+        float eps, int act, bool ln, bool add_res, cudaStream_t stream) {
+  cudaError_t err = ln ? i8::launch_row_quant<T, true>(x, gamma, beta, xq, xs, rows, k_in, eps,
+                                                       stream)
+                       : i8::launch_row_quant<T, false>(x, nullptr, nullptr, xq, xs, rows, k_in,
+                                                        eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  i8::GemmArgs fc1{};
+  fc1.m[0] = i8::make_mat(w1, s1, b1, h);
+  err = i8::launch_gemm<float, i8::kAct>(xq, xs, fc1, 1, rows, k_in, hidden, act, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = i8::launch_row_quant<float, false>(h, nullptr, nullptr, hq, hs, rows, hidden, 0.0f,
+                                           stream);
+  if (err != cudaSuccess) return (int)err;
+  i8::GemmArgs fc2{};
+  fc2.m[0] = i8::make_mat(w2, s2, b2, out);
+  fc2.res = add_res ? x : nullptr;
+  return (int)i8::launch_gemm<T, i8::kOut>(hq, hs, fc2, 1, rows, hidden, k_out, 0, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x and out). act: 0 gelu_tanh, 1 gelu,
+// 2 quick_gelu, 3 relu. ln: fuse the LayerNorm (gamma, beta: [k_in] f32);
+// add_res: out = x + mlp(ln(x)) (needs k_out == k_in). Scratch: xq [rows,
+// k_in] int8, xs [rows] f32, h [rows, hidden] f32, hq [rows, hidden] int8, hs
+// [rows] f32. s1, b1: [hidden], s2, b2: [k_out] f32, 16-byte aligned. Every
+// width % 16 == 0. Returns cudaGetLastError().
+extern "C" int int8_mlp_launch(const void* x, const void* gamma, const void* beta, void* xq,
+                               void* xs, const void* w1, const void* s1, const void* b1, void* h,
+                               void* hq, void* hs, const void* w2, const void* s2, const void* b2,
+                               void* out, int rows, int k_in, int hidden, int k_out, float eps,
+                               int act, int ln, int add_res, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_in % 16 != 0 || hidden % 16 != 0 || k_out % 16 != 0 || act < 0 || act > 3 ||
+      (add_res && k_out != k_in))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return run<clipk::bf16>(x, gamma, beta, xq, xs, w1, s1, b1, h, hq, hs, w2, s2, b2, out, rows,
+                            k_in, hidden, k_out, eps, act, ln != 0, add_res != 0, st);
+  if (dtype == 0)
+    return run<float>(x, gamma, beta, xq, xs, w1, s1, b1, h, hq, hs, w2, s2, b2, out, rows, k_in,
+                      hidden, k_out, eps, act, ln != 0, add_res != 0, st);
+  return (int)cudaErrorInvalidValue;
+}

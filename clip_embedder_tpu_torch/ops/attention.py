@@ -4,14 +4,18 @@ Counterpart of ``clip_embedder_tpu.ops.attention``. ``impl`` selects:
 
 * ``"eager"`` — plain PyTorch (``attention_core``: f32 logits and softmax);
 * ``"kernel"`` — self-attention with a ``pre_ln`` runs the fused LayerNorm +
-  q/k/v kernel (``ops.qkv``) and then the packed-head attention kernel
+  q/k/v kernel (``ops.qkv``: ``ln_qkv_int8`` for int8 projections on the
+  card, else ``ln_qkv``) and then the packed-head attention kernel
   (``ops.flash``), exact softmax;
 * ``"kernel_fast"`` — the same kernels with the clamped softmax, plus the
   bf16 exp when the head dim is below 96 (as the JAX package's
   ``pallas_fast``).
 
 Cross-attention (``kv=``, e.g. the map-pool probe) stays on
-``attention_core`` on every impl, as in the JAX package.
+``attention_core`` on every impl, as in the JAX package. On every impl a
+quantized out-projection with a residual takes the fused int8 linear with
+the residual in its epilogue (``ops.int8_mlp.int8_linear_fused``) for 128
+rows or more on the card.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from .flash import fits_packed, flash_attention_packed
+from .int8_mlp import fits_fused_linear, int8_linear_fused
 from .layers import layer_norm, linear, promote
-from .qkv import fits_fused_qkv, ln_qkv
+from .qkv import fits_fused_qkv, fits_fused_qkv_int8, ln_qkv, ln_qkv_int8
 
 KERNEL_IMPLS = ("kernel", "kernel_fast")
 ATTN_IMPLS = ("eager",) + KERNEL_IMPLS
@@ -72,7 +77,10 @@ def multi_head_attention(
         raise ValueError(f"Unknown attention impl '{impl}' (choices: "
                          f"{', '.join(ATTN_IMPLS)})")
     kernel = impl in KERNEL_IMPLS
-    if pre_ln is not None and kv is None and kernel and fits_fused_qkv(params, x):
+    fuse_qkv = pre_ln is not None and kv is None and kernel
+    if fuse_qkv and fits_fused_qkv_int8(params, x):  # int8_all towers
+        q, k, v = ln_qkv_int8(params, pre_ln, x, eps=ln_eps)
+    elif fuse_qkv and fits_fused_qkv(params, x):
         q, k, v = ln_qkv(params, pre_ln, x, eps=ln_eps)
     else:
         if pre_ln is not None:
@@ -93,7 +101,11 @@ def multi_head_attention(
                              mask=mask)
         b, h, s, d = out.shape
         out = out.transpose(1, 2).reshape(b, s, h * d)
-    h = linear(params["out"], out)
+    outp = params["out"]
+    if (residual is not None and "w_q" in outp and out.numel() // out.shape[-1] >= 128
+            and fits_fused_linear(outp, out)):
+        return int8_linear_fused(outp, out, residual=residual)
+    h = linear(outp, out)
     return h if residual is None else residual + h
 
 

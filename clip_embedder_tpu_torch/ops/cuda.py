@@ -113,3 +113,25 @@ def check(code: int, name: str) -> None:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def f32_vector(t: torch.Tensor | None, n: int, like: torch.Tensor, what: str) -> torch.Tensor:
+    """A [n] f32 vector on like's device, 16-byte aligned, as the kernels
+    read their scales, biases and LayerNorm parameters (zeros for a missing
+    bias)."""
+    if t is None:
+        return torch.zeros(n, dtype=torch.float32, device=like.device)
+    if tuple(t.shape) != (n,) or t.device != like.device:
+        raise ValueError(f"{what}: expected a [{n}] vector on {like.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    v = t.to(torch.float32).contiguous()
+    return v.clone() if v.data_ptr() % 16 else v
+
+
+def check_input(x: torch.Tensor, what: str) -> None:
+    """A kernel's activation operand: f32 or bf16, contiguous, 16-byte
+    aligned."""
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"{what}: the kernel takes f32 or bf16 activations, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")

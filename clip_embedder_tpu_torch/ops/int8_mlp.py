@@ -1,0 +1,293 @@
+"""Fused W8A8 transformer MLP and linear (``csrc/int8_mlp.cu``,
+``csrc/int8_linear.cu``).
+
+Counterpart of ``clip_embedder_tpu.ops.int8_mlp``:
+
+* ``int8_mlp``: x → [f32 LayerNorm] → row quant → int8 fc1 → dequant + bias
+  → activation (f32) → row requant with the *global* row amax over the
+  whole hidden → int8 fc2 → dequant + bias [+ residual] → x's dtype;
+* ``int8_linear_fused``: x → row quant → int8 product → dequant + bias
+  [+ residual] → x's dtype.
+
+Dequantization is ``acc·(xs·s) + b`` and a residual is added in f32 before
+the one rounding to the output dtype, the TPU kernels' order of operations
+(the unfused ``ops.quant.int8_linear`` computes ``acc·xs·s``, another f32
+rounding). Weights use ``ops.quant`` layout: ``{"w_q": [in, out] int8,
+"w_scale": [out] f32, "b"?}``.
+
+For a tensor on the card the wrappers launch the CUDA kernels, raising on
+anything they do not take; for a tensor on the CPU they run the
+``*_plain`` versions, the same functions in plain PyTorch. The ``fits_*``
+gates mirror the JAX package's with "the tensor is on CUDA" in place of
+"the backend is a TPU", so on the CPU the layers take the unfused path as
+the JAX package does there. The TPU's VMEM budgets are dropped, except the
+20 MB line between the resident MLP (global requant) and the streamed one
+(per-slab requant, not yet ported): it decides whose numerics apply.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda
+from .quant import int_matmul, true_div
+
+ACT_CODES = {"gelu_tanh": 0, "gelu": 1, "quick_gelu": 2, "relu": 3}
+# int8 weight bytes (fc + proj) above which the JAX package streams the MLP
+# in hidden slabs with per-slab requantization (``int8_mlp_streamed``).
+FUSED_MLP_MAX_BYTES = 20 * 1024 * 1024
+_GELU_TANH_C = 0.7978845608028654  # sqrt(2/pi), rounded to f32 in use, as jax.nn.gelu does
+
+
+def row_quant(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[T, K] f32 → (int8 codes, [T, 1] f32 scales), per-row symmetric."""
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax == 0, 1.0, true_div(amax, 127.0))
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def layer_norm_f32(x32: torch.Tensor, pre_ln, eps: float) -> torch.Tensor:
+    """The kernels' LayerNorm: f32 statistics (two-pass variance), f32
+    affine, no rounding of the result. Divisions and the square root are
+    IEEE-rounded, as in the kernels (``torch.rsqrt`` and ``mean`` on the
+    card are not); only the order of the row sums differs."""
+    n = x32.shape[-1]
+    mean = true_div(x32.sum(dim=-1, keepdim=True), n)
+    d = x32 - mean
+    var = true_div(d.square().sum(dim=-1, keepdim=True), n)
+    y = d * (1.0 / torch.sqrt(var + eps))
+    return y * pre_ln["scale"].to(torch.float32) + pre_ln["bias"].to(torch.float32)
+
+
+def dequant(acc: torch.Tensor, xs: torch.Tensor, p) -> torch.Tensor:
+    """acc·(xs·s) + b in f32, the fused kernels' epilogue."""
+    y = acc.to(torch.float32) * (xs * p["w_scale"].to(torch.float32))
+    b = p.get("b")
+    return y if b is None else y + b.to(torch.float32)
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz & Stegun 7.1.26 (max abs error 1.5e-7): the erf the TPU
+    kernel computes, kept so that the exact-gelu MLP matches it."""
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _act(h: torch.Tensor, name: str) -> torch.Tensor:
+    """The in-kernel activations, in f32, written in the JAX package's
+    order of operations."""
+    if name == "gelu_tanh":
+        return h * (0.5 * (1.0 + torch.tanh(_GELU_TANH_C * (h + 0.044715 * (h * h * h)))))
+    if name == "gelu":
+        return 0.5 * h * (1.0 + _erf(h * (2.0 ** -0.5)))
+    if name == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    if name == "relu":
+        return F.relu(h)
+    raise ValueError(f"unsupported in-kernel activation '{name}'")
+
+
+def int8_mlp_plain(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
+                   pre_ln=None, ln_eps: float = 1e-6,
+                   add_residual: bool = False) -> torch.Tensor:
+    """The fused MLP's function in plain PyTorch (its CPU path and the
+    reference the kernel is held to on the card)."""
+    if add_residual and pre_ln is None:
+        raise ValueError("add_residual requires the fused pre_ln (the raw input "
+                         "must be the residual stream)")
+    fc, pr = params["fc"], params["proj"]
+    x2 = x.reshape(-1, fc["w_q"].shape[0]).to(torch.float32)
+    res = x2 if add_residual else None
+    if pre_ln is not None:
+        x2 = layer_norm_f32(x2, pre_ln, ln_eps)
+    xq, xs = row_quant(x2)
+    h = _act(dequant(int_matmul(xq, fc["w_q"]), xs, fc), activation)
+    aq, hs = row_quant(h)
+    y = dequant(int_matmul(aq, pr["w_q"]), hs, pr)
+    if res is not None:
+        y = y + res
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
+def int8_linear_fused_plain(params, x: torch.Tensor, *,
+                            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """The fused linear's function in plain PyTorch."""
+    x2 = x.reshape(-1, params["w_q"].shape[0]).to(torch.float32)
+    xq, xs = row_quant(x2)
+    y = dequant(int_matmul(xq, params["w_q"]), xs, params)
+    if residual is not None:
+        y = y + residual.reshape(y.shape).to(torch.float32)
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
+# -- gates ----------------------------------------------------------------
+
+def _qweight(p) -> torch.Tensor | None:
+    w = p.get("w_q") if p is not None else None
+    return w if w is not None and w.dim() == 2 else None
+
+
+def kernel_dims_ok(*dims: int) -> bool:
+    """The kernels move int8 rows and write outputs in 16-byte pieces:
+    every in/out width a multiple of 16."""
+    return all(d > 0 and d % 16 == 0 for d in dims)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """The gates' stand-in for the JAX package's "the backend is a TPU":
+    x lies on the card, in a dtype the kernels take."""
+    return x.device.type == "cuda" and x.dtype in cuda.DTYPE_CODES
+
+
+def fits_fused_linear(params, x: torch.Tensor) -> bool:
+    """The fused linear takes this: a 2-D quantized weight whose input
+    width is x's, widths the kernel takes, and x on the card."""
+    w = _qweight(params)
+    return (w is not None and on_card(x) and w.shape[0] == x.shape[-1]
+            and kernel_dims_ok(*w.shape))
+
+
+def _mlp_weights(params):
+    fc, pr = params.get("fc"), params.get("proj")
+    w1, w2 = _qweight(fc), _qweight(pr)
+    return (w1, w2) if w1 is not None and w2 is not None else None
+
+
+def fits_fused_mlp(params, activation_name: str, x: torch.Tensor) -> bool:
+    """The fused MLP takes this block: both linears quantized (2-D), an
+    in-kernel activation, chained widths the kernel takes, x on the card,
+    and at most 20 MB of int8 weights (above, the JAX package streams)."""
+    ws = _mlp_weights(params)
+    if ws is None or activation_name not in ACT_CODES or not on_card(x):
+        return False
+    w1, w2 = ws
+    return (w1.shape[0] == x.shape[-1] and w1.shape[1] == w2.shape[0]
+            and kernel_dims_ok(*w1.shape, w2.shape[1])
+            and w1.numel() + w2.numel() <= FUSED_MLP_MAX_BYTES)
+
+
+def fits_streamed_mlp(params, activation_name: str, rows: int, x: torch.Tensor) -> bool:
+    """Where the JAX package takes the weight-streamed MLP (kernel 7,
+    ``int8_mlp_streamed``): over 20 MB of int8 weights, at least 512 rows,
+    an in-kernel activation, x on the card."""
+    ws = _mlp_weights(params)
+    if ws is None or activation_name not in ACT_CODES or not on_card(x):
+        return False
+    return ws[0].numel() + ws[1].numel() > FUSED_MLP_MAX_BYTES and rows >= 512
+
+
+# -- wrappers -------------------------------------------------------------
+
+def qlinear_operands(p, k_in: int, x: torch.Tensor, what: str):
+    """(w_q, scale, bias) of one quantized linear, checked for the kernels:
+    a contiguous, 16-byte aligned [k_in, N] int8 weight on x's device with
+    N a multiple of 16, and f32 [N] scale and bias."""
+    w = p["w_q"]
+    if (w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != k_in
+            or not kernel_dims_ok(*w.shape)):
+        raise ValueError(f"{what}: the kernel takes a [{k_in}, N] int8 weight with "
+                         f"widths that are multiples of 16, got {tuple(w.shape)} {w.dtype}")
+    if w.device != x.device or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"{what}: the weight must be contiguous and 16-byte aligned "
+                         f"on {x.device}")
+    n = w.shape[1]
+    return w, cuda.f32_vector(p["w_scale"], n, x, what), cuda.f32_vector(p.get("b"), n, x, what)
+
+
+def int8_mlp(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
+             pre_ln=None, ln_eps: float = 1e-6, add_residual: bool = False) -> torch.Tensor:
+    """Fused quantized MLP block. ``params``: {"fc", "proj"} quantized
+    linears; ``x``: [..., K], f32 or bf16; ``pre_ln`` ({"scale", "bias"})
+    fuses the pre-MLP LayerNorm; ``add_residual`` (requires ``pre_ln``)
+    returns ``x + mlp(ln(x))``. Runs the CUDA kernel for a CUDA tensor and
+    ``int8_mlp_plain`` for a CPU tensor."""
+    if x.device.type == "cpu":
+        return int8_mlp_plain(params, x, activation=activation, pre_ln=pre_ln,
+                              ln_eps=ln_eps, add_residual=add_residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_mlp: unsupported device {x.device}")
+    if add_residual and pre_ln is None:
+        raise ValueError("add_residual requires the fused pre_ln")
+    if activation not in ACT_CODES:
+        raise ValueError(f"int8_mlp: unsupported in-kernel activation '{activation}'")
+    cuda.check_input(x, "int8_mlp")
+    k_in = x.shape[-1]
+    w1, s1, b1 = qlinear_operands(params["fc"], k_in, x, "int8_mlp fc")
+    hidden = w1.shape[1]
+    w2, s2, b2 = qlinear_operands(params["proj"], hidden, x, "int8_mlp proj")
+    k_out = w2.shape[1]
+    if add_residual and k_out != k_in:
+        raise ValueError("int8_mlp: add_residual needs out width == in width")
+    ln = pre_ln is not None
+    gamma = cuda.f32_vector(pre_ln["scale"] if ln else None, k_in, x, "int8_mlp pre_ln")
+    beta = cuda.f32_vector(pre_ln["bias"] if ln else None, k_in, x, "int8_mlp pre_ln")
+    rows = x.numel() // k_in
+    out = torch.empty(*x.shape[:-1], k_out, dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return out
+    dev = x.device
+    xq = torch.empty(rows, k_in, dtype=torch.int8, device=dev)
+    xs = torch.empty(rows, dtype=torch.float32, device=dev)
+    h = torch.empty(rows, hidden, dtype=torch.float32, device=dev)   # act(fc1), f32
+    hq = torch.empty(rows, hidden, dtype=torch.int8, device=dev)
+    hs = torch.empty(rows, dtype=torch.float32, device=dev)
+    fn = cuda.library("int8_mlp").int8_mlp_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
+              cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
+              cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
+              rows, k_in, hidden, k_out, float(ln_eps), ACT_CODES[activation], int(ln),
+              int(add_residual), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
+    cuda.check(code, "int8_mlp")
+    int8_mlp.launches += 1
+    return out
+
+
+int8_mlp.launches = 0  # kernel launches, for showing a run went through it
+
+
+def int8_linear_fused(params, x: torch.Tensor, *,
+                      residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused W8A8 affine map: row quant → int8 product → ``acc·(xs·s) + b``
+    [+ residual, same leading shape as the output]. Runs the CUDA kernel
+    for a CUDA tensor and ``int8_linear_fused_plain`` for a CPU tensor."""
+    if x.device.type == "cpu":
+        return int8_linear_fused_plain(params, x, residual=residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_linear_fused: unsupported device {x.device}")
+    cuda.check_input(x, "int8_linear_fused")
+    k_in = x.shape[-1]
+    w, s, b = qlinear_operands(params, k_in, x, "int8_linear_fused")
+    k_out = w.shape[1]
+    out = torch.empty(*x.shape[:-1], k_out, dtype=x.dtype, device=x.device)
+    if residual is not None:
+        if (residual.shape != out.shape or residual.dtype != x.dtype
+                or residual.device != x.device):
+            raise ValueError(f"int8_linear_fused: residual must be {tuple(out.shape)} "
+                             f"{x.dtype} on {x.device}")
+        cuda.check_input(residual, "int8_linear_fused residual")
+    rows = x.numel() // k_in
+    if rows == 0:
+        return out
+    xq = torch.empty(rows, k_in, dtype=torch.int8, device=x.device)
+    xs = torch.empty(rows, dtype=torch.float32, device=x.device)
+    fn = cuda.library("int8_linear").int8_linear_fused_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
+              cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out,
+              cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
+    cuda.check(code, "int8_linear_fused")
+    int8_linear_fused.launches += 1
+    return out
+
+
+int8_linear_fused.launches = 0  # kernel launches, for showing a run went through it

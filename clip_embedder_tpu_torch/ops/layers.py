@@ -11,7 +11,8 @@ contract:
   applies the bias in its f32 epilogue).
 
 Parameters use the JAX package's layout (see ``weights.py``): a linear is
-``{"w": [in, out], "b": [out]}``, a LayerNorm ``{"scale": [d], "bias": [d]}``.
+``{"w": [in, out], "b": [out]}`` (or, quantized by ``ops.quant``,
+``{"w_q", "w_scale", "b"}``), a LayerNorm ``{"scale": [d], "bias": [d]}``.
 Any mapping with ``__getitem__``/``get``/``in`` works — nested dicts of
 tensors, or the ``weights.ParamTree`` modules the towers hold.
 """
@@ -22,6 +23,10 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from .int8_mlp import (fits_fused_linear, fits_fused_mlp, fits_streamed_mlp, int8_linear_fused,
+                       int8_mlp)
+from .quant import int8_linear
 
 
 def promote(dtype: torch.dtype) -> torch.dtype:
@@ -56,6 +61,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": relu,
 }
 
+ACTIVATION_NAMES = {fn: name for name, fn in ACTIVATIONS.items()}
+
 
 def layer_norm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: f32 statistics (two-pass variance),
@@ -70,7 +77,15 @@ def layer_norm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
 
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
-    """Affine map on the last axis. ``w: [in, out]``; bias optional."""
+    """Affine map on the last axis. ``w: [in, out]``; bias optional.
+    A quantized linear (``w_q`` from ``ops.quant.quantize_tree``) takes the
+    fused int8 kernel for 128 rows or more where ``fits_fused_linear``
+    holds, else the unfused ``int8_linear``."""
+    if "w_q" in params:
+        rows = x.numel() // x.shape[-1]
+        if rows >= 128 and fits_fused_linear(params, x):
+            return int8_linear_fused(params, x)
+        return int8_linear(params, x)
     w = params["w"].to(x.dtype)
     b = params.get("b")
     x2 = x.reshape(-1, x.shape[-1])
@@ -93,10 +108,24 @@ def mlp(
     """Transformer MLP block: [LayerNorm →] linear → act → linear.
 
     ``params``: {"fc": linear, "proj": linear}. ``residual=True`` (requires
-    ``pre_ln``) returns ``x + mlp(ln(x))``.
+    ``pre_ln``) returns ``x + mlp(ln(x))``. A quantized block takes the
+    fused int8 MLP kernel (``ops.int8_mlp``, LayerNorm and residual inside)
+    where ``fits_fused_mlp`` holds; where the JAX package would stream the
+    weights (``fits_streamed_mlp``, kernel 7) the port raises, since that
+    kernel is not ported yet; elsewhere the unfused int8 linears run.
     """
     if residual and pre_ln is None:
         raise ValueError("mlp(residual=True) requires pre_ln")
+    fc = params.get("fc")
+    if fc is not None and "w_q" in fc:
+        name = ACTIVATION_NAMES.get(activation)
+        if name and fits_fused_mlp(params, name, x):
+            return int8_mlp(params, x, activation=name, pre_ln=pre_ln, ln_eps=ln_eps,
+                            add_residual=residual)
+        if name and fits_streamed_mlp(params, name, x.numel() // x.shape[-1], x):
+            raise NotImplementedError(
+                "this MLP's int8 weights exceed 20 MB: the JAX package streams them "
+                "(kernel 7, int8_mlp_streamed), which is not yet ported")
     res = x if residual else None
     if pre_ln is not None:
         x = layer_norm(pre_ln, x, eps=ln_eps)

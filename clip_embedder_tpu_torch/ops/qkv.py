@@ -1,15 +1,22 @@
-"""Fused pre-attention LayerNorm + q/k/v projections (``csrc/ln_qkv.cu``).
+"""Fused pre-attention LayerNorm + q/k/v projections (``csrc/ln_qkv.cu``,
+``csrc/ln_qkv_int8.cu``).
 
 Counterpart of ``clip_embedder_tpu.ops.qkv.ln_qkv``:
 
     x → f32 LayerNorm → one rounding to x's dtype → (x̂Wq+bq, x̂Wk+bk, x̂Wv+bv)
 
 with f32 accumulation and f32 biases, each output rounded once to x's
-dtype. For a tensor on the card ``ln_qkv`` launches the CUDA kernel (a
-LayerNorm pass that writes x̂ once, then the tiled product); for a tensor on
-the CPU it runs ``ln_qkv_plain``, the same function in plain PyTorch. Used
-by ``ops.attention.multi_head_attention`` on the kernel impls when
-``fits_fused_qkv`` holds.
+dtype; and of ``ln_qkv_int8`` (``quantize="int8_all"``):
+
+    x → f32 LayerNorm → one per-row int8 quantization (no rounding of x̂
+      to x's dtype first) → three int8 products → acc·(xs·s) + b
+
+For a tensor on the card the wrappers launch the CUDA kernel (a LayerNorm
+pass that writes x̂, or its int8 codes, once; then the tiled product); for
+a tensor on the CPU they run ``ln_qkv_plain`` / ``ln_qkv_int8_plain``, the
+same functions in plain PyTorch. Used by
+``ops.attention.multi_head_attention`` on the kernel impls when
+``fits_fused_qkv_int8`` or ``fits_fused_qkv`` holds.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ import ctypes
 import torch
 
 from . import cuda
+from .int8_mlp import dequant, kernel_dims_ok, layer_norm_f32, on_card, qlinear_operands, row_quant
 from .layers import layer_norm, promote
+from .quant import int_matmul
 
 
 def tile_config(width: int, dtype: torch.dtype) -> tuple[int, int] | None:
@@ -63,15 +72,6 @@ def ln_qkv_plain(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     return tuple(outs)
 
 
-def _f32_vector(t: torch.Tensor | None, width: int, like: torch.Tensor) -> torch.Tensor:
-    if t is None:
-        return torch.zeros(width, dtype=torch.float32, device=like.device)
-    if t.shape != (width,) or t.device != like.device:
-        raise ValueError(f"ln_qkv: expected a [{width}] vector on {like.device}, "
-                         f"got {tuple(t.shape)} on {t.device}")
-    return t.to(torch.float32).contiguous()
-
-
 def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     """Fused LayerNorm + q/k/v projections.
 
@@ -92,8 +92,7 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     if not fits_fused_qkv(params, x):
         raise ValueError("ln_qkv: q/k/v weights must be square [W, W] in "
                          "x's dtype")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("ln_qkv: x must be contiguous and 16-byte aligned")
+    cuda.check_input(x, "ln_qkv")
     bm, bn = cfg
     rows = x.numel() // width
     ws = []
@@ -103,11 +102,9 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
             raise ValueError(f"ln_qkv: weight {name} must be contiguous and 16-byte "
                              f"aligned on {x.device}")
         ws.append(w)
-    bs = [_f32_vector(params[n].get("b"), width, x) for n in ("q", "k", "v")]
-    gamma = _f32_vector(pre_ln["scale"], width, x)
-    beta = _f32_vector(pre_ln["bias"], width, x)
-    if gamma.data_ptr() % 16 or beta.data_ptr() % 16:
-        raise ValueError("ln_qkv: the LayerNorm scale and bias must be 16-byte aligned")
+    bs = [cuda.f32_vector(params[n].get("b"), width, x, "ln_qkv") for n in ("q", "k", "v")]
+    gamma = cuda.f32_vector(pre_ln["scale"], width, x, "ln_qkv")
+    beta = cuda.f32_vector(pre_ln["bias"], width, x, "ln_qkv")
     outs = [torch.empty_like(x) for _ in range(3)]
     if rows == 0:
         return tuple(outs)
@@ -126,3 +123,74 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
 
 
 ln_qkv.launches = 0  # kernel launches, for showing a run went through it
+
+
+# -- int8 (quantize="int8_all") ---------------------------------------------
+
+def fits_fused_qkv_int8(params, x: torch.Tensor) -> bool:
+    """``ln_qkv_int8`` takes these projections: quantized square [W, W]
+    weights, a width the kernel takes, and x on the card (on the CPU the
+    layers take the unfused path, as the JAX package does there)."""
+    width = x.shape[-1]
+    if not on_card(x):
+        return False
+    for name in ("q", "k", "v"):
+        p = params.get(name)
+        w = p.get("w_q") if p is not None else None
+        if w is None or w.dim() != 2 or tuple(w.shape) != (width, width):
+            return False
+    return kernel_dims_ok(width)
+
+
+def ln_qkv_int8_plain(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
+    """The int8 kernel's function in plain PyTorch: f32 LayerNorm → one
+    shared per-row quantization → three exact int8 products →
+    ``acc·(xs·s) + b`` → x's dtype."""
+    width = x.shape[-1]
+    y = layer_norm_f32(x.reshape(-1, width).to(torch.float32), pre_ln, eps)
+    yq, xs = row_quant(y)
+    return tuple(dequant(int_matmul(yq, params[n]["w_q"]), xs, params[n])
+                 .to(x.dtype).reshape(x.shape) for n in ("q", "k", "v"))
+
+
+def ln_qkv_int8(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
+    """Fused LayerNorm + W8A8 q/k/v projections (``quantize="int8_all"``).
+
+    ``params``: {"q","k","v"} quantized linears ({"w_q": [W, W] int8,
+    "w_scale", "b"?}); ``pre_ln``: {"scale","bias"}; ``x``: [..., W], f32 or
+    bf16. Returns (q, k, v), each shaped like x. Runs the CUDA kernel (a
+    LayerNorm + row-quant pass that writes the int8 rows once, then one
+    product over the three weights) for a CUDA tensor and
+    ``ln_qkv_int8_plain`` for a CPU tensor.
+    """
+    if x.device.type == "cpu":
+        return ln_qkv_int8_plain(params, pre_ln, x, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_qkv_int8: unsupported device {x.device}")
+    cuda.check_input(x, "ln_qkv_int8")
+    width = x.shape[-1]
+    ops = [qlinear_operands(params[n], width, x, f"ln_qkv_int8 {n}") for n in ("q", "k", "v")]
+    if any(w.shape[1] != width for w, _, _ in ops):
+        raise ValueError("ln_qkv_int8: q/k/v weights must be square [W, W]")
+    gamma = cuda.f32_vector(pre_ln["scale"], width, x, "ln_qkv_int8 pre_ln")
+    beta = cuda.f32_vector(pre_ln["bias"], width, x, "ln_qkv_int8 pre_ln")
+    outs = [torch.empty_like(x) for _ in range(3)]
+    rows = x.numel() // width
+    if rows == 0:
+        return tuple(outs)
+    xq = torch.empty(rows, width, dtype=torch.int8, device=x.device)
+    xs = torch.empty(rows, dtype=torch.float32, device=x.device)
+    fn = cuda.library("ln_qkv_int8").ln_qkv_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+        + [ctypes.c_int] + [ctypes.c_void_p]
+    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
+              *(cuda.ptr(w) for w, _, _ in ops), *(cuda.ptr(s) for _, s, _ in ops),
+              *(cuda.ptr(b) for _, _, b in ops), *(cuda.ptr(o) for o in outs),
+              rows, width, float(eps), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
+    cuda.check(code, "ln_qkv_int8")
+    ln_qkv_int8.launches += 1
+    return tuple(outs)
+
+
+ln_qkv_int8.launches = 0  # kernel launches, for showing a run went through it

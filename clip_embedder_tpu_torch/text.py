@@ -29,7 +29,8 @@ from .models.build import TowerSpec, resolve_text
 from .models.text_transformer import TextTransformer
 from .ops.preprocess import bucket_batch
 from .tokenizer import Tokenizer
-from .vision import resolve_attn_impl, resolve_device
+from .ops.quant import check_quantize_mode
+from .vision import quantize_params, resolve_attn_impl, resolve_device
 from .weights import load_pytree, validate_tower_pytree
 
 
@@ -74,11 +75,15 @@ class TextEmbedder:
         device: torch.device | str | None = None,
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "auto",
+        quantize: str | None = None,
     ):
         """``tokenizer`` must already pad and truncate to the context length
-        (``configure_tokenizer``)."""
+        (``configure_tokenizer``); ``tower`` holds weights already in the
+        ``quantize`` mode's form (``from_local_dir`` converts them)."""
+        check_quantize_mode(quantize)
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.quantize = quantize
         self.tower = tower.to(self.device)
         self.spec = spec
         self.config = config
@@ -94,6 +99,7 @@ class TextEmbedder:
     def from_local_dir(
         cls, model_dir: Path | str, *, device: torch.device | str | None = None,
         dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+        quantize: str | None = None,
     ) -> "TextEmbedder":
         model_dir = Path(model_dir)
         dev = resolve_device(device)
@@ -104,10 +110,11 @@ class TextEmbedder:
         configure_tokenizer(tokenizer, model_config,
                             config.model_cfg.text_cfg.context_length)
         spec = resolve_text(config.model_cfg)
-        params = _load_text(model_dir, spec, dev, dtype)
+        params = quantize_params(_load_text(model_dir, spec, dev, dtype), spec, quantize,
+                                 dev, dtype)
         return cls(tower=TextTransformer(spec.cfg, params), spec=spec, config=config,
                    model_config=model_config, tokenizer=tokenizer, model_dir=model_dir,
-                   device=dev, dtype=dtype, attn_impl=attn_impl)
+                   device=dev, dtype=dtype, attn_impl=attn_impl, quantize=quantize)
 
     @classmethod
     def from_local_id(
@@ -128,7 +135,7 @@ class TextEmbedder:
             tower=self.tower, spec=self.spec, config=self.config,
             model_config=self.model_config, tokenizer=self.tokenizer.clone(),
             model_dir=self.model_dir, device=self.device, dtype=self.dtype,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, quantize=self.quantize,
         )
 
     # -- tokenization (reference: src/text.rs:111-139) ---------------------

@@ -8,6 +8,10 @@ of ``ops.preprocess`` on the device; the tower is ``models.vit.ViT``.
 The device is explicit: ``device=None`` means ``"cuda"``, which raises
 ``DeviceError`` when CUDA is missing — the embedders never drop to the CPU
 on their own; ask for ``device="cpu"`` to run there.
+
+``quantize="int8"`` (MLP blocks) or ``"int8_all"`` (MLP blocks and
+attention projections) converts the loaded weights to W8A8
+(``ops.quant``), as the JAX package's ``quantize=`` does.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from .models.build import TowerSpec, resolve_vision
 from .models.vit import ViT
 from .ops.attention import ATTN_IMPLS
 from .ops.preprocess import Preprocessor
+from .ops.quant import check_quantize_mode, quantize_tree_checked
 from .utils.images import to_rgb_array
-from .weights import load_pytree, validate_tower_pytree
+from .weights import load_pytree, to_device_tree, validate_tower_pytree
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -64,6 +69,18 @@ def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
     return attn_impl
 
 
+def quantize_params(params: dict, spec: TowerSpec, quantize: str | None, device,
+                    dtype) -> dict:
+    """The loaded (and validated) tree as the ``quantize`` mode asks: as it
+    is for None, else W8A8 (``ops.quant.quantize_tree_checked``, from the
+    weights in the working dtype, as the JAX package quantizes them)."""
+    check_quantize_mode(quantize)
+    if quantize is None:
+        return params
+    return to_device_tree(quantize_tree_checked(params, spec.family, mode=quantize),
+                          device=device, dtype=dtype)
+
+
 def _load_visual(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
     native = model_dir / NATIVE_VISUAL
     if not native.is_file():
@@ -89,9 +106,14 @@ class VisionEmbedder:
         device: torch.device | str | None = None,
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "auto",
+        quantize: str | None = None,
     ):
+        """``tower`` holds weights already in the ``quantize`` mode's form
+        (``from_local_dir`` converts them)."""
+        check_quantize_mode(quantize)
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.quantize = quantize
         self.tower = tower.to(self.device)
         self.spec = spec
         self.config = config
@@ -116,6 +138,7 @@ class VisionEmbedder:
     def from_local_dir(
         cls, model_dir: Path | str, *, device: torch.device | str | None = None,
         dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+        quantize: str | None = None,
     ) -> "VisionEmbedder":
         model_dir = Path(model_dir)
         dev = resolve_device(device)
@@ -123,10 +146,11 @@ class VisionEmbedder:
         config = OpenClipConfig.from_file(model_dir / "open_clip_config.json")
         model_config = ModelConfig.from_file(model_dir / "model_config.json")
         spec = resolve_vision(config.model_cfg)
-        params = _load_visual(model_dir, spec, dev, dtype)
+        params = quantize_params(_load_visual(model_dir, spec, dev, dtype), spec, quantize,
+                                 dev, dtype)
         return cls(tower=ViT(spec.cfg, params), spec=spec, config=config,
                    model_config=model_config, model_dir=model_dir, device=dev,
-                   dtype=dtype, attn_impl=attn_impl)
+                   dtype=dtype, attn_impl=attn_impl, quantize=quantize)
 
     @classmethod
     def from_local_id(
@@ -146,6 +170,7 @@ class VisionEmbedder:
             tower=self.tower, spec=self.spec, config=self.config,
             model_config=self.model_config, model_dir=self.model_dir,
             device=self.device, dtype=self.dtype, attn_impl=self.attn_impl,
+            quantize=self.quantize,
         )
 
     # -- embedding (reference: src/vision.rs:94-117) -----------------------

@@ -78,27 +78,33 @@ def _relistify(node):
 def params_from_numpy(tree: Any, *, device: torch.device | str,
                       dtype: torch.dtype) -> Any:
     """A tree of arrays (numpy, or anything ``np.asarray`` takes — e.g. the
-    JAX package's parameters) → the same tree of tensors on ``device``.
-    Floating leaves become ``dtype``; ``w_scale`` leaves stay f32; integer
-    leaves keep their dtype."""
-    def conv(path: tuple[str, ...], a):
+    JAX package's parameters) → the same tree of tensors on ``device``, as
+    ``to_device_tree`` types them."""
+    def conv(a):
         arr = np.asarray(a)
-        if not np.issubdtype(arr.dtype, np.floating):
-            return torch.tensor(arr, device=device)
-        if arr.dtype not in (np.float32, np.float64):
+        if np.issubdtype(arr.dtype, np.floating) and arr.dtype not in (np.float32, np.float64):
             arr = arr.astype(np.float32)
-        t = torch.tensor(arr)  # a copy: npz and JAX arrays are read-only
-        target = torch.float32 if path and path[-1] == "w_scale" else dtype
-        return t.to(device=device, dtype=target)
+        return torch.tensor(arr)  # a copy: npz and JAX arrays are read-only
 
-    def walk(node, path):
+    return to_device_tree(tree_map(conv, tree), device=device, dtype=dtype)
+
+
+def to_device_tree(tree: Any, *, device: torch.device | str, dtype: torch.dtype) -> Any:
+    """A tree of tensors → the same tree on ``device``, floating leaves in
+    ``dtype`` except the int8 dequantization scales (``w_scale``), which
+    stay f32 (rounding them to bf16 would add a systematic per-channel
+    error on top of the int8 budget); integer leaves (``w_q``) keep their
+    dtype. Counterpart of the JAX package's ``vision.to_device_tree``."""
+    def walk(node, key):
         if isinstance(node, Mapping):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
-        return conv(path, node)
+            return [walk(v, None) for v in node]
+        if not node.is_floating_point():
+            return node.to(device=device)
+        return node.to(device=device, dtype=torch.float32 if key == "w_scale" else dtype)
 
-    return walk(tree, ())
+    return walk(tree, None)
 
 
 def load_pytree(path: Path | str, *, device: torch.device | str,

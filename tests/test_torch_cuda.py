@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from clip_embedder_tpu_torch.ops import flash, qkv
+from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
 from clip_embedder_tpu_torch.ops.attention import causal_mask
+from clip_embedder_tpu_torch.ops.quant import quantize_weight
 
 FIXTURES = Path(__file__).parent / "fixtures"
 
@@ -125,3 +126,122 @@ def test_golden_fixture_through_kernels(dev, name):
     results = clip.classify(img, [label for label, _ in expect])
     assert [r[0] for r in results] == [e[0] for e in expect]
     np.testing.assert_allclose([r[1] for r in results], [e[1] for e in expect], atol=1e-4)
+
+
+# -- the int8 kernels --------------------------------------------------------
+
+def _qlinear(rng, k, n, dtype, dev):
+    q = quantize_weight(torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
+                                         * k ** -0.5).to(dev))
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 0.1).to(dev, dtype)
+    return {**q, "b": b}
+
+
+def assert_rows_close(got, ref, dtype):
+    """Kernel against plain: the LayerNorm's row sums are taken in another
+    order, which can flip an int8 code by one and move that row (through
+    the MLP's requantization, a few more codes). So at most 2% of the rows
+    (at least one) may leave the base tolerance (1e-5 in f32, one bf16
+    step in bf16), and every row keeps a cosine of 1 - 1e-4 to the plain
+    row."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    assert g.shape == r.shape and torch.isfinite(g).all()
+    if dtype == torch.float32:
+        base = 1e-5 + 1e-5 * r.abs()
+    else:
+        mag = torch.maximum(torch.maximum(g.abs(), r.abs()), torch.tensor(1e-3, device=g.device))
+        base = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    off = ((g - r).abs() > base).any(dim=-1)
+    assert int(off.sum()) <= max(1, int(0.02 * off.numel())), int(off.sum())
+    cos = (g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1)).clamp_min(1e-30)
+    assert float(cos.min()) >= 1 - 1e-4
+
+
+@pytest.mark.parametrize("rows,k_in,k_out", [(2 * 61, 64, 272), (3 * 17, 256, 192),
+                                             (2 * 576, 1152, 1152), (7, 96, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_int8_linear_fused_kernel_matches_plain(dev, rows, k_in, k_out, dtype, with_residual):
+    rng = np.random.default_rng(3)
+    p = _qlinear(rng, k_in, k_out, dtype, dev)
+    x = torch.from_numpy(rng.standard_normal((rows, k_in)).astype(np.float32)).to(dev, dtype)
+    r = (torch.from_numpy(rng.standard_normal((rows, k_out)).astype(np.float32)).to(dev, dtype)
+         if with_residual else None)
+    before = int8_mlp.int8_linear_fused.launches
+    got = int8_mlp.int8_linear_fused(p, x, residual=r)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_linear_fused.launches == before + 1
+    assert_rows_close(got, int8_mlp.int8_linear_fused_plain(p, x, residual=r), dtype)
+
+
+@pytest.mark.parametrize("rows,width", [(2 * 61, 256), (3 * 17, 64), (100, 192),
+                                        (2 * 576, 1152)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_qkv_int8_kernel_matches_plain(dev, rows, width, dtype):
+    rng = np.random.default_rng(4)
+    params = {n: _qlinear(rng, width, width, dtype, dev) for n in "qkv"}
+    _, pre_ln, x = _qkv_inputs(rows, width, dtype, dev, seed=5)
+    before = qkv.ln_qkv_int8.launches
+    got = qkv.ln_qkv_int8(params, pre_ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    assert qkv.ln_qkv_int8.launches == before + 1
+    for g, r in zip(got, qkv.ln_qkv_int8_plain(params, pre_ln, x, eps=1e-6)):
+        assert_rows_close(g, r, dtype)
+
+
+@pytest.mark.parametrize("rows,k_in,hidden", [(2 * 61, 64, 272), (3 * 17, 256, 1040),
+                                              (2 * 576, 1152, 4304)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu", "quick_gelu", "relu"])
+@pytest.mark.parametrize("variant", ["plain", "pre_ln", "pre_ln_residual"])
+def test_int8_mlp_kernel_matches_plain(dev, rows, k_in, hidden, dtype, act, variant):
+    rng = np.random.default_rng(6)
+    params = {"fc": _qlinear(rng, k_in, hidden, dtype, dev),
+              "proj": _qlinear(rng, hidden, k_in, dtype, dev)}
+    _, pre_ln, x = _qkv_inputs(rows, k_in, dtype, dev, seed=7)
+    kw = {"activation": act, "pre_ln": pre_ln if variant != "plain" else None,
+          "add_residual": variant == "pre_ln_residual"}
+    before = int8_mlp.int8_mlp.launches
+    got = int8_mlp.int8_mlp(params, x, **kw)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_mlp.launches == before + 1
+    assert_rows_close(got, int8_mlp.int8_mlp_plain(params, x, **kw), dtype)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(8)
+    p = _qlinear(rng, 64, 24, torch.float32, dev)    # 24: not a multiple of 16
+    x = torch.zeros(4, 64, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_mlp.int8_linear_fused(p, x)
+    p = _qlinear(rng, 64, 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        int8_mlp.int8_linear_fused(p, x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_mlp.int8_linear_fused(p, torch.zeros(64, 4, device=dev).t())
+    with pytest.raises(ValueError, match="residual"):
+        int8_mlp.int8_linear_fused(p, x, residual=torch.zeros(4, 16, device=dev))
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_all"])
+def test_golden_siglip_quantized_through_kernels(dev, mode):
+    """f32 on the card (the fused kernels) against the CPU (the unfused
+    path, as the JAX package takes there), at cosine 1 - 1e-4: the kernels'
+    LayerNorm sums its rows in another order, and one int8 code that flips
+    for it moves this 64-wide model's text embedding by 6.3e-5."""
+    from clip_embedder_tpu_torch import Clip
+
+    fixture = FIXTURES / "golden_siglip"
+    img = np.load(fixture / "golden_image.npy")
+    texts = ["a photo of a cat", "the dog!"]
+    n0 = (int8_mlp.int8_mlp.launches, qkv.ln_qkv_int8.launches)
+    card = Clip.from_local_dir(fixture, device="cuda", quantize=mode)
+    got = card.vision.embed_image(img), card.text.embed_texts(texts)
+    assert int8_mlp.int8_mlp.launches > n0[0]
+    assert (qkv.ln_qkv_int8.launches > n0[1]) == (mode == "int8_all")
+    cpu = Clip.from_local_dir(fixture, device="cpu", quantize=mode)
+    ref = cpu.vision.embed_image(img), cpu.text.embed_texts(texts)
+    for g, r in zip(got, ref):
+        cos = (g * r).sum(-1) / (np.linalg.norm(g, axis=-1) * np.linalg.norm(r, axis=-1))
+        assert float(np.min(cos)) >= 1 - 1e-4

@@ -19,7 +19,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import clip_embedder_tpu_torch\n"
         "from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder\n"
-        "from clip_embedder_tpu_torch.ops import cuda, flash, qkv, preprocess\n"
+        "from clip_embedder_tpu_torch.ops import cuda, flash, int8_mlp, qkv, preprocess, quant\n"
         "from clip_embedder_tpu_torch.models import build, text_transformer, vit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'clip_embedder_tpu' or m.startswith('clip_embedder_tpu.'))\n"
@@ -52,7 +52,8 @@ def test_kernel_sources_are_present_and_noted():
     """Each kernel source says which TPU kernel it replaces, what bounds it
     on the H100, and what its design does about that."""
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["flash_packed.cu", "ln_qkv.cu"]
+    assert [s.name for s in sources] == ["flash_packed.cu", "int8_linear.cu", "int8_mlp.cu",
+                                         "ln_qkv.cu", "ln_qkv_int8.cu"]
     for src in sources:
         head = src.read_text()[:3000]
         assert "Replaces the TPU kernel clip_embedder_tpu/ops/" in head
@@ -94,20 +95,35 @@ def test_resolve_device_and_attn_impl(no_cuda):
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     """A CPU tensor runs the plain version (no launch counted); a tensor on
     another device is refused rather than quietly moved."""
-    from clip_embedder_tpu_torch.ops import flash, qkv
+    from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
+    from clip_embedder_tpu_torch.ops.quant import quantize_weight
 
-    before = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+    wrappers = (qkv.ln_qkv, flash.flash_attention_packed, qkv.ln_qkv_int8,
+                int8_mlp.int8_mlp, int8_mlp.int8_linear_fused)
+    before = [fn.launches for fn in wrappers]
     x = torch.randn(1, 4, 64)
     params = {n: {"w": torch.randn(64, 64) * 0.1} for n in "qkv"}
+    qparams = {n: quantize_weight(torch.randn(64, 64) * 0.1) for n in "qkv"}
+    mlp = {"fc": quantize_weight(torch.randn(64, 128) * 0.1),
+           "proj": quantize_weight(torch.randn(128, 64) * 0.1)}
     ln = {"scale": torch.ones(64), "bias": torch.zeros(64)}
     q, k, v = qkv.ln_qkv(params, ln, x)
     flash.flash_attention_packed(q, k, v, num_heads=4)
-    assert (qkv.ln_qkv.launches, flash.flash_attention_packed.launches) == before
+    qkv.ln_qkv_int8(qparams, ln, x)
+    int8_mlp.int8_mlp(mlp, x, pre_ln=ln, add_residual=True)
+    int8_mlp.int8_linear_fused(qparams["q"], x, residual=x)
+    assert [fn.launches for fn in wrappers] == before
     meta = x.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         qkv.ln_qkv(params, ln, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         flash.flash_attention_packed(meta, meta, meta, num_heads=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        qkv.ln_qkv_int8(qparams, ln, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_mlp.int8_mlp(mlp, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_mlp.int8_linear_fused(qparams["q"], meta)
 
 
 def test_chip_smoke_refuses_without_cuda():
