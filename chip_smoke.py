@@ -8,14 +8,18 @@ card, in phases, and fail loudly if any phase fails.
    compute capability (must be 9.0);
 2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a;
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes (max error beside the tolerance), and its time (CUDA
+   paths' shapes (max error beside the tolerance), and its time (CUDA
    events, median of 20) beside the plain version's, one PyTorch library
    call's or, for the int8 kernels, a composition of PyTorch ops around
-   ``torch._int_mm`` (a yardstick the port never calls) and the bound;
+   ``torch._int_mm`` (a yardstick the port never calls) and the bound: the
+   packed attention kernel also with PE-Core's rope, the [B, H, S, D]
+   attention kernel at the fixtures' and at SO400M's head layout, the
+   streamed int8 MLP at PE-Core-bigG's;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
-   embeddings and classify results; ``golden_siglip`` under
-   ``quantize="int8"`` and ``"int8_all"`` against the same on the CPU;
+   embeddings and classify results (4 heads x 16: no 128-lane head group, so
+   their attention takes ``flash_attention``, kernel 3); ``golden_siglip``
+   under ``quantize="int8"`` and ``"int8_all"`` against the same on the CPU;
 5. main path — ViT-SO400M-16-SigLIP2-384 (vision + SigLIP text tower) at
    full width and depth with seeded random bf16 weights through ``Clip``:
    ``embed_images`` on a mixed-size batch of the JPEGs under ``assets/img``
@@ -26,7 +30,13 @@ card, in phases, and fail loudly if any phase fails.
    card, under ``quantize="int8"`` and ``"int8_all"``: unit norms, the int8
    kernels' launch counts, the kernel path against the same ``Clip`` with
    the int8 wrappers swapped for their plain versions, the cosine to the
-   bf16 path (printed only: random weights), images/s and p50.
+   bf16 path (printed only: random weights), images/s and p50;
+7. PE-Core-bigG-14-448 — vision 50 x 1536 with 2-D rope over 1025 tokens,
+   the 24 x 1280 causal text tower, seeded random bf16 weights, through
+   ``Clip`` in bf16, ``"int8"`` and ``"int8_all"`` (its vision MLPs take the
+   streamed int8 MLP, kernel 7): unit norms, launch counts, kernel path
+   against plain path, images/s and p50, and device time by kernel group
+   for bf16 and ``int8``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -88,6 +98,19 @@ SO400M_SIGLIP2_384 = {
 }
 SIGLIP_PREPROCESS = {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5],
                      "interpolation": "bicubic", "resize_mode": "squash"}
+# timm/PE-Core-bigG-14-448 as the repo records it (tests/test_reference_model_list.py,
+# benches/bench_suite.py "pe_core_bigg_448"): vision 50 x 1536, 16 x 96 heads, patch
+# 14 at 448, MLP 8960, 2-D rope, map pool; text 24 x 1280, 20 heads, context 72.
+PE_CORE_BIGG_448 = {
+    "embed_dim": 1280,
+    "vision_cfg": {"image_size": 448, "timm_model_name": "vit_pe_core_bigG_patch14_448",
+                   "timm_proj": "linear"},
+    "text_cfg": {"context_length": 72, "vocab_size": 49408, "width": 1280, "heads": 20,
+                 "layers": 24},
+}
+# PE-Core's own preprocess is not recorded in the repo; the phase takes the
+# SigLIP one (mean and std 0.5), which only sets the pixel values.
+PE_PREPROCESS = SIGLIP_PREPROCESS
 LABELS = ["a photo of a city at night", "a desert", "a forest", "the ocean",
           "a red balloon"]
 
@@ -224,9 +247,7 @@ def phase_kernels(dev, peaks) -> dict:
     t_fl_plain = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads))
     qh, kh, vh = (t.view(b, seq, heads, hdim).transpose(1, 2) for t in (q, k, v))
     t_fl_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    fl_bytes = 4 * b * seq * heads * hdim * es
-    fl_ops = 4 * b * heads * seq * seq * hdim
-    b_fl = max(fl_bytes / peaks["bytes"], fl_ops / peaks["bf16"]) * 1e3
+    b_fl, by_fl, fl_ops, fl_bytes = attn_bound(b, heads, seq, hdim, peaks)
     say(f"  ln_qkv: {t_qkv:.4f} ms; plain {t_qkv_plain:.4f} ms; F.layer_norm+3 addmm "
         f"{t_qkv_lib:.4f} ms; bound {b_qkv:.4f} ms ({qkv_ops:.3e} FLOP, {qkv_bytes:.3e} B)")
     say(f"  flash_attention_packed: exact {t_fl:.4f} ms, fast+exp_bf16 {t_fl_fast:.4f} ms; "
@@ -244,11 +265,142 @@ def phase_kernels(dev, peaks) -> dict:
             "name": "flash_attention_packed", "route": "cuda",
             "source": "clip_embedder_tpu_torch/csrc/flash_packed.cu",
             "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err_fl,
-            "ms": t_fl, "plain_ms": t_fl_plain, "bound_ms": b_fl,
-            "bound_by": "operations" if fl_ops / peaks["bf16"]
-            > fl_bytes / peaks["bytes"] else "bytes",
+            "ms": t_fl, "plain_ms": t_fl_plain, "bound_ms": b_fl, "bound_by": by_fl,
             "library_ms": t_fl_lib},
     }
+
+
+def rope_library(q, k, v, heads, sin, cos):
+    """PE-Core attention as PyTorch calls: the rope rotation in torch ops,
+    then F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops.rope import apply_rope
+
+    b, s, hd = q.shape
+    q, k = (apply_rope(t, sin, cos) for t in (q, k))
+    qh, kh, vh = (t.view(b, s, heads, hd // heads).transpose(1, 2) for t in (q, k, v))
+    return F.scaled_dot_product_attention(qh, kh, vh)
+
+
+def attn_bound(b, h, s, d, peaks, extra_bytes=0, dtype=torch.bfloat16):
+    """(bound ms, bound_by, FLOP, bytes): q, k, v read once and out written
+    once in ``dtype`` (plus ``extra_bytes``), against 4·S²·D FLOP per head
+    at the bf16 tensor-core rate, or for f32 the FMA rate (the f32 kernels
+    run on FMA)."""
+    nbytes = 4 * b * s * h * d * dtype.itemsize + extra_bytes
+    ops = 4 * b * h * s * s * d
+    rate = peaks["f32" if dtype == torch.float32 else "bf16"]
+    t_ops, t_bytes = ops / rate, nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", ops, nbytes
+
+
+def phase_pe_attention_kernels(dev, peaks) -> dict:
+    """Kernel 2 with PE-Core-bigG's rope (1025 tokens, 16 x 96 heads) and
+    kernel 3 at the golden fixtures' four f32 layouts (its main path; the
+    kernels' record takes golden_model's causal text tower) and, as a
+    yardstick no path sends to it, at SO400M's head layout in bf16."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import flash
+    from clip_embedder_tpu_torch.ops.attention import causal_mask
+    from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
+
+    say("[3] flash_attention_packed with rope and flash_attention against their plain versions")
+    heads, hdim, grid = 16, 96, 32
+    seq = grid * grid + 1
+    sin, cos = (t.to(dev) for t in head_tiled_tables(
+        axial_rope_table(grid, hdim, order="xy", prefix=1), heads))
+    rope = (sin, cos)
+    for b, dtype, tol in ((2, torch.float32, 2e-5), (8, torch.bfloat16, 2e-2)):
+        for fast in (False, True):
+            q, k, v = attn_inputs(b, heads, seq, hdim, dtype, dev, seed=4)
+            got = flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope,
+                                               fast_softmax=fast)
+            torch.cuda.synchronize()
+            hold(f"flash_attention_packed+rope B={b} S=1025 16x96 fast={fast} {dtype}", [got],
+                 [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, rope=rope,
+                                                     fast_softmax=fast)], tol, tol)
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def bhsd(b, h, s, d, dtype):
+        return [torch.randn((b, h, s, d), generator=g, device=dev).to(dtype) for _ in range(3)]
+
+    # the fixtures' layouts, f32: golden_siglip's vision (16 tokens) and text
+    # (12, no mask), golden_model's vision (16 patches + cls) and causal text;
+    # each text tower takes the two texts (and classify's two labels) at once
+    causal = causal_mask(12, device=dev)
+    fixture_shapes = (("golden_siglip vision", (1, 4, 16, 16), None),
+                      ("golden_siglip text", (2, 4, 12, 16), None),
+                      ("golden_model vision", (1, 4, 17, 16), None),
+                      ("golden_model text", (2, 4, 12, 16), causal))
+    for _, (b, h, s, d), mask in fixture_shapes:
+        for fast in (False, True):
+            q, k, v = bhsd(b, h, s, d, torch.float32)
+            got = flash.flash_attention(q, k, v, mask=mask, fast_softmax=fast)
+            torch.cuda.synchronize()
+            hold(f"flash_attention B={b} H={h} S={s} D={d} mask={mask is not None} "
+                 f"fast={fast} f32", [got],
+                 [flash.flash_attention_plain(q, k, v, mask=mask, fast_softmax=fast)],
+                 2e-5, 2e-5)
+
+    say("[3] flash_attention times at the fixtures' shapes, f32 (CUDA events, median of 20 "
+        "back-to-back calls)")
+    fixture_rows = {}
+    for label, (b, h, s, d), mask in fixture_shapes:
+        q, k, v = bhsd(b, h, s, d, torch.float32)
+        err = hold(f"flash_attention {label} {[b, h, s, d]} f32", [flash.flash_attention(
+            q, k, v, mask=mask)], [flash.flash_attention_plain(q, k, v, mask=mask)], 2e-5, 2e-5)
+        t_k = cuda_ms(lambda: flash.flash_attention(q, k, v, mask=mask))
+        t_p = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, mask=mask))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        bound, by, ops, nbytes = attn_bound(b, h, s, d, peaks, dtype=torch.float32,
+                                            extra_bytes=0 if mask is None else s * s * 4)
+        say(f"  flash_attention {label} {[b, h, s, d]} mask={mask is not None}: {t_k:.4f} ms; "
+            f"plain {t_p:.4f} ms; F.scaled_dot_product_attention {t_l:.4f} ms; bound "
+            f"{bound:.3e} ms ({ops:.3e} FLOP, {nbytes:.3e} B, {by})")
+        fixture_rows[label] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                               "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+
+    say("[3] attention kernel times at batch 32, bf16 (CUDA events, median of 20 back-to-back "
+        "calls)")
+    b = 32
+    q, k, v = attn_inputs(b, heads, seq, hdim, torch.bfloat16, dev, seed=6)
+    err_rope = hold("flash_attention_packed+rope B=32 S=1025 16x96 exact bf16",
+                    [flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope)],
+                    [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, rope=rope)],
+                    2e-2, 2e-2)
+    t_rope = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope))
+    t_rope_plain = cuda_ms(lambda: flash.flash_attention_packed_plain(
+        q, k, v, num_heads=heads, rope=rope))
+    t_rope_lib = cuda_ms(lambda: rope_library(q, k, v, heads, sin, cos))
+    b_rope, by_rope, ops, nbytes = attn_bound(b, heads, seq, hdim, peaks,
+                                              extra_bytes=2 * seq * heads * hdim * 4)
+    say(f"  flash_attention_packed+rope (PE-Core-bigG, S=1025, 16x96): {t_rope:.4f} ms; plain "
+        f"{t_rope_plain:.4f} ms; apply_rope + F.scaled_dot_product_attention "
+        f"{t_rope_lib:.4f} ms; bound {b_rope:.4f} ms ({ops:.3e} FLOP, {nbytes:.3e} B, "
+        f"{by_rope})")
+
+    h, s, d = 16, 576, 72
+    q, k, v = bhsd(b, h, s, d, torch.bfloat16)
+    err3 = hold("flash_attention B=32 H=16 S=576 D=72 exact bf16",
+                [flash.flash_attention(q, k, v)], [flash.flash_attention_plain(q, k, v)],
+                2e-2, 2e-2)
+    t3 = cuda_ms(lambda: flash.flash_attention(q, k, v))
+    t3_plain = cuda_ms(lambda: flash.flash_attention_plain(q, k, v))
+    t3_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    b3, by3, ops, nbytes = attn_bound(b, h, s, d, peaks)
+    say(f"  flash_attention [B, H, S, D] = [32, 16, 576, 72] (on no path: a yardstick beside "
+        f"the packed kernel; max_abs_err {err3:.3e}): {t3:.4f} ms; plain {t3_plain:.4f} ms; "
+        f"F.scaled_dot_product_attention {t3_lib:.4f} ms; bound {b3:.4f} ms ({ops:.3e} FLOP, "
+        f"{nbytes:.3e} B, {by3})")
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda",
+        "source": "clip_embedder_tpu_torch/csrc/flash_bhsd.cu",
+        "replaces": "clip_embedder_tpu/ops/flash.py:520",
+        **fixture_rows["golden_model text"]},
+        "rope": {"max_abs_err": err_rope, "ms": t_rope, "plain_ms": t_rope_plain,
+                 "bound_ms": b_rope, "library_ms": t_rope_lib}}
 
 
 def hold_int8(name, got, ref, dtype) -> float:
@@ -434,6 +586,63 @@ def phase_int8_kernels(dev, peaks) -> dict:
     return out
 
 
+def int8_mlp_streamed_library(p, w1_cm, w2_slabs, pre_ln, x, eps, chunk):
+    """The streamed MLP as PyTorch ops around torch._int_mm: LayerNorm, row
+    quant, fc1, exact gelu, then per slab a row requant and an int8 product
+    added into the f32 sum."""
+    import torch.nn.functional as F
+
+    w = x.shape[-1]
+    y = F.layer_norm(x.float(), (w,), pre_ln["scale"].float(), pre_ln["bias"].float(), eps)
+    xq, xs = _lib_row_quant(y)
+    h = F.gelu(torch._int_mm(xq, w1_cm).float() * (xs * p["fc"]["w_scale"])
+               + p["fc"]["b"].float())
+    acc = x.float() + p["proj"]["b"].float()
+    s2 = p["proj"]["w_scale"]
+    for j, w2 in enumerate(w2_slabs):
+        aq, as_ = _lib_row_quant(h[:, j * chunk:(j + 1) * chunk])
+        acc += torch._int_mm(aq, w2).float() * (as_ * s2)
+    return acc.to(x.dtype)
+
+
+def phase_streamed_mlp_kernel(dev, peaks) -> dict:
+    """Kernel 7 at PE-Core-bigG's vision MLP: 1536 -> 8960 -> 1536, exact
+    gelu, LayerNorm and residual fused, slabs of 1792."""
+    from clip_embedder_tpu_torch.ops import int8_mlp
+
+    width, hidden, seq, eps, chunk = 1536, 8960, 1025, 1e-6, int8_mlp.STREAM_CHUNK
+    kw = {"activation": "gelu", "add_residual": True, "chunk": chunk}
+    say("[3] int8_mlp_streamed against its plain version (PE-Core-bigG's MLP)")
+    for b, dtype in ((8, torch.bfloat16), (2, torch.float32)):
+        p, ln, x = int8_inputs(b * seq, width, width, dtype, dev, hidden=hidden, seed=7)
+        got = int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw)
+        torch.cuda.synchronize()
+        hold_int8(f"int8_mlp_streamed rows={b}x1025 1536->8960->1536 gelu+LN+res {dtype}",
+                  [got], [int8_mlp.int8_mlp_streamed_plain(p, x, pre_ln=ln, **kw)], dtype)
+    rows, es = 32 * seq, 2
+    p, ln, x = int8_inputs(rows, width, width, torch.bfloat16, dev, hidden=hidden, seed=8)
+    err = hold_int8("int8_mlp_streamed rows=32x1025 bf16",
+                    [int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw)],
+                    [int8_mlp.int8_mlp_streamed_plain(p, x, pre_ln=ln, **kw)], torch.bfloat16)
+    w1_cm = _col_major(p["fc"]["w_q"])
+    w2_slabs = [_col_major(p["proj"]["w_q"][j:j + chunk]) for j in range(0, hidden, chunk)]
+    t_k = cuda_ms(lambda: int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw))
+    t_p = cuda_ms(lambda: int8_mlp.int8_mlp_streamed_plain(p, x, pre_ln=ln, **kw), iters=5)
+    t_l = cuda_ms(lambda: int8_mlp_streamed_library(p, w1_cm, w2_slabs, ln, x, eps, chunk))
+    ops = 4 * rows * width * hidden
+    nbytes = 2 * rows * width * es + 2 * width * hidden + 4 * 2 * (hidden + width) + 4 * 2 * width
+    t_ops, t_bytes = ops / peaks["int8"], nbytes / peaks["bytes"]
+    bound = max(t_ops, t_bytes) * 1e3
+    say(f"  int8_mlp_streamed: {t_k:.4f} ms; plain {t_p:.4f} ms (median of 5); library "
+        f"{t_l:.4f} ms; bound {bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B)")
+    return {"int8_mlp_streamed": {
+        "name": "int8_mlp_streamed", "route": "cuda",
+        "source": "clip_embedder_tpu_torch/csrc/int8_mlp_streamed.cu",
+        "replaces": "clip_embedder_tpu/ops/int8_mlp.py:347", "max_abs_err": err, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": bound,
+        "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": t_l}}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: fixtures
 # ---------------------------------------------------------------------------
@@ -443,22 +652,25 @@ def cosines(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def phase_fixtures(device) -> None:
+def phase_fixtures(device) -> dict:
+    """Returns the launch counts of the two fixtures' run (counts set to 0
+    just before it): kernel 3's main path."""
     from clip_embedder_tpu_torch import Clip
     from clip_embedder_tpu_torch.ops import flash, qkv
 
     say("[4] golden fixtures, f32")
+    reset_launch_counts()
     for name in ("golden_siglip", "golden_model"):
         fixture = FIXTURES / name
         clip = Clip.from_local_dir(fixture, device=device)
         img = np.load(fixture / "golden_image.npy")
         golden = np.load(fixture / "golden_outputs.npz")
-        n0 = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+        n0 = (qkv.ln_qkv.launches, flash.flash_attention.launches)
         img_emb = clip.vision.embed_image(img)
         txt_emb = clip.text.embed_texts(["a photo of a cat", "the dog!"])
         expect = json.loads((fixture / "golden_classify.json").read_text())
         results = clip.classify(img, [label for label, _ in expect])
-        n1 = (qkv.ln_qkv.launches, flash.flash_attention_packed.launches)
+        n1 = (qkv.ln_qkv.launches, flash.flash_attention.launches)
         cos = min(cosines(img_emb, golden["image_embedding"]).min(),
                   cosines(txt_emb, golden["text_embeddings"]).min())
         err = max(np.abs(img_emb - golden["image_embedding"]).max(),
@@ -467,12 +679,17 @@ def phase_fixtures(device) -> None:
         order = [r[0] for r in results] == [e[0] for e in expect]
         say(f"  {name}: attn_impl={clip.vision.attn_impl} min cos={cos:.9f} "
             f"max abs err={err:.3e} classify order={'same' if order else 'DIFFERENT'} "
-            f"prob err={perr:.3e} launches ln_qkv+{n1[0] - n0[0]} flash+{n1[1] - n0[1]}")
+            f"prob err={perr:.3e} launches ln_qkv+{n1[0] - n0[0]} "
+            f"flash_attention+{n1[1] - n0[1]}")
         if not (cos > 1 - 1e-6 and err <= 5e-4 and order and perr <= 1e-4):
             raise AssertionError(f"{name} does not reproduce its golden outputs")
         if device == "cuda" and not (n1[0] > n0[0] and n1[1] > n0[1]):
-            raise AssertionError(f"{name} did not go through both kernels")
+            raise AssertionError(f"{name} did not go through ln_qkv and flash_attention")
+    counts = launch_counts()
+    if counts["flash_attention_packed"]:
+        raise AssertionError("the fixtures' 4 x 16 heads went through the packed kernel")
     phase_fixtures_quantized(device)
+    return counts
 
 
 def phase_fixtures_quantized(device) -> None:
@@ -510,11 +727,13 @@ def phase_fixtures_quantized(device) -> None:
 # phase 5: the full-width main path
 # ---------------------------------------------------------------------------
 
-def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None):
-    """ViT-SO400M-16-SigLIP2-384 ``Clip`` with seeded random weights, resolved
-    through the port's config → build (``layers``/``vocab_size`` cut it for a
-    CPU rehearsal); ``quantize`` converts those same weights on the device,
-    as ``from_local_dir(..., quantize=...)`` converts loaded ones."""
+def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None,
+               model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS):
+    """A ``Clip`` of ``model`` (ViT-SO400M-16-SigLIP2-384 unless given) with
+    seeded random weights, resolved through the port's config → build
+    (``layers``/``vocab_size`` cut it for a CPU rehearsal); ``quantize``
+    converts those same weights on the device, as ``from_local_dir(...,
+    quantize=...)`` converts loaded ones."""
     import copy
 
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
@@ -525,14 +744,14 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=
     from clip_embedder_tpu_torch.tokenizer import Tokenizer
     from clip_embedder_tpu_torch.vision import quantize_params
 
-    model_cfg = copy.deepcopy(SO400M_SIGLIP2_384)
+    model_cfg = copy.deepcopy(model)
     if layers is not None:
-        model_cfg["vision_cfg"]["vit_cfg"] = {"layers": layers}
+        pe = "_pe_core_" in model_cfg["vision_cfg"]["timm_model_name"]
+        model_cfg["vision_cfg"]["pe_cfg" if pe else "vit_cfg"] = {"layers": layers}
         model_cfg["text_cfg"]["layers"] = layers
     if vocab_size is not None:
         model_cfg["text_cfg"]["vocab_size"] = vocab_size
-    config = OpenClipConfig.from_dict({"model_cfg": model_cfg,
-                                       "preprocess_cfg": SIGLIP_PREPROCESS})
+    config = OpenClipConfig.from_dict({"model_cfg": model_cfg, "preprocess_cfg": preprocess})
     fixture = FIXTURES / "golden_siglip"  # tokenizer (ids < 512) + scoring config
     model_config = ModelConfig.from_file(fixture / "model_config.json")
     tokenizer = Tokenizer.from_file(fixture / "tokenizer.json")
@@ -578,7 +797,7 @@ def kernel_group(name: str) -> str:
     if "qkv_gemm_kernel" in n or "ln_kernel<" in n:
         return "ln_qkv"
     if "flash" in n:
-        return "flash_attention_packed"
+        return "attention kernels (flash_attention_packed, flash_attention)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     return "other"
@@ -712,36 +931,45 @@ def profile_embedder(emb, arrays, label) -> dict:
 INT8_WRAPPERS = ("int8_mlp", "ln_qkv_int8", "int8_linear_fused")
 
 
-def launch_counts() -> dict:
+def _wrappers() -> dict:
     from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
 
-    return {"ln_qkv": qkv.ln_qkv.launches,
-            "flash_attention_packed": flash.flash_attention_packed.launches,
-            "int8_mlp": int8_mlp.int8_mlp.launches,
-            "ln_qkv_int8": qkv.ln_qkv_int8.launches,
-            "int8_linear_fused": int8_mlp.int8_linear_fused.launches}
+    return {"ln_qkv": qkv.ln_qkv, "flash_attention_packed": flash.flash_attention_packed,
+            "flash_attention": flash.flash_attention, "int8_mlp": int8_mlp.int8_mlp,
+            "int8_mlp_streamed": int8_mlp.int8_mlp_streamed, "ln_qkv_int8": qkv.ln_qkv_int8,
+            "int8_linear_fused": int8_mlp.int8_linear_fused}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
-
-    for fn in (qkv.ln_qkv, flash.flash_attention_packed, int8_mlp.int8_mlp,
-               qkv.ln_qkv_int8, int8_mlp.int8_linear_fused):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
-def expected_int8_launches(mode, depth_v, depth_t) -> dict:
+def expected_int8_launches(mode, depth_v, depth_t, *, streamed=False) -> dict:
     """One embed_images (vision) plus one classify (vision + text), from the
-    gates: every block's MLP and the map-pool head's MLP take int8_mlp; under
-    int8_all every block's q/k/v takes ln_qkv_int8 and every out-projection
-    (with its residual) and the map-pool k/v (B·576 rows) int8_linear_fused,
-    while the map-pool q and out (B rows, under 128) take the unfused
-    int8_linear."""
+    gates: every block's MLP and the map-pool head's MLP take int8_mlp, or,
+    with ``streamed`` (over 20 MB of int8 weights and at least 512 rows: the
+    PE-Core-bigG vision MLP), the vision blocks' MLPs take
+    int8_mlp_streamed; under int8_all every block's q/k/v takes ln_qkv_int8
+    and every out-projection (with its residual) and the map-pool k/v (all
+    the tokens' rows) int8_linear_fused, while the map-pool q and out (B
+    rows, under 128) take the unfused int8_linear. Self-attention takes the
+    packed kernel (the heads form 128-lane groups)."""
     forwards = 2 * depth_v + depth_t
+    mlps = {"int8_mlp": (depth_t if streamed else forwards) + 2,
+            "int8_mlp_streamed": 2 * depth_v if streamed else 0}
+    if mode is None:
+        return {"ln_qkv": forwards, "flash_attention_packed": forwards, "flash_attention": 0,
+                "int8_mlp": 0, "int8_mlp_streamed": 0, "ln_qkv_int8": 0,
+                "int8_linear_fused": 0}
     if mode == "int8":
-        return {"ln_qkv": forwards, "flash_attention_packed": forwards,
-                "int8_mlp": forwards + 2, "ln_qkv_int8": 0, "int8_linear_fused": 0}
-    return {"ln_qkv": 0, "flash_attention_packed": forwards, "int8_mlp": forwards + 2,
+        return {"ln_qkv": forwards, "flash_attention_packed": forwards, "flash_attention": 0,
+                **mlps, "ln_qkv_int8": 0, "int8_linear_fused": 0}
+    return {"ln_qkv": 0, "flash_attention_packed": forwards, "flash_attention": 0, **mlps,
             "ln_qkv_int8": forwards, "int8_linear_fused": forwards + 4}
 
 
@@ -758,6 +986,8 @@ def plain_int8_wrappers():
         stack.enter_context(mock.patch.object(module, "int8_linear_fused",
                                               int8_mlp.int8_linear_fused_plain))
     stack.enter_context(mock.patch.object(layers, "int8_mlp", int8_mlp.int8_mlp_plain))
+    stack.enter_context(mock.patch.object(layers, "int8_mlp_streamed",
+                                          int8_mlp.int8_mlp_streamed_plain))
     stack.enter_context(mock.patch.object(attention, "ln_qkv_int8", qkv.ln_qkv_int8_plain))
     return stack
 
@@ -815,6 +1045,133 @@ def phase_int8_paths(device, dtype=torch.bfloat16, *, layers=None, vocab_size=No
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: PE-Core-bigG-14-448
+# ---------------------------------------------------------------------------
+
+def per_block_cosines(tower, run_kernel, run_plain) -> list[float]:
+    """Each block's output under two runs (on a small batch: every block's
+    output is kept), as the least cosine over its tokens."""
+    outs: tuple[list, list] = ([], [])
+    slot = [0]
+    hooks = [blk.register_forward_hook(
+        lambda _m, _a, o: outs[slot[0]].append(o.float().flatten(0, -2)))
+        for blk in tower.blocks]
+    try:
+        run_kernel()
+        slot[0] = 1
+        run_plain()
+    finally:
+        for h in hooks:
+            h.remove()
+    return [float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+            for a, b in zip(*outs)]
+
+
+def free_device_memory() -> None:
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def hold_pe_towers(clip, vspec, tspec, embs, images, mode, label) -> None:
+    """Both towers' kernel path against the plain path (eager for bf16, the
+    plain int8 wrappers for the int8 modes) at min cosine 0.999: the vision
+    tower on ``images`` (``embs`` is its kernel run), the text tower on the
+    labels, whose kernels run at their own shapes (20 x 64 heads, the causal
+    mask, W = 1280, MLP 5120)."""
+    from clip_embedder_tpu_torch import TextEmbedder, VisionEmbedder
+
+    kernel = {"vision": clip.vision.embed_images, "text": clip.text.embed_texts}
+    if mode is None:
+        common = {"config": clip.vision.config, "model_config": clip.vision.model_config,
+                  "model_dir": clip.vision.model_dir, "device": clip.vision.device,
+                  "dtype": clip.vision.dtype, "attn_impl": "eager"}
+        plain = {"vision": VisionEmbedder(tower=clip.vision.tower, spec=vspec,
+                                          **common).embed_images,
+                 "text": TextEmbedder(tower=clip.text.tower, spec=tspec,
+                                      tokenizer=clip.text.tokenizer, **common).embed_texts}
+        what = "eager"
+    else:
+        def plain_of(fn):
+            def run(xs):
+                with plain_int8_wrappers():
+                    return fn(xs)
+            return run
+        plain = {name: plain_of(fn) for name, fn in kernel.items()}
+        what = "the plain int8 wrappers"
+    runs = {"vision": (clip.vision.tower, embs, images),
+            "text": (clip.text.tower, kernel["text"](LABELS), LABELS)}
+    for name, (tower, got, inputs) in runs.items():
+        cos = cosines(got, plain[name](inputs))
+        say(f"  {name}: kernel path vs {what} (same weights): min cosine {cos.min():.6f}, "
+            f"mean {cos.mean():.6f} (need >= 0.999)")
+        if cos.min() < 0.999:
+            per = per_block_cosines(tower, lambda: kernel[name](inputs[:2]),
+                                    lambda: plain[name](inputs[:2]))
+            say("  per-block least token cosine, kernel vs plain: "
+                + ", ".join(f"{c:.6f}" for c in per))
+            raise AssertionError(f"PE-Core {label}: the {name} tower's kernel path disagrees "
+                                 f"with {what}")
+
+
+def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+                  timed=True) -> dict:
+    """PE-Core-bigG-14-448 with seeded random weights through ``Clip`` in
+    ``dtype`` and under both int8 modes, each mode's model built anew from
+    the same seed (``layers``/``vocab_size`` cut it for a CPU rehearsal)."""
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    free_device_memory()  # the earlier phases' models
+    images = mixed_batch(batch)
+    arrays = [to_rgb_array(im) for im in images]
+    out = {}
+    for mode in (None,) + QUANT_MODES:
+        label = mode or str(dtype).removeprefix("torch.")
+        say(f"[7] PE-Core-bigG-14-448, {label}, {dtype}, random weights (seed 0)")
+        t0 = time.perf_counter()
+        clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                        quantize=mode, model=PE_CORE_BIGG_448,
+                                        preprocess=PE_PREPROCESS)
+        v, t = vspec.cfg, tspec.cfg
+        say(f"  built vision {v.layers}x{v.width} ({v.seq_len} tokens, {v.heads}x{v.head_dim} "
+            f"heads, rope_2d={v.rope_2d}, MLP {v.mlp_hidden}, pool {v.pool}), text {t.layers}x"
+            f"{t.width} ({t.heads} heads, ctx {t.context_length}) in "
+            f"{time.perf_counter() - t0:.1f} s; attn_impl={clip.vision.attn_impl}")
+        reset_launch_counts()
+        embs = clip.vision.embed_images(images)
+        results = clip.classify(images[0], LABELS)
+        counts = launch_counts()
+        norms = np.linalg.norm(embs, axis=-1)
+        say(f"  embed_images: {embs.shape}, norms in [{norms.min():.6f}, {norms.max():.6f}]; "
+            f"classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
+        say(f"  launches (one embed_images + one classify): {counts}")
+        if embs.shape != (batch, v.embed_dim) or not np.isfinite(embs).all():
+            raise AssertionError(f"PE-Core {label}: embed_images returned bad embeddings")
+        if np.abs(norms - 1).max() > 1e-2:
+            raise AssertionError(f"PE-Core {label}: embeddings are not unit-norm")
+        probs = [p for _, p in results]
+        if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
+            raise AssertionError(f"PE-Core {label}: classify returned bad probabilities")
+        if device == "cuda":
+            want = expected_int8_launches(mode, v.layers, t.layers, streamed=True)
+            if counts != want:
+                raise AssertionError(f"PE-Core {label}: launches {counts}, expected {want}")
+
+        hold_pe_towers(clip, vspec, tspec, embs, images, mode, label)
+        out[label] = {"launches": counts, "vision_layers": v.layers}
+        if timed:
+            out[label].update(time_embedder(clip.vision, arrays, f"PE-Core {label}"))
+            if mode != "int8_all":
+                out[label]["breakdown"] = profile_embedder(clip.vision, arrays,
+                                                           f"PE-Core {label}")
+        del clip
+        free_device_memory()
+    return out
+
+
 def main() -> int:
     say("[1] environment")
     if not torch.cuda.is_available():
@@ -848,16 +1205,31 @@ def main() -> int:
                 say(f"  {stem}: {line.strip()}")
 
     record = phase_kernels(dev, peaks)
+    pe_attn = phase_pe_attention_kernels(dev, peaks)
+    record["flash_attention"] = pe_attn["flash_attention"]
     record.update(phase_int8_kernels(dev, peaks))
-    phase_fixtures("cuda")
+    record.update(phase_streamed_mlp_kernel(dev, peaks))
+    fixtures = phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
-    # launches: each kernel's count from its own path's run (int8_all runs
-    # all three int8 kernels)
+    pe_core = phase_pe_core("cuda")
+    # launches: each kernel's count from its own path's run: the fixtures
+    # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
+    # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP
+    record["flash_attention"]["launches"] = fixtures["flash_attention"]
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
     for name in INT8_WRAPPERS:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
+    record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][
+        "int8_mlp_streamed"]
+    rope = pe_attn["rope"]
+    say(f"flash_attention_packed with rope (PE-Core-bigG): {rope['ms']:.4f} ms, plain "
+        f"{rope['plain_ms']:.4f} ms, library {rope['library_ms']:.4f} ms, bound "
+        f"{rope['bound_ms']:.4f} ms, max_abs_err {rope['max_abs_err']:.3e}; launches "
+        f"{pe_core['bfloat16']['launches']['flash_attention_packed']} on PE-Core bf16 (of them "
+        f"{2 * pe_core['bfloat16']['vision_layers']} in the vision blocks, with rope: derived "
+        f"from the depth, not counted)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

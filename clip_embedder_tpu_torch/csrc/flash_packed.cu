@@ -1,554 +1,132 @@
-// Packed-head self-attention for Hopper (sm_90a).
+// Packed-head self-attention for Hopper (sm_90a), with optional 2-D rope.
 //
 // Replaces the TPU kernel clip_embedder_tpu/ops/flash.py
 // `flash_attention_packed` (`_packed_kernel`): per head,
 // softmax(q*scale*k^T + mask) v on q/k/v in the [B, S, H*D] projection
-// layout, output in the same layout. The scale folds into q, rounded to the
-// input dtype; logits, row max and denominator are f32; `fast` clamps the
-// logits to +-60 in place of the max pass; `exp_bf16` rounds the exp's
-// argument and result to bf16; with `denom_rounded` (D not a multiple of
-// 128) the denominator sums p as rounded to v's dtype, as the TPU kernel's
-// spare-lane matmul does.
+// layout, output in the same layout; with rope tables ([S, H*D] f32 sin and
+// cos, as ops/rope.py builds them for PE-Core), q and k are first rotated
+// in f32, x*cos + rot(x)*sin with rot = (-x1, x0, -x3, x2, ...) within each
+// head, and rounded to the input type (`_rope_rotate`); the scale then
+// folds into q. The attention's arithmetic is flash.cuh's (shared with
+// flash_bhsd.cu, kernel 3).
 //
-// What bounds it on the H100: at the main-path shape (S = 576, D = 72) it
-// does 4*S*D FLOP per query row against 4*D*2 bytes of q/k/v/out per row:
-// S/2 = 288 FLOP per byte, at the card's ridge (~295), so by the data-sheet
-// peaks memory and the tensor cores bound it about equally; the exp of the
+// What bounds it on the H100: at the SO400M shape (S = 576, D = 72) it does
+// 4*S*D FLOP per query row against 4*D*2 bytes of q/k/v/out per row: S/2 =
+// 288 FLOP per byte, at the card's ridge (~295), so by the data-sheet peaks
+// memory and the tensor cores bound it about equally; at PE-Core's (S =
+// 1025, D = 96) the products bound it (512 FLOP per byte). The exp of the
 // S*S logits per head (one special-function op each) is a third limit of
-// the same size.
+// the same size. Rope adds one read of each [S, H*D] f32 table.
 //
-// What the design does about that: the grid is (batch*head) x (query tiles
-// of 64 rows); 4 warps each own 16 query rows. A block reads its head's
-// slices straight from the packed layout (column offset h*D, row stride
-// H*D; no transposes) into shared memory, zero-padding D up to a multiple
-// of 16 there (72 -> 80) for the tensor-core tiles. Key/value tiles of 64
-// rows stream through a 2-stage cp.async ring (16-byte copies where the
-// head's row slice allows), so a tile's loads overlap the previous tile's
-// work. bf16 (the main path) runs on mma.sync m16n8k16 with ldmatrix
-// operands: the scaled q fragments stay in registers for the whole block,
-// the logits come out of q.k^T in registers, the softmax runs there, and
-// the rounded p goes straight back in as the A operand of p.v (the f32
-// accumulator layout of two n8 tiles is the A layout of one k16 step), so
-// the [S, S] logits never leave registers. The exact softmax takes two
-// passes over the key tiles, the first for the whole-row max, the second
-// for exp, denominator and p.v, which reproduces the TPU kernel's rounding
-// (it subtracts the whole-row max before the exp); `fast` takes one pass.
-// The per-element softmax code is compiled for each combination of the
-// flags, and without the key-bound and mask checks for the tiles that need
-// neither (every tile at S = 576 or 64 without a mask), chosen once per tile.
-// f32 (kept for f32 towers and numerics checks) uses a plain FMA kernel
-// with the logits staged in shared memory. Not yet done: online rescaling,
-// TMA and wgmma.
+// What the design does about that: a block per (batch*head, 64-query
+// tile) reads its head's columns straight from the packed layout (column
+// offset h*D, row stride H*D; no transposes); key/value tiles stream
+// through a 2-stage cp.async ring; the logits and the softmax stay in
+// registers between the two mma.sync products (flash.cuh has the details).
+// Rope runs as a pre-pass (`rope_kernel`): one thread per lane pair rotates
+// q and k once into scratch copies, which the attention kernel then reads.
+// The TPU kernel rotates inside the attention kernel because its block holds
+// a whole head; here a head's keys pass through every one of its 17 query
+// tiles' blocks, twice for the exact softmax. Rotating them there, with the
+// table reads, took 11.10 ms at PE-Core's shape (batch 32) against 2.49 ms
+// for the pre-pass and the attention together (chip_smoke.py, H100 SXM,
+// one run; PERF.md). The pre-pass moves 4 * B*S*H*D * 2 bytes plus the
+// tables (~0.13 ms at batch 32 by the bytes).
 
-#include "common.cuh"
+#include <algorithm>
 
-using clipk::align128;
-using clipk::bf16;
-using clipk::from_f;
-using clipk::to_f;
+#include "flash.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
-constexpr int kMaxDP = 128;
+// (x0, x1) -> (x0 cos0 - x1 sin0, x1 cos1 + x0 sin1): x*cos + rot(x)*sin on
+// one lane pair in f32, each product and sum rounded as the plain version
+// rounds them (no fma contraction).
+__device__ __forceinline__ void rope_pair(float& x0, float& x1, float2 sn, float2 cs) {
+  const float y0 = __fadd_rn(__fmul_rn(x0, cs.x), __fmul_rn(-x1, sn.x));
+  const float y1 = __fadd_rn(__fmul_rn(x1, cs.y), __fmul_rn(x0, sn.y));
+  x0 = y0;
+  x1 = y1;
+}
 
-// Rows [row0, row0 + n) of one head's [S, D] slice into an [n, *] shared
-// tile whose padding (columns >= d) is already zero. With `vec`, 16-byte
-// cp.async copies (issued, not waited for); otherwise element copies. Rows
-// past the end are left as they are: zero or an earlier tile's (finite)
-// rows, which the softmax gives weight 0.
+// qr/kr = rope(q)/rope(k), each rounded to T: one thread per lane pair of
+// the [rows = B*S, width = H*D] tensors, table row = token % seq.
 template <typename T>
-__device__ void load_tile_async(T* __restrict__ dst, const T* __restrict__ src, int row0,
-                                int n, int seq, int d, int ld, size_t row_stride, bool vec) {
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    const int per_row = d / kVec;
-    for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
-      const int r = i / per_row, c = (i % per_row) * kVec;
-      if (row0 + r < seq)
-        clipk::cp_async16(dst + r * ld + c, src + (size_t)(row0 + r) * row_stride + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * d; i += kThreads) {
-      const int r = i / d, c = i % d;
-      if (row0 + r < seq) dst[r * ld + c] = src[(size_t)(row0 + r) * row_stride + c];
-    }
+__global__ void __launch_bounds__(256)
+    rope_kernel(const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ sin,
+                const float* __restrict__ cos, T* __restrict__ qr, T* __restrict__ kr,
+                long long pairs, int seq, int width) {
+  const int half = width / 2;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs; i += 256ll * gridDim.x) {
+    const long long row = i / half;
+    const int c = 2 * (int)(i % half);
+    const size_t t = (size_t)(row % seq) * width + c, e = (size_t)row * width + c;
+    const float2 sn = *reinterpret_cast<const float2*>(sin + t);
+    const float2 cs = *reinterpret_cast<const float2*>(cos + t);
+    float x0 = clipk::to_f(q[e]), x1 = clipk::to_f(q[e + 1]);
+    rope_pair(x0, x1, sn, cs);
+    qr[e] = clipk::from_f<T>(x0);
+    qr[e + 1] = clipk::from_f<T>(x1);
+    x0 = clipk::to_f(k[e]);
+    x1 = clipk::to_f(k[e + 1]);
+    rope_pair(x0, x1, sn, cs);
+    kr[e] = clipk::from_f<T>(x0);
+    kr[e + 1] = clipk::from_f<T>(x1);
   }
 }
 
-// The query tile, scaled by `scale` and rounded to T (the scale folded
-// into q, as the TPU kernel does).
 template <typename T>
-__device__ void load_q(T* __restrict__ dst, const T* __restrict__ src, int row0, int seq, int d,
-                       int ld, size_t row_stride, float scale) {
-  for (int i = threadIdx.x; i < kBQ * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    if (row0 + r < seq)
-      dst[r * ld + c] = from_f<T>(to_f(src[(size_t)(row0 + r) * row_stride + c]) * scale);
-  }
-}
-
-__device__ __forceinline__ void zero_smem(unsigned char* smem, size_t bytes) {
-  for (size_t i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
-    *reinterpret_cast<uint4*>(smem + i) = make_uint4(0, 0, 0, 0);
-}
-
-// p = exp(.) of one logit, as the TPU kernel computes it.
-template <bool kFast, bool kExpBf16>
-__device__ __forceinline__ float softmax_weight(float l, float m) {
-  const float a = kFast ? fminf(fmaxf(l, -60.0f), 60.0f) : l - m;
-  return kExpBf16 ? clipk::round_bf16(expf(clipk::round_bf16(a))) : expf(a);
-}
-
-__device__ __forceinline__ float softmax_weight(float l, float m, bool fast, bool exp_bf16) {
-  if (fast)
-    return exp_bf16 ? softmax_weight<true, true>(l, m) : softmax_weight<true, false>(l, m);
-  return exp_bf16 ? softmax_weight<false, true>(l, m) : softmax_weight<false, false>(l, m);
-}
-
-using Yes = std::true_type;
-using No = std::false_type;
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync with the softmax in registers
-// ---------------------------------------------------------------------------
-
-template <int DP>
-struct Bf16Tiles {
-  static constexpr int kLd = DP + 8;  // row stride (elements): 16-byte rows, no bank conflicts
-  static constexpr int kTile = kBK * kLd;
-  static constexpr size_t kBytes = sizeof(bf16) * (kBQ * kLd + 4 * kTile);  // q, 2 k, 2 v
-};
-
-// A thread's accumulator element e of n8 tile nt sits at row g (e < 2) or
-// g + 8 (e >= 2) of the warp's 16 rows, column nt*8 + 2t + (e & 1), where
-// g = lane / 4 and t = lane % 4.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const float* __restrict__ mask,
-                      bf16* __restrict__ out, int seq, int heads, int d, float scale, int fast,
-                      int exp_bf16, int denom_rounded) {
-  using Tl = Bf16Tiles<DP>;
-  constexpr int kLd = Tl::kLd;
-  constexpr int kKs = DP / 16;  // k16 steps over the head dim
-  constexpr int kNo = DP / 8;   // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBQ * kLd;      // [2][kBK][kLd]
-  bf16* vs = ks + 2 * Tl::kTile;  // [2][kBK][kLd]
-
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kBQ;
-  const size_t hd = (size_t)heads * d;
-  const size_t base = (size_t)b * seq * hd + (size_t)h * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * kRows;
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;
-  const int n_kt = (seq + kBK - 1) / kBK;
-  const bool vec = d % 8 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-
-  zero_smem(smem, Tl::kBytes);  // padding columns and missing rows stay zero
-  __syncthreads();
-  if (vec) {  // copy q in 16-byte pieces, then each thread scales its own pieces
-    load_tile_async<bf16>(qs, q + base, q0, kBQ, seq, d, kLd, hd, true);
-    clipk::cp_async_commit();
-    clipk::cp_async_wait<0>();
-    for (int i = threadIdx.x; i < kBQ * (d / 8); i += kThreads) {
-      const int r = i / (d / 8), c = (i % (d / 8)) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        qs[r * kLd + c + j] = __float2bfloat16(__bfloat162float(qs[r * kLd + c + j]) * scale);
-    }
-  } else {
-    load_q<bf16>(qs, q + base, q0, seq, d, kLd, hd, scale);
-  }
-  __syncthreads();
-  uint32_t qf[kKs][4];
-#pragma unroll
-  for (int kk = 0; kk < kKs; ++kk)
-    clipk::ldmatrix_x4(qf[kk], qs + (r0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
-
-  // logits of this warp's 16 rows against the 64 keys of one K tile
-  auto scores = [&](const bf16* kt_tile, float (&s)[kBK / 8][4]) {
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-    for (int np = 0; np < kBK / 16; ++np) {  // the 16 keys' fragments first, then their mma
-      uint32_t bk4[kKs][4];
-      const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-#pragma unroll
-      for (int kk = 0; kk < kKs; ++kk)
-        clipk::ldmatrix_x4(bk4[kk], kt_tile + key * kLd + kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int kk = 0; kk < kKs; ++kk) {
-        clipk::mma_bf16(s[2 * np], qf[kk], bk4[kk][0], bk4[kk][1]);
-        clipk::mma_bf16(s[2 * np + 1], qf[kk], bk4[kk][2], bk4[kk][3]);
-      }
-    }
-  };
-  // the key of element (nt, e), and its logit with the mask added
-  auto key_of = [&](int kt, int nt, int e) { return kt * kBK + nt * 8 + 2 * t + (e & 1); };
-  auto logit = [&](const float (&s)[kBK / 8][4], int kt, int nt, int e) {
-    const int row = e < 2 ? row_a : row_b;
-    float l = s[nt][e];
-    if (mask != nullptr && row < seq) l += mask[(size_t)row * seq + key_of(kt, nt, e)];
-    return l;
-  };
-  // A tile whose keys all exist and that has no mask takes its logits as
-  // they are: the per-element checks and runtime flags, resolved per tile
-  // at compile time below, otherwise cost about a quarter of the kernel.
-  auto plain_tile = [&](int kt) { return mask == nullptr && (kt + 1) * kBK <= seq; };
-
-  // pass 1 (exact softmax): the whole-row max over every key tile
-  float m_a = clipk::neg_inf(), m_b = clipk::neg_inf();
-  if (!fast) {
-    load_tile_async<bf16>(ks, k + base, 0, kBK, seq, d, kLd, hd, vec);
-    clipk::cp_async_commit();
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (kt + 1 < n_kt)
-        load_tile_async<bf16>(ks + ((kt + 1) & 1) * Tl::kTile, k + base, (kt + 1) * kBK, kBK,
-                              seq, d, kLd, hd, vec);
-      clipk::cp_async_commit();
-      clipk::cp_async_wait<1>();
-      __syncthreads();
-      float s[kBK / 8][4];
-      scores(ks + (kt & 1) * Tl::kTile, s);
-      auto tile_max = [&](auto checked) {
-        constexpr bool kChecked = decltype(checked)::value;
-#pragma unroll
-        for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (kChecked && key_of(kt, nt, e) >= seq) continue;
-            const float l = kChecked ? logit(s, kt, nt, e) : s[nt][e];
-            if (e < 2) m_a = fmaxf(m_a, l); else m_b = fmaxf(m_b, l);
-          }
-        }
-      };
-      if (plain_tile(kt)) tile_max(No{}); else tile_max(Yes{});
-      __syncthreads();  // stage kt is free for tile kt + 2
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {  // the 4 threads of a row
-      m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, o));
-      m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, o));
-    }
-    m_a = fmaxf(m_a, -1e30f);  // fully masked rows
-    m_b = fmaxf(m_b, -1e30f);
-  }
-
-  // pass 2: p = exp(.), denominator, p.v
-  float acc[kNo][4];
-#pragma unroll
-  for (int nt = 0; nt < kNo; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-  float l_a = 0.0f, l_b = 0.0f;
-  load_tile_async<bf16>(ks, k + base, 0, kBK, seq, d, kLd, hd, vec);
-  load_tile_async<bf16>(vs, v + base, 0, kBK, seq, d, kLd, hd, vec);
-  clipk::cp_async_commit();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      const int nxt = ((kt + 1) & 1) * Tl::kTile;
-      load_tile_async<bf16>(ks + nxt, k + base, (kt + 1) * kBK, kBK, seq, d, kLd, hd, vec);
-      load_tile_async<bf16>(vs + nxt, v + base, (kt + 1) * kBK, kBK, seq, d, kLd, hd, vec);
-    }
-    clipk::cp_async_commit();
-    clipk::cp_async_wait<1>();
-    __syncthreads();
-    float s[kBK / 8][4];
-    scores(ks + (kt & 1) * Tl::kTile, s);
-    uint32_t pa[kBK / 16][4];  // p as the A operand of the 4 k16 steps of p.v
-    auto weights = [&](auto checked, auto fast_c, auto exp_c) {
-      constexpr bool kChecked = decltype(checked)::value;
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt) {
-        bf16 pt[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // keys past the end weigh nothing (a clamped -inf would not be 0)
-          float p = 0.0f;
-          if (!kChecked || key_of(kt, nt, e) < seq)
-            p = softmax_weight<decltype(fast_c)::value, decltype(exp_c)::value>(
-                kChecked ? logit(s, kt, nt, e) : s[nt][e], e < 2 ? m_a : m_b);
-          pt[e] = __float2bfloat16(p);
-          const float add = denom_rounded ? __bfloat162float(pt[e]) : p;
-          if (e < 2) l_a += add; else l_b += add;
-        }
-        pa[nt / 2][(nt & 1) * 2] = clipk::pack_bf16(pt[0], pt[1]);
-        pa[nt / 2][(nt & 1) * 2 + 1] = clipk::pack_bf16(pt[2], pt[3]);
-      }
-    };
-    auto with_flags = [&](auto checked) {
-      if (fast) {
-        if (exp_bf16) weights(checked, Yes{}, Yes{}); else weights(checked, Yes{}, No{});
-      } else {
-        if (exp_bf16) weights(checked, No{}, Yes{}); else weights(checked, No{}, No{});
-      }
-    };
-    if (plain_tile(kt)) with_flags(No{}); else with_flags(Yes{});
-    const bf16* vt = vs + (kt & 1) * Tl::kTile;
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {  // the 16 keys' v fragments first, then their mma
-      uint32_t bv4[kNo / 2][4];
-      const int key = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < kNo / 2; ++dp)
-        clipk::ldmatrix_x4_trans(bv4[dp], vt + key * kLd + dp * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int dp = 0; dp < kNo / 2; ++dp) {
-        clipk::mma_bf16(acc[2 * dp], pa[j], bv4[dp][0], bv4[dp][1]);
-        clipk::mma_bf16(acc[2 * dp + 1], pa[j], bv4[dp][2], bv4[dp][3]);
-      }
-    }
-    __syncthreads();  // stage kt is free for tile kt + 2
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
-  }
-  const float inv_a = 1.0f / l_a, inv_b = 1.0f / l_b;
-#pragma unroll
-  for (int nt = 0; nt < kNo; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? row_a : row_b;
-      const int c = nt * 8 + 2 * t + (e & 1);
-      if (row < seq && c < d)
-        out[base + (size_t)row * hd + c] = __float2bfloat16(acc[nt][e] * (e < 2 ? inv_a : inv_b));
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: plain FMA, logits staged in shared memory
-// ---------------------------------------------------------------------------
-
-struct F32Layout {
-  int dp, ldq, ldl, ldp;
-  size_t qs, ks, vs, lg, pb, total;
-  __host__ __device__ explicit F32Layout(int d) {
-    dp = (d + 15) / 16 * 16;
-    ldq = dp + 1;  // odd stride: no bank conflicts in the per-lane key reads
-    ldl = kBK + 4;
-    ldp = kBK + 8;
-    qs = 0;
-    ks = qs + align128(sizeof(float) * kBQ * ldq);  // 2 stages
-    vs = ks + 2 * stage();                          // 2 stages
-    lg = vs + 2 * stage();
-    pb = lg + align128(sizeof(float) * kBQ * ldl);
-    total = pb + align128(sizeof(float) * kBQ * ldp);
-  }
-  __host__ __device__ size_t stage() const { return align128(sizeof(float) * kBK * ldq); }
-};
-
-// logits[r0:r0+16, 0:kBK] (stride ldl) = qs[r0:r0+16] . ks^T, per warp:
-// lane owns key columns lane and lane + 32.
-__device__ void f32_logits(const float* __restrict__ qs, const float* __restrict__ ks,
-                           float* __restrict__ lg, const F32Layout& L, int r0, int d) {
-  const int lane = threadIdx.x % 32;
-  float acc[kRows][2];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i][0] = acc[i][1] = 0.0f;
-  for (int c = 0; c < d; ++c) {
-    const float k0 = ks[lane * L.ldq + c];
-    const float k1 = ks[(lane + 32) * L.ldq + c];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float qv = qs[(r0 + i) * L.ldq + c];
-      acc[i][0] = fmaf(qv, k0, acc[i][0]);
-      acc[i][1] = fmaf(qv, k1, acc[i][1]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    lg[(r0 + i) * L.ldl + lane] = acc[i][0];
-    lg[(r0 + i) * L.ldl + lane + 32] = acc[i][1];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ mask,
-                     float* __restrict__ out, int seq, int heads, int d, float scale, int fast,
-                     int exp_bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const F32Layout L(d);
-  float* qs = reinterpret_cast<float*>(smem + L.qs);
-  float* lg = reinterpret_cast<float*>(smem + L.lg);
-  float* pb = reinterpret_cast<float*>(smem + L.pb);
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kBQ;
-  const size_t hd = (size_t)heads * d;
-  const size_t base = (size_t)b * seq * hd + (size_t)h * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * kRows;
-  const int n_kt = (seq + kBK - 1) / kBK;
-  float* ks = reinterpret_cast<float*>(smem + L.ks);
-  float* vs = reinterpret_cast<float*>(smem + L.vs);
-
-  zero_smem(smem, L.lg);
-  __syncthreads();
-  load_q<float>(qs, q + base, q0, seq, d, L.ldq, hd, scale);
-
-  float m[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) m[i] = clipk::neg_inf();
-  if (!fast) {
-    for (int kt = 0; kt < n_kt; ++kt) {
-      __syncthreads();
-      load_tile_async<float>(ks, k + base, kt * kBK, kBK, seq, d, L.ldq, hd, false);
-      __syncthreads();
-      f32_logits(qs, ks, lg, L, r0, d);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = q0 + r0 + i;
-        float mx = clipk::neg_inf();
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int key = kt * kBK + c;
-          if (key < seq) {
-            float l = lg[(r0 + i) * L.ldl + c];
-            if (mask != nullptr && row < seq) l += mask[(size_t)row * seq + key];
-            mx = fmaxf(mx, l);
-          }
-        }
-        m[i] = fmaxf(m[i], clipk::warp_max(mx));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) m[i] = fmaxf(m[i], -1e30f);  // fully masked rows
-  }
-
-  float acc[kRows][kMaxDP / 32];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxDP / 32; ++j) acc[i][j] = 0.0f;
-  float dsum[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) dsum[i] = 0.0f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile_async<float>(ks, k + base, kt * kBK, kBK, seq, d, L.ldq, hd, false);
-    load_tile_async<float>(vs, v + base, kt * kBK, kBK, seq, d, L.ldq, hd, false);
-    __syncthreads();
-    f32_logits(qs, ks, lg, L, r0, d);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + r0 + i;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const int key = kt * kBK + c;
-        float p = 0.0f;  // keys past the end weigh nothing
-        if (key < seq) {
-          float l = lg[(r0 + i) * L.ldl + c];
-          if (mask != nullptr && row < seq) l += mask[(size_t)row * seq + key];
-          p = softmax_weight(l, m[i], fast, exp_bf16);
-        }
-        pb[(r0 + i) * L.ldp + c] = p;
-        dsum[i] += p;
-      }
-    }
-    __syncwarp();
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[kMaxDP / 32];
-#pragma unroll
-      for (int j = 0; j < kMaxDP / 32; ++j) {
-        const int c = lane + 32 * j;
-        vv[j] = c < L.dp ? vs[kk * L.ldq + c] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = pb[(r0 + i) * L.ldp + kk];
-#pragma unroll
-        for (int j = 0; j < kMaxDP / 32; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float inv = 1.0f / clipk::warp_sum(dsum[i]);
-    const int row = q0 + r0 + i;
-    if (row < seq) {
-#pragma unroll
-      for (int j = 0; j < kMaxDP / 32; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d) out[base + (size_t)row * hd + c] = acc[i][j] * inv;
-      }
-    }
-  }
-}
-
-template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out,
-                int batch, int seq, int heads, int d, float scale, int fast, int exp_bf16,
-                int denom_rounded, cudaStream_t stream) {
-  auto kern = flash_bf16_kernel<DP>;
-  const int bytes = (int)Bf16Tiles<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * heads, (seq + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), seq, heads, d, scale, fast,
-      exp_bf16, denom_rounded);
-  return (int)cudaGetLastError();
-}
-
-int launch_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
-               int batch, int seq, int heads, int d, float scale, int fast, int exp_bf16,
-               cudaStream_t stream) {
-  const F32Layout L(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * heads, (seq + kBQ - 1) / kBQ);
-  flash_f32_kernel<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(mask), static_cast<float*>(out), seq, heads, d, scale, fast,
-      exp_bf16);
+int launch_rope(const void* q, const void* k, const void* sin, const void* cos, void* qr,
+                void* kr, int batch, int seq, int width, cudaStream_t stream) {
+  const long long pairs = (long long)batch * seq * width / 2;
+  const int blocks = (int)std::min<long long>((pairs + 255) / 256, 132ll * 16);
+  rope_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const float*>(sin),
+      static_cast<const float*>(cos), static_cast<T*>(qr), static_cast<T*>(kr), pairs, seq,
+      width);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q/k/v/out: [batch, seq, heads*d] contiguous; mask: null or a shared
-// additive [seq, seq] f32 mask. d <= 128. dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError().
+// additive [seq, seq] f32 mask; sin/cos: null or [seq, heads*d] f32 rope
+// tables (d even; not with a mask), with qr/kr: scratch like q for the
+// rotated q and k. d <= 128. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError().
 extern "C" int flash_packed_launch(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int batch, int seq, int heads,
-                                   int d, float scale, int fast, int exp_bf16,
-                                   int denom_rounded, int dtype, void* stream) {
-  if (d < 1 || d > kMaxDP) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)  // f32: p rounded to v's dtype is p itself
-    return launch_f32(q, k, v, mask, out, batch, seq, heads, d, scale, fast, exp_bf16, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch ((d + 15) / 16) {
-#define CLIPK_FLASH(N)                                                                      \
-  case N:                                                                                   \
-    return launch_bf16<16 * N>(q, k, v, mask, out, batch, seq, heads, d, scale, fast, exp_bf16, \
-                               denom_rounded, s);
-    CLIPK_FLASH(1)
-    CLIPK_FLASH(2)
-    CLIPK_FLASH(3)
-    CLIPK_FLASH(4)
-    CLIPK_FLASH(5)
-    CLIPK_FLASH(6)
-    CLIPK_FLASH(7)
-    CLIPK_FLASH(8)
-#undef CLIPK_FLASH
+                                   const void* mask, const void* sin, const void* cos, void* qr,
+                                   void* kr, void* out, int batch, int seq, int heads, int d,
+                                   float scale, int fast, int exp_bf16, int denom_rounded,
+                                   int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  clipk::flash::Attn a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = static_cast<const float*>(mask);
+  a.out = out;
+  a.batch_stride = (long long)seq * heads * d;
+  a.head_stride = d;
+  a.row_stride = (long long)heads * d;
+  a.batch = batch;
+  a.seq = seq;
+  a.heads = heads;
+  a.d = d;
+  a.scale = scale;
+  a.fast = fast;
+  a.exp_bf16 = exp_bf16;
+  a.denom_rounded = denom_rounded;
+  if (sin != nullptr || cos != nullptr) {
+    if (sin == nullptr || cos == nullptr || qr == nullptr || kr == nullptr || d % 2 != 0 ||
+        mask != nullptr || (dtype != 0 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    const int w = heads * d;
+    const int err = dtype == 1 ? launch_rope<clipk::bf16>(q, k, sin, cos, qr, kr, batch, seq, w, st)
+                               : launch_rope<float>(q, k, sin, cos, qr, kr, batch, seq, w, st);
+    if (err != 0) return err;
+    a.q = qr;
+    a.k = kr;
   }
-  return (int)cudaErrorInvalidValue;
+  return clipk::flash::launch(a, dtype, st);
 }

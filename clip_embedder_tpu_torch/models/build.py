@@ -2,9 +2,10 @@
 ``TowerSpec``.
 
 Counterpart of ``clip_embedder_tpu.models.build`` for the families ported so
-far: timm ViTs (SigLIP/SigLIP2, gap/avg/tok pools, register tokens),
-classic open_clip ViTs, and open_clip text transformers. Every other family
-raises ``ConfigError`` naming it as not yet ported.
+far: timm ViTs (SigLIP/SigLIP2, gap/avg/tok pools, register tokens), PE-Core
+(``vit_pe_core_*``: 2-D axial rope, map pool), classic open_clip ViTs, and
+open_clip text transformers. Every other family raises ``ConfigError``
+naming it as not yet ported.
 """
 
 from __future__ import annotations
@@ -15,8 +16,20 @@ from typing import Any
 
 from ..config import ModelCfg
 from ..errors import ConfigError
+from ..utils.logging import warn_once
 from .text_transformer import TextCfgResolved
 from .vit import ViTCfg
+
+# PE-Core (Meta Perception Encoder, timm vit_pe_core_*): width, layers, heads,
+# mlp_hidden per size name, from the published perception_models
+# architecture. Wrong dims fail at weight load, and every field can be
+# overridden through vision_cfg.extra["pe_cfg"].
+_PE_CORE_SIZES: dict[str, tuple[int, int, int, int]] = {
+    "base": (768, 12, 12, 3072),
+    "large": (1024, 24, 16, 4096),
+    "gigantic": (1536, 50, 16, 8960),
+    "bigg": (1536, 50, 16, 8960),
+}
 
 # width, layers, heads, mlp_hidden for timm ViT size names.
 _TIMM_VIT_SIZES: dict[str, tuple[int, int, int, int]] = {
@@ -107,6 +120,53 @@ def _parse_timm_vit(name: str, vcfg, embed_dim: int, timm_pool: str | None,
     )
 
 
+def _parse_pe_core(name: str, vcfg, embed_dim: int) -> ViTCfg:
+    """Resolve a PE-Core name (``vit_pe_core_gigantic_patch14_448``): a ViT
+    with a class token, a learned absolute pos embed, ln_pre, 2-D axial rope
+    (x bands first), a map pool (8 heads, ratio-4 MLP) and a linear
+    projection. Size keys match case-insensitively (the flagship is spelled
+    bigG); every field can be overridden through ``vision_cfg.extra["pe_cfg"]``,
+    and a warning names the fields taken from the size table."""
+    size_key = next((k for k in _PE_CORE_SIZES if f"_{k}_" in name.lower()), None)
+    if size_key is None:
+        raise ConfigError(f"Unsupported PE-Core variant '{name}' (supported sizes: "
+                          f"{', '.join(sorted(_PE_CORE_SIZES))})")
+    width, layers, heads, mlp_hidden = _PE_CORE_SIZES[size_key]
+    m = re.search(r"patch(\d+)", name)
+    if not m:
+        raise ConfigError(f"No patch size in timm model name '{name}'")
+    o = vcfg.extra.get("pe_cfg", {})
+    missing = [k for k in ("width", "layers", "heads", "mlp_hidden") if k not in o]
+    if missing:
+        warn_once(name,
+                  "PE-Core tower '%s': field(s) %s taken from the published Perception "
+                  "Encoder architecture, not from the model dir (override them through "
+                  "vision_cfg.extra['pe_cfg']).", name, ",".join(missing))
+    width = o.get("width", width)
+    return ViTCfg(
+        image_size=vcfg.image_size,
+        patch_size=int(o.get("patch_size", m.group(1))),
+        width=width,
+        layers=o.get("layers", layers),
+        heads=o.get("heads", heads),
+        mlp_hidden=o.get("mlp_hidden", mlp_hidden),
+        embed_dim=embed_dim,
+        activation=o.get("activation", "gelu"),
+        use_class_token=o.get("use_class_token", True),
+        use_ln_pre=o.get("use_ln_pre", True),
+        pool=o.get("pool", "map"),
+        use_proj=o.get("use_proj", True),
+        proj_bias=False,
+        use_layer_scale=o.get("use_layer_scale", False),
+        ln_eps=o.get("ln_eps", 1e-5),
+        pos_embed_cls=o.get("pos_embed_cls", True),
+        rope_2d=True,
+        rope_temperature=o.get("rope_temperature", 10000.0),
+        pool_heads=o.get("pool_heads", 8),
+        pool_mlp_hidden=o.get("pool_mlp_hidden", 4 * width),
+    )
+
+
 def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
     """open_clip vision_cfg → TowerSpec."""
     v = model_cfg.vision_cfg
@@ -115,7 +175,7 @@ def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
     if v.timm_model_name:
         name = v.timm_model_name
         if "_pe_core_" in name or name.startswith("pe_core"):
-            raise _not_ported("The PE-Core vision tower (2-D axial rope)")
+            return TowerSpec("vit", _parse_pe_core(name, v, embed_dim))
         if name.startswith("eva02_"):
             raise _not_ported("The EVA02 vision tower")
         if name.startswith(("vit_", "eva_")):

@@ -5,11 +5,12 @@ Counterpart of ``clip_embedder_tpu.models.vit``: one config-driven tower for
 * classic CLIP ViTs (class token, ln_pre, quick_gelu option, bias-free
   projection, CLS pooling);
 * timm/SigLIP ViTs (no class token, tanh-gelu, the attention-pool "map"
-  head with a learned probe, layer scale, register tokens, gap pooling).
+  head with a learned probe, layer scale, register tokens, gap pooling);
+* PE-Core (class token, ln_pre, 2-D axial rope on q and k in every block,
+  ``rope_2d``, and the map head).
 
-Not yet ported, and refused with ``ConfigError``: 2-D axial rope (PE-Core,
-``rope_2d``), the CoCa attentional pooler (``pool="attn"``) and the
-``timm_proj="mlp"`` head.
+Not yet ported, and refused with ``ConfigError``: the CoCa attentional
+pooler (``pool="attn"``) and the ``timm_proj="mlp"`` head.
 
 Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
 (py, px, c) order, matching the weight layout of the JAX package).
@@ -27,6 +28,7 @@ from ..errors import ConfigError
 from ..ops.attention import multi_head_attention
 from ..ops.layers import ACTIVATIONS, layer_norm, linear, mlp
 from ..ops.normalize import l2_normalize
+from ..ops.rope import axial_rope_table, head_tiled_tables
 from ..weights import ParamTree, unstack
 
 
@@ -82,9 +84,6 @@ class ViTCfg:
 
 
 def check_ported(cfg: ViTCfg) -> None:
-    if cfg.rope_2d:
-        raise ConfigError("2-D axial rope (PE-Core) is not yet ported to the "
-                          "torch package")
     if cfg.pool not in ("cls", "tok", "map", "gap"):
         raise ConfigError(f"vision pool '{cfg.pool}' is not yet ported to the "
                           "torch package")
@@ -195,15 +194,16 @@ class Block(ParamTree):
         self.act = ACTIVATIONS[activation]
         self.ln_eps = ln_eps
 
-    def forward(self, x: torch.Tensor, *, impl: str, mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, impl: str, mask=None, rope=None) -> torch.Tensor:
         if "ls1" in self:
             h = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
-                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps)
+                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps,
+                                     rope=rope)
             x = x + h * self["ls1"]
         else:
             x = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
                                      impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps,
-                                     residual=x)
+                                     residual=x, rope=rope)
         if "ls2" in self:
             h = mlp(self["mlp"], x, activation=self.act, pre_ln=self["ln2"],
                     ln_eps=self.ln_eps)
@@ -234,6 +234,21 @@ class ViT(ParamTree):
         self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
                                        activation=cfg.activation, ln_eps=cfg.ln_eps)
         self.act = ACTIVATIONS[cfg.activation]
+        self._rope: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def rope_tables(self, device: torch.device):
+        """PE-Core's (sin, cos) [S, H·D] f32 tables on ``device`` (Meta's
+        ``compute_axial_cis``: x bands first, raw integer coordinates, identity
+        rows for the prefix tokens), built once per device; None without
+        ``rope_2d``."""
+        cfg = self.cfg
+        if not cfg.rope_2d:
+            return None
+        if device not in self._rope:
+            ang = axial_rope_table(cfg.grid, cfg.head_dim, cfg.rope_temperature,
+                                   order="xy", prefix=cfg.prefix_tokens)
+            self._rope[device] = tuple(t.to(device) for t in head_tiled_tables(ang, cfg.heads))
+        return self._rope[device]
 
     def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
         """timm AttentionPoolLatent: a learned probe cross-attends over the
@@ -268,8 +283,9 @@ class ViT(ParamTree):
         if cfg.use_ln_pre:
             x = layer_norm(self["ln_pre"], x, eps=cfg.ln_eps)
 
+        rope = self.rope_tables(x.device)
         for blk in self.blocks:
-            x = blk(x, impl=attn_impl)
+            x = blk(x, impl=attn_impl, rope=rope)
 
         if cfg.pool == "map":
             pooled = self._map_pool(layer_norm(self["ln_post"], x, eps=cfg.ln_eps))

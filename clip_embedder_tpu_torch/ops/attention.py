@@ -5,13 +5,17 @@ Counterpart of ``clip_embedder_tpu.ops.attention``. ``impl`` selects:
 * ``"eager"`` — plain PyTorch (``attention_core``: f32 logits and softmax);
 * ``"kernel"`` — self-attention with a ``pre_ln`` runs the fused LayerNorm +
   q/k/v kernel (``ops.qkv``: ``ln_qkv_int8`` for int8 projections on the
-  card, else ``ln_qkv``) and then the packed-head attention kernel
-  (``ops.flash``), exact softmax;
-* ``"kernel_fast"`` — the same kernels with the clamped softmax, plus the
-  bf16 exp when the head dim is below 96 (as the JAX package's
-  ``pallas_fast``).
+  card, else ``ln_qkv``), then the attention kernels of ``ops.flash``, exact
+  softmax, routed as the JAX package's ``pallas`` routes them: the packed
+  kernel (which also applies rope) where the heads form a 128-lane group
+  (``head_group``) and rope does not come with a mask; otherwise rope
+  applied outside (``ops.rope.apply_rope``), the heads split and
+  ``flash_attention``;
+* ``"kernel_fast"`` — the same kernels with the clamped softmax, plus, on
+  the packed kernel only, the bf16 exp when the head dim is below 96 (as
+  the JAX package's ``pallas_fast``).
 
-Cross-attention (``kv=``, e.g. the map-pool probe) stays on
+Cross-attention (``kv=``, e.g. the map-pool probe) ends on
 ``attention_core`` on every impl, as in the JAX package. On every impl a
 quantized out-projection with a residual takes the fused int8 linear with
 the residual in its epilogue (``ops.int8_mlp.int8_linear_fused``) for 128
@@ -22,10 +26,11 @@ from __future__ import annotations
 
 import torch
 
-from .flash import fits_packed, flash_attention_packed
+from .flash import flash_attention, flash_attention_packed, head_group
 from .int8_mlp import fits_fused_linear, int8_linear_fused
 from .layers import layer_norm, linear, promote
 from .qkv import fits_fused_qkv, fits_fused_qkv_int8, ln_qkv, ln_qkv_int8
+from .rope import apply_rope
 
 KERNEL_IMPLS = ("kernel", "kernel_fast")
 ATTN_IMPLS = ("eager",) + KERNEL_IMPLS
@@ -69,10 +74,10 @@ def multi_head_attention(
     ``params``: {"q","k","v","out"} linears ({"w": [d, d'], "b"}). ``kv``
     enables cross-attention. ``pre_ln`` applies the pre-attention LayerNorm
     inside this call, so the kernel impls fuse it with the projections.
-    ``residual`` returns ``residual + out_proj(attention)``.
+    ``residual`` returns ``residual + out_proj(attention)``. ``rope``:
+    (sin, cos) head-tiled [S, H·D] f32 tables from ``ops.rope`` that rotate
+    q and k after the projections.
     """
-    if rope is not None:
-        raise NotImplementedError("rope (ops/rope.py) is not yet ported")
     if impl not in ATTN_IMPLS:
         raise ValueError(f"Unknown attention impl '{impl}' (choices: "
                          f"{', '.join(ATTN_IMPLS)})")
@@ -90,15 +95,21 @@ def multi_head_attention(
         k = linear(params["k"], src)
         v = linear(params["v"], src)
 
-    if kernel and fits_packed(q, k, v, num_heads):
-        d = q.shape[-1] // num_heads
+    d = q.shape[-1] // num_heads
+    if (kernel and q.shape == k.shape and head_group(num_heads, d) is not None
+            and (rope is None or mask is None)):
         out = flash_attention_packed(
-            q, k, v, num_heads=num_heads, mask=mask,
+            q, k, v, num_heads=num_heads, mask=mask, rope=rope,
             fast_softmax=impl == "kernel_fast",
             exp_bf16=impl == "kernel_fast" and d < 96)
     else:
-        out = attention_core(*(_split_heads(t, num_heads) for t in (q, k, v)),
-                             mask=mask)
+        if rope is not None:
+            q, k = (apply_rope(t, *rope) for t in (q, k))
+        q, k, v = (_split_heads(t, num_heads) for t in (q, k, v))
+        if kernel:
+            out = flash_attention(q, k, v, mask=mask, fast_softmax=impl == "kernel_fast")
+        else:
+            out = attention_core(q, k, v, mask=mask)
         b, h, s, d = out.shape
         out = out.transpose(1, 2).reshape(b, s, h * d)
     outp = params["out"]

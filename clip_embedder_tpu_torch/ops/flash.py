@@ -1,23 +1,36 @@
-"""Packed-head self-attention (``csrc/flash_packed.cu``).
+"""Fused attention kernels (``csrc/flash_packed.cu``, ``csrc/flash_bhsd.cu``,
+device code shared in ``csrc/flash.cuh``).
 
-Counterpart of ``clip_embedder_tpu.ops.flash.flash_attention_packed``:
-per head, softmax(q·scale·kᵀ + mask)·v on q/k/v in the [B, S, H·D]
-projection layout, output in the same layout, with
+Counterparts of the JAX package's two Pallas kernels:
+
+* ``flash_attention_packed`` (``clip_embedder_tpu.ops.flash``, kernel 2): per
+  head, softmax(q·scale·kᵀ + mask)·v on q/k/v in the [B, S, H·D] projection
+  layout, output in the same layout;
+* ``flash_attention`` (kernel 3): the same on [B, H, S, D] tensors, for head
+  layouts with no 128-lane head group (``head_group`` is None).
+
+Both compute
 
 * the scale folded into q and rounded to the input dtype;
 * f32 logits, row max and denominator;
 * ``fast_softmax``: exp(clamp(logits, ±60)) in place of the max pass;
-* ``exp_bf16``: the exp's argument and result rounded to bf16;
 * the denominator summing p as rounded to v's dtype when D is not a
-  multiple of 128 (the TPU kernel's default ``mxu_denom``, which takes the
-  row sums from the p·v matmul), and p itself otherwise.
+  multiple of 128 (the TPU kernels' spare-lane matmul), and p itself
+  otherwise.
 
-Masks: None or one additive mask shared by every batch row and head
-([S, S], [1, 1, S, S] or [1, 1, 1, S]). Per-batch masks ([B,1,1,S],
-[B,1,S,S]) and in-kernel rope are not yet ported and raise.
+The packed kernel also takes ``exp_bf16`` (the exp's argument and result
+rounded to bf16) and ``rope=(sin, cos)``: [S, H·D] f32 tables (``ops.rope``)
+that rotate q and k in f32, rounded to the input dtype before q is scaled
+(on the card a pre-pass of the same launch rotates them once into scratch
+copies).
+Masks: None or one additive mask shared by every batch row and head ([S, S],
+[1, 1, S, S] or [1, 1, 1, S]); rope with a mask is refused, as in the JAX
+package. Per-batch masks ([B,1,1,S], [B,1,S,S]) are not yet ported to the
+packed kernel and raise; ``flash_attention`` hands them, and
+cross-attention, to ``attention_core``, as the JAX kernel does.
 
-``flash_attention_packed`` launches the CUDA kernel for tensors on the card
-and runs ``flash_attention_packed_plain`` for tensors on the CPU.
+The wrappers launch the CUDA kernels for tensors on the card and run the
+``*_plain`` versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -27,13 +40,23 @@ import ctypes
 import torch
 
 from . import cuda
+from .rope import apply_rope
 
 MAX_HEAD_DIM = 128
 
 
+def head_group(num_heads: int, d: int) -> int | None:
+    """Smallest divisor g of num_heads with g·d a lane multiple (128): the
+    JAX package takes the packed kernel only where one exists."""
+    for g in range(1, num_heads + 1):
+        if num_heads % g == 0 and (g * d) % 128 == 0:
+            return g
+    return None
+
+
 def fits_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 num_heads: int) -> bool:
-    """The kernel takes these operands: self-attention shapes, f32 or
+    """The packed kernel takes these operands: self-attention shapes, f32 or
     bf16, head dim at most 128."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 3:
         return False
@@ -45,7 +68,8 @@ def fits_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def shared_mask(mask: torch.Tensor | None, batch: int, seq: int) -> torch.Tensor | None:
     """The [S, S] f32 form of a mask shared by every batch row and head;
-    raise for the per-batch forms, which the kernel does not take yet."""
+    raise for the per-batch forms, which the packed kernel does not take
+    yet."""
     if mask is None:
         return None
     m = mask
@@ -61,9 +85,21 @@ def shared_mask(mask: torch.Tensor | None, batch: int, seq: int) -> torch.Tensor
     raise ValueError(f"unsupported mask shape {tuple(m.shape)}")
 
 
-def _check(q, k, v, num_heads, rope):
-    if rope is not None:
-        raise NotImplementedError("in-kernel rope is not yet ported")
+def rope_tables(rope, mask, seq: int, width: int):
+    """The (sin, cos) [S, H·D] f32 tables of ``rope``, checked as the JAX
+    kernel checks them; None without rope."""
+    if rope is None:
+        return None
+    if mask is not None:
+        raise ValueError("rope with a mask is not a supported packed-kernel combination")
+    sin, cos = (t.to(torch.float32).contiguous() for t in rope)
+    if tuple(sin.shape) != (seq, width) or tuple(cos.shape) != (seq, width):
+        raise ValueError(f"rope tables must be [S, H·D] = {(seq, width)}, got "
+                         f"{tuple(sin.shape)}/{tuple(cos.shape)}")
+    return sin, cos
+
+
+def _check(q, k, v, num_heads):
     if not fits_packed(q, k, v, num_heads):
         raise ValueError(
             f"packed attention takes q/k/v of one [B, S, H·D] shape and dtype "
@@ -71,33 +107,42 @@ def _check(q, k, v, num_heads, rope):
             f"{tuple(k.shape)}/{tuple(v.shape)} {q.dtype}, {num_heads} heads")
 
 
+def _attend(q, k, v, mask, fast_softmax: bool, exp_bf16: bool) -> torch.Tensor:
+    """Both kernels' function on [..., S, D] heads: scale folded into q and
+    rounded, f32 logits and softmax, the rounded p in p·v."""
+    d = q.shape[-1]
+    qs = (q.float() * (1.0 / d ** 0.5)).to(q.dtype)
+    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask
+    if fast_softmax:
+        arg = logits.clamp(-60.0, 60.0)
+    else:
+        arg = logits - logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(arg.to(torch.bfloat16)) if exp_bf16 else torch.exp(arg)
+    pv = p.to(v.dtype)
+    denom = (pv if d % 128 else p).float().sum(dim=-1, keepdim=True)
+    return (torch.matmul(pv.float(), v.float()) * (1.0 / denom)).to(q.dtype)
+
+
 def flash_attention_packed_plain(q, k, v, *, num_heads: int, mask=None, rope=None,
                                  fast_softmax: bool = False,
                                  exp_bf16: bool = False) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (its CPU path and the
+    """The packed kernel's function in plain PyTorch (its CPU path and the
     reference it is held to on the card)."""
-    _check(q, k, v, num_heads, rope)
+    _check(q, k, v, num_heads)
     b, s, hd = q.shape
     d = hd // num_heads
     m2 = shared_mask(mask, b, s)
+    tables = rope_tables(rope, mask, s, hd)
+    if tables is not None:
+        q, k = (apply_rope(t, *tables) for t in (q, k))
 
     def heads(t):
         return t.reshape(b, s, num_heads, d).transpose(1, 2)
 
-    qs = (heads(q).float() * (1.0 / d ** 0.5)).to(q.dtype)
-    logits = torch.matmul(qs.float(), heads(k).float().transpose(-1, -2))
-    if m2 is not None:
-        logits = logits + m2
-    if fast_softmax:
-        arg = logits.clamp(-60.0, 60.0)
-    else:
-        m = logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
-        arg = logits - m
-    p = torch.exp(arg.to(torch.bfloat16)) if exp_bf16 else torch.exp(arg)
-    pv = p.to(v.dtype)
-    denom = (pv if d % 128 else p).float().sum(dim=-1, keepdim=True)
-    out = torch.matmul(pv.float(), heads(v).float()) * (1.0 / denom)
-    return out.to(q.dtype).transpose(1, 2).reshape(b, s, hd)
+    out = _attend(heads(q), heads(k), heads(v), m2, fast_softmax, exp_bf16)
+    return out.transpose(1, 2).reshape(b, s, hd)
 
 
 def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
@@ -112,28 +157,103 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
             fast_softmax=fast_softmax, exp_bf16=exp_bf16)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
-    _check(q, k, v, num_heads, rope)
+    _check(q, k, v, num_heads)
     b, s, hd = q.shape
     d = hd // num_heads
     m2 = shared_mask(mask, b, s)
-    for t in (q, k, v) + ((m2,) if m2 is not None else ()):
-        if t.device != q.device or not t.is_contiguous():
+    tables = rope_tables(rope, mask, s, hd)
+    if tables is not None and d % 2:
+        raise ValueError(f"flash_attention_packed: rope needs an even head dim, got {d}")
+    sin = cos = None
+    if tables is not None:  # the pre-pass reads the tables in 8-byte pairs
+        sin, cos = (t if t.data_ptr() % 8 == 0 else t.clone() for t in tables)
+    for t in (q, k, v, m2, sin, cos):
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
             raise ValueError("flash_attention_packed: operands must be "
                              f"contiguous on {q.device}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # rope: the kernel's pre-pass writes the rotated q and k here
+    qr, kr = (torch.empty_like(q), torch.empty_like(k)) if tables is not None else (None, None)
     fn = cuda.library("flash_packed").flash_packed_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out),
-              b, s, num_heads, d, float(1.0 / d ** 0.5), int(fast_softmax),
-              int(exp_bf16), int(d % 128 != 0), cuda.DTYPE_CODES[q.dtype],
-              cuda.stream_ptr(q))
+    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(sin),
+              cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d,
+              float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), int(d % 128 != 0),
+              cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
     cuda.check(code, "flash_attention_packed")
     flash_attention_packed.launches += 1
     return out
 
 
 flash_attention_packed.launches = 0  # kernel launches, for showing a run went through it
+
+
+# -- kernel 3: the [B, H, S, D] layout ---------------------------------------
+
+def takes_bhsd(q, k, v, mask) -> bool:
+    """``flash_attention`` runs its kernel for self-attention with no mask or
+    one mask shared by every batch row and head; cross-attention (Sq ≠ Sk,
+    or v unlike k) and per-batch masks go to ``attention_core``."""
+    if k.shape[2] != q.shape[2] or v.shape != k.shape:
+        return False
+    return mask is None or mask.dim() != 4 or (mask.shape[0] == 1 and mask.shape[1] == 1)
+
+
+def _bhsd_mask(mask, seq: int) -> torch.Tensor | None:
+    if mask is None:
+        return None
+    return torch.broadcast_to(mask.to(torch.float32), (1, 1, seq, seq))[0, 0].contiguous()
+
+
+def flash_attention_plain(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.Tensor:
+    """Kernel 3's function in plain PyTorch, for the calls its kernel takes
+    (``takes_bhsd``)."""
+    return _attend(q, k, v, _bhsd_mask(mask, q.shape[2]), fast_softmax, False)
+
+
+def flash_attention(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.Tensor:
+    """Fused attention on [B, H, S, D] tensors. Calls the kernel does not
+    take go to ``attention_core``; otherwise CUDA tensors launch the kernel
+    (raising on anything it does not take) and CPU tensors run
+    ``flash_attention_plain``."""
+    if not takes_bhsd(q, k, v, mask):
+        from .attention import attention_core
+
+        return attention_core(q, k, v, mask=mask)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask=mask, fast_softmax=fast_softmax)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, h, s, d = q.shape
+    if (not (q.shape == k.shape == v.shape) or not (q.dtype == k.dtype == v.dtype)
+            or q.dtype not in cuda.DTYPE_CODES or d > MAX_HEAD_DIM):
+        raise ValueError(
+            f"flash_attention takes q/k/v of one [B, H, S, D] shape and dtype (f32/bf16, "
+            f"D ≤ {MAX_HEAD_DIM}); got {tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)} "
+            f"{q.dtype}")
+    m2 = _bhsd_mask(mask, s)
+    for t in (k, v, m2):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"flash_attention: operands must be on {q.device}")
+    # the heads split off the [B, S, H·D] projections arrive as strided views
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = cuda.library("flash_bhsd").flash_bhsd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out), b, h, s, d,
+              float(1.0 / d ** 0.5), int(fast_softmax), int(d % 128 != 0),
+              cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
+    cuda.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches, for showing a run went through it

@@ -1,11 +1,15 @@
 """Fused W8A8 transformer MLP and linear (``csrc/int8_mlp.cu``,
-``csrc/int8_linear.cu``).
+``csrc/int8_mlp_streamed.cu``, ``csrc/int8_linear.cu``).
 
 Counterpart of ``clip_embedder_tpu.ops.int8_mlp``:
 
 * ``int8_mlp``: x → [f32 LayerNorm] → row quant → int8 fc1 → dequant + bias
   → activation (f32) → row requant with the *global* row amax over the
   whole hidden → int8 fc2 → dequant + bias [+ residual] → x's dtype;
+* ``int8_mlp_streamed``: the same MLP with the hidden cut into slabs of
+  ``chunk`` columns, each requantized with its own row amax, and fc2's
+  int32 sums dequantized slab by slab into an f32 accumulator
+  (``acc += part_j·(as_j·s2)``), then + bias [+ residual];
 * ``int8_linear_fused``: x → row quant → int8 product → dequant + bias
   [+ residual] → x's dtype.
 
@@ -22,7 +26,7 @@ gates mirror the JAX package's with "the tensor is on CUDA" in place of
 "the backend is a TPU", so on the CPU the layers take the unfused path as
 the JAX package does there. The TPU's VMEM budgets are dropped, except the
 20 MB line between the resident MLP (global requant) and the streamed one
-(per-slab requant, not yet ported): it decides whose numerics apply.
+(per-slab requant): it decides whose numerics apply.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ ACT_CODES = {"gelu_tanh": 0, "gelu": 1, "quick_gelu": 2, "relu": 3}
 # int8 weight bytes (fc + proj) above which the JAX package streams the MLP
 # in hidden slabs with per-slab requantization (``int8_mlp_streamed``).
 FUSED_MLP_MAX_BYTES = 20 * 1024 * 1024
+# hidden columns per slab of the streamed MLP: the unit of its activation
+# requantization, so part of its numerics (the JAX package's default)
+STREAM_CHUNK = 1792
 _GELU_TANH_C = 0.7978845608028654  # sqrt(2/pi), rounded to f32 in use, as jax.nn.gelu does
 
 
@@ -115,6 +122,32 @@ def int8_mlp_plain(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
 
 
+def int8_mlp_streamed_plain(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
+                            pre_ln=None, ln_eps: float = 1e-6, add_residual: bool = False,
+                            chunk: int = STREAM_CHUNK) -> torch.Tensor:
+    """The streamed MLP's function in plain PyTorch: per-slab requantization
+    of the hidden, fc2 dequantized slab by slab into an f32 sum."""
+    if add_residual and pre_ln is None:
+        raise ValueError("add_residual requires the fused pre_ln")
+    fc, pr = params["fc"], params["proj"]
+    x2 = x.reshape(-1, fc["w_q"].shape[0]).to(torch.float32)
+    res = x2 if add_residual else None
+    if pre_ln is not None:
+        x2 = layer_norm_f32(x2, pre_ln, ln_eps)
+    xq, xs = row_quant(x2)
+    h = _act(dequant(int_matmul(xq, fc["w_q"]), xs, fc), activation)
+    s2 = pr["w_scale"].to(torch.float32)
+    acc = torch.zeros(h.shape[0], pr["w_q"].shape[1], dtype=torch.float32, device=x.device)
+    for off in range(0, h.shape[1], chunk):
+        aq, as_ = row_quant(h[:, off:off + chunk])
+        acc = acc + int_matmul(aq, pr["w_q"][off:off + chunk]).to(torch.float32) * (as_ * s2)
+    b2 = pr.get("b")
+    y = acc if b2 is None else acc + b2.to(torch.float32)
+    if res is not None:
+        y = y + res
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
 def int8_linear_fused_plain(params, x: torch.Tensor, *,
                             residual: torch.Tensor | None = None) -> torch.Tensor:
     """The fused linear's function in plain PyTorch."""
@@ -173,8 +206,8 @@ def fits_fused_mlp(params, activation_name: str, x: torch.Tensor) -> bool:
 
 
 def fits_streamed_mlp(params, activation_name: str, rows: int, x: torch.Tensor) -> bool:
-    """Where the JAX package takes the weight-streamed MLP (kernel 7,
-    ``int8_mlp_streamed``): over 20 MB of int8 weights, at least 512 rows,
+    """Where the JAX package takes the weight-streamed MLP
+    (``int8_mlp_streamed``): over 20 MB of int8 weights, at least 512 rows,
     an in-kernel activation, x on the card."""
     ws = _mlp_weights(params)
     if ws is None or activation_name not in ACT_CODES or not on_card(x):
@@ -200,6 +233,57 @@ def qlinear_operands(p, k_in: int, x: torch.Tensor, what: str):
     return w, cuda.f32_vector(p["w_scale"], n, x, what), cuda.f32_vector(p.get("b"), n, x, what)
 
 
+def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
+                chunk=None) -> torch.Tensor:
+    """The checks, scratch and launch of the two MLP kernels on the card:
+    ``int8_mlp`` (one requantization scale a row) without ``chunk``,
+    ``int8_mlp_streamed`` (one a slab of ``chunk`` columns) with it. Counts
+    the launch on ``wrapper``."""
+    what = wrapper.__name__
+    if add_residual and pre_ln is None:
+        raise ValueError("add_residual requires the fused pre_ln")
+    if activation not in ACT_CODES:
+        raise ValueError(f"{what}: unsupported in-kernel activation '{activation}'")
+    if chunk is not None and (chunk <= 0 or chunk % 128):
+        raise ValueError(f"{what}: the kernel takes slabs of a multiple of 128 columns, "
+                         f"got chunk={chunk}")
+    cuda.check_input(x, what)
+    k_in = x.shape[-1]
+    w1, s1, b1 = qlinear_operands(params["fc"], k_in, x, f"{what} fc")
+    hidden = w1.shape[1]
+    w2, s2, b2 = qlinear_operands(params["proj"], hidden, x, f"{what} proj")
+    k_out = w2.shape[1]
+    if add_residual and k_out != k_in:
+        raise ValueError(f"{what}: add_residual needs out width == in width")
+    ln = pre_ln is not None
+    gamma = cuda.f32_vector(pre_ln["scale"] if ln else None, k_in, x, f"{what} pre_ln")
+    beta = cuda.f32_vector(pre_ln["bias"] if ln else None, k_in, x, f"{what} pre_ln")
+    rows = x.numel() // k_in
+    out = torch.empty(*x.shape[:-1], k_out, dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return out
+    dev = x.device
+    slabs = 1 if chunk is None else (hidden + chunk - 1) // chunk
+    xq = torch.empty(rows, k_in, dtype=torch.int8, device=dev)
+    xs = torch.empty(rows, dtype=torch.float32, device=dev)
+    h = torch.empty(rows, hidden, dtype=torch.float32, device=dev)   # act(fc1), f32
+    hq = torch.empty(rows, hidden, dtype=torch.int8, device=dev)
+    hs = torch.empty(rows, slabs, dtype=torch.float32, device=dev)   # requant scales
+    fn = getattr(cuda.library(what), f"{what}_launch")
+    extra = () if chunk is None else (chunk,)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * (4 + len(extra)) \
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
+              cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
+              cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
+              rows, k_in, hidden, k_out, *extra, float(ln_eps), ACT_CODES[activation],
+              int(ln), int(add_residual), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
+    cuda.check(code, what)
+    wrapper.launches += 1
+    return out
+
+
 def int8_mlp(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
              pre_ln=None, ln_eps: float = 1e-6, add_residual: bool = False) -> torch.Tensor:
     """Fused quantized MLP block. ``params``: {"fc", "proj"} quantized
@@ -212,46 +296,29 @@ def int8_mlp(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
                               ln_eps=ln_eps, add_residual=add_residual)
     if x.device.type != "cuda":
         raise ValueError(f"int8_mlp: unsupported device {x.device}")
-    if add_residual and pre_ln is None:
-        raise ValueError("add_residual requires the fused pre_ln")
-    if activation not in ACT_CODES:
-        raise ValueError(f"int8_mlp: unsupported in-kernel activation '{activation}'")
-    cuda.check_input(x, "int8_mlp")
-    k_in = x.shape[-1]
-    w1, s1, b1 = qlinear_operands(params["fc"], k_in, x, "int8_mlp fc")
-    hidden = w1.shape[1]
-    w2, s2, b2 = qlinear_operands(params["proj"], hidden, x, "int8_mlp proj")
-    k_out = w2.shape[1]
-    if add_residual and k_out != k_in:
-        raise ValueError("int8_mlp: add_residual needs out width == in width")
-    ln = pre_ln is not None
-    gamma = cuda.f32_vector(pre_ln["scale"] if ln else None, k_in, x, "int8_mlp pre_ln")
-    beta = cuda.f32_vector(pre_ln["bias"] if ln else None, k_in, x, "int8_mlp pre_ln")
-    rows = x.numel() // k_in
-    out = torch.empty(*x.shape[:-1], k_out, dtype=x.dtype, device=x.device)
-    if rows == 0:
-        return out
-    dev = x.device
-    xq = torch.empty(rows, k_in, dtype=torch.int8, device=dev)
-    xs = torch.empty(rows, dtype=torch.float32, device=dev)
-    h = torch.empty(rows, hidden, dtype=torch.float32, device=dev)   # act(fc1), f32
-    hq = torch.empty(rows, hidden, dtype=torch.int8, device=dev)
-    hs = torch.empty(rows, dtype=torch.float32, device=dev)
-    fn = cuda.library("int8_mlp").int8_mlp_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
-              cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
-              cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
-              rows, k_in, hidden, k_out, float(ln_eps), ACT_CODES[activation], int(ln),
-              int(add_residual), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
-    cuda.check(code, "int8_mlp")
-    int8_mlp.launches += 1
-    return out
+    return _launch_mlp(int8_mlp, params, x, activation, pre_ln, ln_eps, add_residual)
 
 
 int8_mlp.launches = 0  # kernel launches, for showing a run went through it
+
+
+def int8_mlp_streamed(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
+                      pre_ln=None, ln_eps: float = 1e-6, add_residual: bool = False,
+                      chunk: int = STREAM_CHUNK) -> torch.Tensor:
+    """Fused quantized MLP block with per-slab requantization of the hidden
+    (slabs of ``chunk`` columns; the last may be ragged). Arguments as
+    ``int8_mlp``. Runs the CUDA kernel for a CUDA tensor (``chunk`` a
+    multiple of 128) and ``int8_mlp_streamed_plain`` for a CPU tensor."""
+    if x.device.type == "cpu":
+        return int8_mlp_streamed_plain(params, x, activation=activation, pre_ln=pre_ln,
+                                       ln_eps=ln_eps, add_residual=add_residual, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_mlp_streamed: unsupported device {x.device}")
+    return _launch_mlp(int8_mlp_streamed, params, x, activation, pre_ln, ln_eps, add_residual,
+                       chunk)
+
+
+int8_mlp_streamed.launches = 0  # kernel launches, for showing a run went through it
 
 
 def int8_linear_fused(params, x: torch.Tensor, *,

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .int8_mlp import (fits_fused_linear, fits_fused_mlp, fits_streamed_mlp, int8_linear_fused,
-                       int8_mlp)
+                       int8_mlp, int8_mlp_streamed)
 from .quant import int8_linear
 
 
@@ -110,9 +110,9 @@ def mlp(
     ``params``: {"fc": linear, "proj": linear}. ``residual=True`` (requires
     ``pre_ln``) returns ``x + mlp(ln(x))``. A quantized block takes the
     fused int8 MLP kernel (``ops.int8_mlp``, LayerNorm and residual inside)
-    where ``fits_fused_mlp`` holds; where the JAX package would stream the
-    weights (``fits_streamed_mlp``, kernel 7) the port raises, since that
-    kernel is not ported yet; elsewhere the unfused int8 linears run.
+    where ``fits_fused_mlp`` holds, the streamed one (per-slab
+    requantization) where ``fits_streamed_mlp`` holds, as the JAX package
+    routes them; elsewhere the unfused int8 linears run.
     """
     if residual and pre_ln is None:
         raise ValueError("mlp(residual=True) requires pre_ln")
@@ -123,9 +123,8 @@ def mlp(
             return int8_mlp(params, x, activation=name, pre_ln=pre_ln, ln_eps=ln_eps,
                             add_residual=residual)
         if name and fits_streamed_mlp(params, name, x.numel() // x.shape[-1], x):
-            raise NotImplementedError(
-                "this MLP's int8 weights exceed 20 MB: the JAX package streams them "
-                "(kernel 7, int8_mlp_streamed), which is not yet ported")
+            return int8_mlp_streamed(params, x, activation=name, pre_ln=pre_ln,
+                                     ln_eps=ln_eps, add_residual=residual)
     res = x if residual else None
     if pre_ln is not None:
         x = layer_norm(pre_ln, x, eps=ln_eps)

@@ -21,6 +21,7 @@ import torch
 from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
 from clip_embedder_tpu_torch.ops.attention import causal_mask
 from clip_embedder_tpu_torch.ops.quant import quantize_weight
+from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
 
 FIXTURES = Path(__file__).parent / "fixtures"
 
@@ -107,8 +108,73 @@ def test_flash_kernel_refuses_per_batch_mask(dev):
                                      mask=torch.zeros(2, 1, 1, 8, device=dev))
 
 
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 65, 32), (2, 16, 1025, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_kernel_rope_matches_plain(dev, b, h, s, d, dtype, fast):
+    """In-kernel 2-D rope (PE-Core's tables: a cls identity row, then the
+    patch grid, x bands first)."""
+    grid = int(round((s - 1) ** 0.5))
+    sin, cos = (t.to(dev) for t in head_tiled_tables(
+        axial_rope_table(grid, d, order="xy", prefix=1), h))
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
+               .to(dev, dtype) for _ in range(3))
+    before = flash.flash_attention_packed.launches
+    got = flash.flash_attention_packed(q, k, v, num_heads=h, rope=(sin, cos),
+                                       fast_softmax=fast)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_packed.launches == before + 1
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, rope=(sin, cos),
+                                             fast_softmax=fast)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_rope_refuses_mask_and_bad_tables(dev):
+    q = torch.zeros(1, 9, 4 * 32, device=dev)
+    tab = torch.zeros(9, 4 * 32, device=dev)
+    with pytest.raises(ValueError, match="rope with a mask"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, rope=(tab, tab),
+                                     mask=causal_mask(9, device=dev))
+    with pytest.raises(ValueError, match="rope tables"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, rope=(tab[:8], tab[:8]))
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 16, 16), (2, 4, 61, 72), (1, 3, 130, 128),
+                                     (2, 16, 576, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "fast", "causal"])
+def test_flash_bhsd_kernel_matches_plain(dev, b, h, s, d, dtype, mode):
+    """Kernel 3 on the [B, H, S, D] layout: no mask or the shared causal
+    mask, exact or clamped softmax, the f32 exp."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(dev, dtype) for _ in range(3))
+    kw = {"fast_softmax": mode == "fast",
+          "mask": causal_mask(s, device=dev) if mode == "causal" else None}
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == before + 1
+    ref = flash.flash_attention_plain(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_bhsd_hands_cross_attention_and_per_batch_masks_on(dev):
+    q = torch.randn(2, 4, 8, 16, device=dev)
+    kv = torch.randn(2, 4, 12, 16, device=dev)
+    before = flash.flash_attention.launches
+    flash.flash_attention(q, kv, kv)
+    flash.flash_attention(q, q, q, mask=torch.zeros(2, 1, 1, 8, device=dev))
+    assert flash.flash_attention.launches == before
+
+
 @pytest.mark.parametrize("name", ["golden_siglip", "golden_model"])
 def test_golden_fixture_through_kernels(dev, name):
+    """The fixtures' 4 heads x 16 form no 128-lane head group, so their
+    self-attention takes kernel 3 (flash_attention), as on the TPU."""
     from clip_embedder_tpu_torch import Clip
 
     fixture = FIXTURES / name
@@ -116,12 +182,12 @@ def test_golden_fixture_through_kernels(dev, name):
     assert clip.vision.attn_impl == "kernel"
     img = np.load(fixture / "golden_image.npy")
     golden = np.load(fixture / "golden_outputs.npz")
-    n_qkv, n_attn = qkv.ln_qkv.launches, flash.flash_attention_packed.launches
+    n_qkv, n_attn = qkv.ln_qkv.launches, flash.flash_attention.launches
     np.testing.assert_allclose(clip.vision.embed_image(img), golden["image_embedding"],
                                atol=5e-4)
     np.testing.assert_allclose(clip.text.embed_texts(["a photo of a cat", "the dog!"]),
                                golden["text_embeddings"], atol=5e-4)
-    assert qkv.ln_qkv.launches > n_qkv and flash.flash_attention_packed.launches > n_attn
+    assert qkv.ln_qkv.launches > n_qkv and flash.flash_attention.launches > n_attn
     expect = json.loads((fixture / "golden_classify.json").read_text())
     results = clip.classify(img, [label for label, _ in expect])
     assert [r[0] for r in results] == [e[0] for e in expect]
@@ -209,6 +275,29 @@ def test_int8_mlp_kernel_matches_plain(dev, rows, k_in, hidden, dtype, act, vari
     assert_rows_close(got, int8_mlp.int8_mlp_plain(params, x, **kw), dtype)
 
 
+@pytest.mark.parametrize("rows,k_in,hidden,chunk", [(2 * 61, 128, 576, 256),
+                                                    (3 * 17, 64, 272, 128),
+                                                    (2 * 1025, 1536, 8960, 1792)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
+@pytest.mark.parametrize("variant", ["plain", "pre_ln_residual"])
+def test_int8_mlp_streamed_kernel_matches_plain(dev, rows, k_in, hidden, chunk, dtype, act,
+                                                variant):
+    """Per-slab requantization; 576 / 256 and 272 / 128 leave a ragged last
+    slab."""
+    rng = np.random.default_rng(9)
+    params = {"fc": _qlinear(rng, k_in, hidden, dtype, dev),
+              "proj": _qlinear(rng, hidden, k_in, dtype, dev)}
+    _, pre_ln, x = _qkv_inputs(rows, k_in, dtype, dev, seed=10)
+    kw = {"activation": act, "pre_ln": pre_ln if variant != "plain" else None,
+          "add_residual": variant == "pre_ln_residual", "chunk": chunk}
+    before = int8_mlp.int8_mlp_streamed.launches
+    got = int8_mlp.int8_mlp_streamed(params, x, **kw)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_mlp_streamed.launches == before + 1
+    assert_rows_close(got, int8_mlp.int8_mlp_streamed_plain(params, x, **kw), dtype)
+
+
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
     rng = np.random.default_rng(8)
     p = _qlinear(rng, 64, 24, torch.float32, dev)    # 24: not a multiple of 16
@@ -222,6 +311,10 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         int8_mlp.int8_linear_fused(p, torch.zeros(64, 4, device=dev).t())
     with pytest.raises(ValueError, match="residual"):
         int8_mlp.int8_linear_fused(p, x, residual=torch.zeros(4, 16, device=dev))
+    mlp = {"fc": _qlinear(rng, 64, 256, torch.float32, dev),
+           "proj": _qlinear(rng, 256, 64, torch.float32, dev)}
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int8_mlp.int8_mlp_streamed(mlp, x, chunk=100)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8_all"])

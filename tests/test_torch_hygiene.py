@@ -20,6 +20,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import clip_embedder_tpu_torch\n"
         "from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder\n"
         "from clip_embedder_tpu_torch.ops import cuda, flash, int8_mlp, qkv, preprocess, quant\n"
+        "from clip_embedder_tpu_torch.ops import rope\n"
+        "from clip_embedder_tpu_torch.utils import logging\n"
         "from clip_embedder_tpu_torch.models import build, text_transformer, vit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'clip_embedder_tpu' or m.startswith('clip_embedder_tpu.'))\n"
@@ -52,8 +54,9 @@ def test_kernel_sources_are_present_and_noted():
     """Each kernel source says which TPU kernel it replaces, what bounds it
     on the H100, and what its design does about that."""
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["flash_packed.cu", "int8_linear.cu", "int8_mlp.cu",
-                                         "ln_qkv.cu", "ln_qkv_int8.cu"]
+    assert [s.name for s in sources] == ["flash_bhsd.cu", "flash_packed.cu", "int8_linear.cu",
+                                         "int8_mlp.cu", "int8_mlp_streamed.cu", "ln_qkv.cu",
+                                         "ln_qkv_int8.cu"]
     for src in sources:
         head = src.read_text()[:3000]
         assert "Replaces the TPU kernel clip_embedder_tpu/ops/" in head
@@ -98,8 +101,9 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
     from clip_embedder_tpu_torch.ops.quant import quantize_weight
 
-    wrappers = (qkv.ln_qkv, flash.flash_attention_packed, qkv.ln_qkv_int8,
-                int8_mlp.int8_mlp, int8_mlp.int8_linear_fused)
+    wrappers = (qkv.ln_qkv, flash.flash_attention_packed, flash.flash_attention,
+                qkv.ln_qkv_int8, int8_mlp.int8_mlp, int8_mlp.int8_mlp_streamed,
+                int8_mlp.int8_linear_fused)
     before = [fn.launches for fn in wrappers]
     x = torch.randn(1, 4, 64)
     params = {n: {"w": torch.randn(64, 64) * 0.1} for n in "qkv"}
@@ -109,8 +113,10 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     ln = {"scale": torch.ones(64), "bias": torch.zeros(64)}
     q, k, v = qkv.ln_qkv(params, ln, x)
     flash.flash_attention_packed(q, k, v, num_heads=4)
+    flash.flash_attention(*(t.reshape(1, 4, 4, 16).transpose(1, 2) for t in (q, k, v)))
     qkv.ln_qkv_int8(qparams, ln, x)
     int8_mlp.int8_mlp(mlp, x, pre_ln=ln, add_residual=True)
+    int8_mlp.int8_mlp_streamed(mlp, x, pre_ln=ln, add_residual=True)
     int8_mlp.int8_linear_fused(qparams["q"], x, residual=x)
     assert [fn.launches for fn in wrappers] == before
     meta = x.to("meta")
@@ -119,7 +125,11 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         flash.flash_attention_packed(meta, meta, meta, num_heads=4)
     with pytest.raises(ValueError, match="unsupported device"):
+        flash.flash_attention(*(meta.reshape(1, 4, 4, 16),) * 3)
+    with pytest.raises(ValueError, match="unsupported device"):
         qkv.ln_qkv_int8(qparams, ln, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_mlp.int8_mlp_streamed(mlp, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         int8_mlp.int8_mlp(mlp, meta)
     with pytest.raises(ValueError, match="unsupported device"):

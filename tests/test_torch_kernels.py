@@ -114,7 +114,7 @@ def test_flash_mask_forms():
             flash.flash_attention_packed(q, q, q, num_heads=4, mask=m)
     with pytest.raises(ValueError, match="unsupported mask"):
         flash.flash_attention_packed(q, q, q, num_heads=4, mask=torch.zeros(2, 4, 8, 8))
-    with pytest.raises(NotImplementedError, match="rope"):
+    with pytest.raises(ValueError, match="rope tables"):  # [S, H·D] tables, not q's shape
         flash.flash_attention_packed(q, q, q, num_heads=4, rope=(q, q))
 
 
@@ -140,31 +140,44 @@ def test_kernel_gates():
 
 
 @pytest.mark.parametrize("impl", ["kernel", "kernel_fast"])
-def test_mha_kernel_impl_dispatches_to_both_kernels(impl, monkeypatch):
-    """On the kernel impls, pre-LN self-attention goes through ln_qkv and
-    flash_attention_packed (their plain versions on the CPU), with the
-    kernel_fast flags of the JAX package's pallas_fast."""
+@pytest.mark.parametrize("width,heads", [(64, 4), (128, 2)], ids=["4x16", "2x64"])
+def test_mha_kernel_impl_dispatches_to_both_kernels(impl, width, heads, monkeypatch):
+    """On the kernel impls, pre-LN self-attention goes through ln_qkv and an
+    attention kernel (their plain versions on the CPU), routed as the JAX
+    package's pallas: 2 heads x 64 form a 128-lane head group and take
+    flash_attention_packed, with kernel_fast's bf16 exp (d < 96); 4 heads x
+    16 form none and take flash_attention, exp in f32."""
     calls = []
-    real_qkv, real_flash = qkv.ln_qkv, flash.flash_attention_packed
+    real_qkv = qkv.ln_qkv
+    real = {"packed": flash.flash_attention_packed, "bhsd": flash.flash_attention}
 
     def spy_qkv(*a, **kw):
         calls.append("ln_qkv")
         return real_qkv(*a, **kw)
 
-    def spy_flash(*a, **kw):
-        calls.append(("flash", kw["fast_softmax"], kw["exp_bf16"]))
-        return real_flash(*a, **kw)
+    def spy(kind):
+        def wrapped(*a, **kw):
+            calls.append((kind, kw["fast_softmax"], kw.get("exp_bf16")))
+            return real[kind](*a, **kw)
+        return wrapped
 
     monkeypatch.setattr(tattn, "ln_qkv", spy_qkv)
-    monkeypatch.setattr(tattn, "flash_attention_packed", spy_flash)
+    monkeypatch.setattr(tattn, "flash_attention_packed", spy("packed"))
+    monkeypatch.setattr(tattn, "flash_attention", spy("bhsd"))
     rng = np.random.default_rng(9)
-    p = {n: {"w": torch.from_numpy(_arr(rng, 64, 64, scale=0.125)),
-             "b": torch.from_numpy(_arr(rng, 64, scale=0.1))} for n in ("q", "k", "v", "out")}
-    ln = {"scale": torch.ones(64), "bias": torch.zeros(64)}
-    x = torch.from_numpy(_arr(rng, 2, 9, 64))
-    got = tattn.multi_head_attention(p, x, num_heads=4, impl=impl, pre_ln=ln, residual=x)
-    ref = tattn.multi_head_attention(p, x, num_heads=4, impl="eager", pre_ln=ln, residual=x)
+    p = {n: {"w": torch.from_numpy(_arr(rng, width, width, scale=width ** -0.5)),
+             "b": torch.from_numpy(_arr(rng, width, scale=0.1))}
+         for n in ("q", "k", "v", "out")}
+    ln = {"scale": torch.ones(width), "bias": torch.zeros(width)}
+    x = torch.from_numpy(_arr(rng, 2, 9, width))
+    got = tattn.multi_head_attention(p, x, num_heads=heads, impl=impl, pre_ln=ln, residual=x)
+    ref = tattn.multi_head_attention(p, x, num_heads=heads, impl="eager", pre_ln=ln,
+                                     residual=x)
     fast = impl == "kernel_fast"
-    assert calls == ["ln_qkv", ("flash", fast, fast)]
-    # exp_bf16 (d=16 < 96) rounds the softmax weights to bf16
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-2 if fast else 1e-6)
+    if heads == 2:
+        assert calls == ["ln_qkv", ("packed", fast, fast)]
+    else:
+        assert calls == ["ln_qkv", ("bhsd", fast, None)]
+    # exp_bf16 rounds the softmax weights to bf16
+    np.testing.assert_allclose(got.numpy(), ref.numpy(),
+                               atol=1e-2 if fast and heads == 2 else 1e-5)

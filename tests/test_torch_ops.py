@@ -136,12 +136,18 @@ def test_multi_head_attention_cross():
                jattn.multi_head_attention(jp, jq, kv=jkv, num_heads=4))
 
 
-def test_multi_head_attention_rejects_unknown_impl_and_rope():
+def test_multi_head_attention_rejects_unknown_impl_and_takes_rope():
     x = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="Unknown attention impl"):
         tattn.multi_head_attention({}, x, num_heads=2, impl="pallas")
-    with pytest.raises(NotImplementedError, match="rope"):
-        tattn.multi_head_attention({}, x, num_heads=2, rope=(x, x))
+    rng = _rng(10)
+    (_, tp) = _both(_attn_params(rng, 64))
+    x = torch.from_numpy(_arr(rng, 2, 5, 64))
+    identity = (torch.zeros(5, 64), torch.ones(5, 64))  # angle 0: rope is the identity
+    for impl in tattn.ATTN_IMPLS:
+        torch.testing.assert_close(
+            tattn.multi_head_attention(tp, x, num_heads=4, rope=identity, impl=impl),
+            tattn.multi_head_attention(tp, x, num_heads=4, impl=impl), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])

@@ -315,16 +315,23 @@ def test_card_gates_on_kernel_shapes(card_gates):
     assert not qkv.fits_fused_qkv_int8({**sq, "v": {"w": torch.zeros(64, 64)}}, x)
 
 
-def test_streamed_mlp_is_refused_not_replaced(card_gates):
-    """Over 20 MB of int8 weights the JAX package streams the MLP (kernel 7,
-    not yet ported): the port raises instead of computing other numerics."""
+def test_streamed_mlp_takes_kernel_7_not_kernel_4(card_gates, monkeypatch):
+    """Over 20 MB of int8 weights the JAX package streams the MLP (per-slab
+    requantization, kernel 7): the port routes it to ``int8_mlp_streamed``,
+    never to the resident kernel's numerics (tests/test_torch_pe_core.py
+    holds the streamed numerics against the JAX kernel)."""
     big = {"fc": {"w_q": torch.zeros(1536, 8960, dtype=torch.int8, device="meta")},
            "proj": {"w_q": torch.zeros(8960, 1536, dtype=torch.int8, device="meta")}}
     x = torch.zeros(2, 256, 1536, device="meta")
     assert not int8_mlp.fits_fused_mlp(big, "gelu", x)
     assert int8_mlp.fits_streamed_mlp(big, "gelu", 512, x)
-    with pytest.raises(NotImplementedError, match="int8_mlp_streamed"):
-        layers.mlp(big, x, activation=layers.gelu)
+    calls = []
+    monkeypatch.setattr(layers, "int8_mlp", lambda *a, **kw: calls.append("int8_mlp"))
+    monkeypatch.setattr(layers, "int8_mlp_streamed",
+                        lambda p, t, **kw: calls.append(("streamed", kw)) or t)
+    assert layers.mlp(big, x, activation=layers.gelu) is x
+    assert calls == [("streamed", {"activation": "gelu", "pre_ln": None, "ln_eps": 1e-6,
+                                   "add_residual": False})]
 
 
 SIGLIP_VIT = jvit.ViTCfg(
@@ -472,8 +479,19 @@ def test_chip_smoke_expected_int8_launches_match_the_routing():
     counts the same routing on the CPU)."""
     smoke = _chip_smoke()
     assert smoke.expected_int8_launches("int8", 27, 27) == {
-        "ln_qkv": 81, "flash_attention_packed": 81, "int8_mlp": 83, "ln_qkv_int8": 0,
-        "int8_linear_fused": 0}
+        "ln_qkv": 81, "flash_attention_packed": 81, "flash_attention": 0, "int8_mlp": 83,
+        "int8_mlp_streamed": 0, "ln_qkv_int8": 0, "int8_linear_fused": 0}
     assert smoke.expected_int8_launches("int8_all", 27, 27) == {
-        "ln_qkv": 0, "flash_attention_packed": 81, "int8_mlp": 83, "ln_qkv_int8": 81,
-        "int8_linear_fused": 85}
+        "ln_qkv": 0, "flash_attention_packed": 81, "flash_attention": 0, "int8_mlp": 83,
+        "int8_mlp_streamed": 0, "ln_qkv_int8": 81, "int8_linear_fused": 85}
+    # PE-Core-bigG: 50 vision blocks stream their MLPs, 24 text blocks and
+    # the two map-pool heads take int8_mlp
+    assert smoke.expected_int8_launches(None, 50, 24, streamed=True) == {
+        "ln_qkv": 124, "flash_attention_packed": 124, "flash_attention": 0, "int8_mlp": 0,
+        "int8_mlp_streamed": 0, "ln_qkv_int8": 0, "int8_linear_fused": 0}
+    assert smoke.expected_int8_launches("int8", 50, 24, streamed=True) == {
+        "ln_qkv": 124, "flash_attention_packed": 124, "flash_attention": 0, "int8_mlp": 26,
+        "int8_mlp_streamed": 100, "ln_qkv_int8": 0, "int8_linear_fused": 0}
+    assert smoke.expected_int8_launches("int8_all", 50, 24, streamed=True) == {
+        "ln_qkv": 0, "flash_attention_packed": 124, "flash_attention": 0, "int8_mlp": 26,
+        "int8_mlp_streamed": 100, "ln_qkv_int8": 124, "int8_linear_fused": 128}

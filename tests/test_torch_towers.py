@@ -172,6 +172,9 @@ def _model_cfg(vision=None, text=None):
     {"timm_model_name": "vit_so150m_patch16_reg4_map_256"},
     {"timm_model_name": "vit_large_patch14_clip_224", "timm_pool": "avg"},
     {"layers": 12, "width": 768, "patch_size": 16, "head_width": 64},
+    {"timm_model_name": "vit_pe_core_large_patch14_336", "image_size": 336},
+    {"timm_model_name": "vit_pe_core_bigG_patch14_448", "image_size": 448,
+     "timm_proj": "linear"},
 ])
 def test_resolve_vision_matches_jax(vision):
     got = tbuild.resolve_vision(_model_cfg(vision=vision))
@@ -201,7 +204,6 @@ def test_resolve_text_matches_jax(text):
 
 
 @pytest.mark.parametrize("vision,match", [
-    ({"timm_model_name": "vit_pe_core_large_patch14_336"}, "PE-Core"),
     ({"timm_model_name": "eva02_base_patch16_clip_224"}, "EVA02"),
     ({"timm_model_name": "fastvit_mci2"}, "FastViT"),
     ({"timm_model_name": "convnext_base"}, "ConvNeXt"),
@@ -226,8 +228,7 @@ def test_unported_text_families_raise(text, match):
 
 def test_unported_tower_options_raise():
     rope = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), rope_2d=True)
-    with pytest.raises(ConfigError, match="rope"):
-        tvit.init(rope, device="meta")
+    assert tvit.init(rope, device="meta")["blocks"]["attn"]["q"]["w"].shape == (2, 64, 64)
     attn = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), pool="attn")
     with pytest.raises(ConfigError, match="attn"):
         tvit.init(attn, device="meta")
