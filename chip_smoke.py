@@ -222,6 +222,23 @@ def phase_kernels(dev, peaks) -> dict:
     hold("flash_attention_packed B=8 H=16 S=64 D=72 causal mask bf16", [got],
          [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, mask=mask)],
          2e-2, 2e-2)
+    # the text towers' own shapes: SigLIP (16 x 72 over 64 tokens, no mask),
+    # PE-Core (20 x 64 over 72, causal); and the ragged 577
+    for b, h, s, d, causal in ((5, 16, 64, 72, False), (5, 20, 72, 64, True),
+                               (8, 16, 577, 72, False)):
+        q, k, v = attn_inputs(b, h, s, d, torch.bfloat16, dev)
+        mask = causal_mask(s, device=dev) if causal else None
+        got = flash.flash_attention_packed(q, k, v, num_heads=h, mask=mask)
+        torch.cuda.synchronize()
+        hold(f"flash_attention_packed B={b} H={h} S={s} D={d} causal={causal} bf16", [got],
+             [flash.flash_attention_packed_plain(q, k, v, num_heads=h, mask=mask)], 2e-2, 2e-2)
+    # ln_qkv at PE-Core's widths: vision 1536 over 1025 tokens, text 1280 over 72
+    for rows, w in ((8 * 1025, 1536), (5 * 72, 1280)):
+        params, pre_ln, x = qkv_inputs(rows, w, torch.bfloat16, dev)
+        got = qkv.ln_qkv(params, pre_ln, x, eps=1e-6)
+        torch.cuda.synchronize()
+        hold(f"ln_qkv rows={rows} W={w} bf16", got,
+             qkv.ln_qkv_plain(params, pre_ln, x, eps=1e-6), 1e-2, 2 ** -7)
 
     # timing at the main path's batch-32 shapes, bf16
     say("[3] kernel times at batch 32, bf16 (CUDA events, median of 20 back-to-back calls)")
@@ -248,11 +265,13 @@ def phase_kernels(dev, peaks) -> dict:
     qh, kh, vh = (t.view(b, seq, heads, hdim).transpose(1, 2) for t in (q, k, v))
     t_fl_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     b_fl, by_fl, fl_ops, fl_bytes = attn_bound(b, heads, seq, hdim, peaks)
+    fl_exps = b * heads * seq * seq
     say(f"  ln_qkv: {t_qkv:.4f} ms; plain {t_qkv_plain:.4f} ms; F.layer_norm+3 addmm "
         f"{t_qkv_lib:.4f} ms; bound {b_qkv:.4f} ms ({qkv_ops:.3e} FLOP, {qkv_bytes:.3e} B)")
     say(f"  flash_attention_packed: exact {t_fl:.4f} ms, fast+exp_bf16 {t_fl_fast:.4f} ms; "
         f"plain {t_fl_plain:.4f} ms; F.scaled_dot_product_attention {t_fl_lib:.4f} ms; "
-        f"bound {b_fl:.4f} ms ({fl_ops:.3e} FLOP, {fl_bytes:.3e} B)")
+        f"bound {b_fl:.4f} ms ({fl_ops:.3e} FLOP, {fl_bytes:.3e} B; {fl_exps:.3e} exp on the "
+        f"special-function units, {exp_ms(fl_exps):.4f} ms at 16 a clock per SM)")
     return {
         "ln_qkv": {"name": "ln_qkv", "route": "cuda",
                    "source": "clip_embedder_tpu_torch/csrc/ln_qkv.cu",
@@ -281,6 +300,13 @@ def rope_library(q, k, v, heads, sin, cos):
     q, k = (apply_rope(t, sin, cos) for t in (q, k))
     qh, kh, vh = (t.view(b, s, heads, hd // heads).transpose(1, 2) for t in (q, k, v))
     return F.scaled_dot_product_attention(qh, kh, vh)
+
+
+def exp_ms(n: int) -> float:
+    """Time of ``n`` exp at the H100's special-function rate: 16 a clock on
+    each of 132 SMs at the 1.755 GHz boost clock (printed beside the bound,
+    not part of it)."""
+    return n / (16 * 132 * 1.755e9) * 1e3
 
 
 def attn_bound(b, h, s, d, peaks, extra_bytes=0, dtype=torch.bfloat16):
@@ -374,12 +400,16 @@ def phase_pe_attention_kernels(dev, peaks) -> dict:
     t_rope_plain = cuda_ms(lambda: flash.flash_attention_packed_plain(
         q, k, v, num_heads=heads, rope=rope))
     t_rope_lib = cuda_ms(lambda: rope_library(q, k, v, heads, sin, cos))
+    qh, kh, vh = (t.view(b, seq, heads, hdim).transpose(1, 2) for t in (q, k, v))
+    t_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     b_rope, by_rope, ops, nbytes = attn_bound(b, heads, seq, hdim, peaks,
                                               extra_bytes=2 * seq * heads * hdim * 4)
+    exps = b * heads * seq * seq
     say(f"  flash_attention_packed+rope (PE-Core-bigG, S=1025, 16x96): {t_rope:.4f} ms; plain "
         f"{t_rope_plain:.4f} ms; apply_rope + F.scaled_dot_product_attention "
-        f"{t_rope_lib:.4f} ms; bound {b_rope:.4f} ms ({ops:.3e} FLOP, {nbytes:.3e} B, "
-        f"{by_rope})")
+        f"{t_rope_lib:.4f} ms, of it F.scaled_dot_product_attention alone on the same q, k, v "
+        f"[32, 16, 1025, 96] {t_sdpa:.4f} ms; bound {b_rope:.4f} ms ({ops:.3e} FLOP, "
+        f"{nbytes:.3e} B, {by_rope}; {exps:.3e} exp, {exp_ms(exps):.4f} ms)")
 
     h, s, d = 16, 576, 72
     q, k, v = bhsd(b, h, s, d, torch.bfloat16)
@@ -400,7 +430,7 @@ def phase_pe_attention_kernels(dev, peaks) -> dict:
         "replaces": "clip_embedder_tpu/ops/flash.py:520",
         **fixture_rows["golden_model text"]},
         "rope": {"max_abs_err": err_rope, "ms": t_rope, "plain_ms": t_rope_plain,
-                 "bound_ms": b_rope, "library_ms": t_rope_lib}}
+                 "bound_ms": b_rope, "library_ms": t_rope_lib, "sdpa_ms": t_sdpa}}
 
 
 def hold_int8(name, got, ref, dtype) -> float:
@@ -794,7 +824,7 @@ def kernel_group(name: str) -> str:
         return "int8 row passes (LayerNorm + quantization)"
     if "i8::gemm_kernel" in n:
         return "int8 products (with their epilogues)"
-    if "qkv_gemm_kernel" in n or "ln_kernel<" in n:
+    if "qkv_gemm_kernel" in n or "qkv_kernel" in n or "ln_kernel<" in n:
         return "ln_qkv"
     if "flash" in n:
         return "attention kernels (flash_attention_packed, flash_attention)"
@@ -1226,7 +1256,8 @@ def main() -> int:
     rope = pe_attn["rope"]
     say(f"flash_attention_packed with rope (PE-Core-bigG): {rope['ms']:.4f} ms, plain "
         f"{rope['plain_ms']:.4f} ms, library {rope['library_ms']:.4f} ms, bound "
-        f"{rope['bound_ms']:.4f} ms, max_abs_err {rope['max_abs_err']:.3e}; launches "
+        f"{rope['bound_ms']:.4f} ms (SDPA alone {rope['sdpa_ms']:.4f} ms), max_abs_err "
+        f"{rope['max_abs_err']:.3e}; launches "
         f"{pe_core['bfloat16']['launches']['flash_attention_packed']} on PE-Core bf16 (of them "
         f"{2 * pe_core['bfloat16']['vision_layers']} in the vision blocks, with rope: derived "
         f"from the depth, not counted)")

@@ -11,31 +11,35 @@
 // 128) the denominator sums p as rounded to v's type, as the TPU kernels'
 // spare-lane matmul does.
 //
-// The design. The grid is (batch*head) x (query tiles of 64 rows); 4 warps
-// each own 16 query rows. A block reads its head's slice straight from the
-// strided layout (no transposes) into shared memory, zero-padding D up to a
-// multiple of 16 there (72 -> 80, 96 stays) for the tensor-core tiles.
-// Key/value tiles of 64 rows stream through a 2-stage cp.async ring
-// (16-byte copies where the head's row slice allows), so a tile's loads
-// overlap the previous tile's work. bf16 runs on mma.sync m16n8k16 with
-// ldmatrix operands: the scaled q fragments stay in registers for the whole
-// block, the logits come out of q.k^T in registers, the softmax runs there,
-// and the rounded p goes straight back in as the A operand of p.v (the f32
-// accumulator layout of two n8 tiles is the A layout of one k16 step), so
-// the [S, S] logits never leave registers. The exact softmax takes two
-// passes over the key tiles, the first for the whole-row max, the second for
-// exp, denominator and p.v, which reproduces the TPU kernels' rounding (they
-// subtract the whole-row max before the exp); `fast` takes one pass. The
-// per-element softmax code is compiled for each combination of the flags,
-// and without the key-bound and mask checks for the tiles that need neither
-// (every tile but a ragged last one, without a mask), chosen once per tile.
-// f32 (kept for f32 towers and numerics checks) uses a plain FMA kernel with
-// the logits staged in shared memory. Not yet done: online rescaling, TMA and
-// wgmma.
+// Three kernels, chosen by shape in `launch` (the wrappers' kernel_route
+// mirrors it):
+// - bf16 with D a multiple of 8 (every head layout the repo's towers use):
+//   `flash_tma_kernel`, warp-specialized: a producer warp feeds K/V tiles by
+//   TMA through an mbarrier ring to up to three consumer warpgroups of 64
+//   query rows, which run q.k^T and p.v on wgmma with the softmax in
+//   registers between them (the section below has the layouts).
+// - bf16 with any other D <= 128 (rows TMA cannot move: D*2 bytes not a
+//   multiple of 16): `flash_bf16_kernel`, the first design. The grid is
+//   (batch*head) x (query tiles of 64 rows); 4 warps each own 16 query rows;
+//   K/V tiles of 64 rows stream through a 2-stage cp.async ring; mma.sync
+//   m16n8k16 with ldmatrix operands, the scaled q fragments in registers,
+//   the logits and softmax in registers, the rounded p straight back in as
+//   the A operand of p.v (the f32 accumulator layout of two n8 tiles is the
+//   A layout of one k16 step).
+// - f32 (f32 towers and numerics checks, the golden fixtures): a plain FMA
+//   kernel with the logits staged in shared memory.
+// All three take the exact softmax in two passes over the keys, the first
+// for the whole-row max, the second for exp, denominator and p.v, which
+// reproduces the TPU kernels' rounding (they subtract the whole-row max
+// before the exp); `fast` takes one pass. The per-element softmax code is
+// compiled for each combination of the flags, and without the key-bound and
+// mask checks for the tiles that need neither (every tile but a ragged last
+// one, without a mask), chosen once per tile. Not yet done: online
+// rescaling (one pass for the exact softmax; it changes the rounding).
 
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace clipk {
 namespace flash {
@@ -338,6 +342,458 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D a multiple of 8: TMA + wgmma, warp-specialized
+// ---------------------------------------------------------------------------
+//
+// A block owns one head and nwg x 64 query rows (nwg consumer warpgroups,
+// up to Tma<DC>::kMaxWG, chosen per launch so that the query tiles cover S
+// with the least waste); one more warpgroup is the producer. Its first
+// thread loads the query tile once and then streams the key (and, in the
+// second pass, value) tiles of 64 rows through a ring of Tma<DC>::kStages
+// stages with full/empty mbarriers: pass 1 (exact softmax only) K alone,
+// pass 2 K and V.
+//
+// Layouts. A head's row slice is D bf16 at a row stride of H*D (72 -> 144
+// bytes at SO400M), which no single swizzled box takes. So a tile comes in
+// two parts. Its first 64 (D = 64..120) or 128 (D = 128) columns arrive as
+// [64 rows x 128 bytes] boxes with the 128-byte swizzle, from a 4-D view
+// (D, rows, heads, batch): 128-byte row reads, and the layout wgmma reads
+// K-major (q.k^T's B, K-major: 32 bytes on per k16 step, SBO = 8 rows) and
+// MN-major (p.v's B, the transpose bit: 8 rows on per 8 keys, LBO = the next
+// 64 columns). The rest, D % 64 columns in chunks of 8 (and all of D below
+// 64), arrives as one box of [chunk][row][8 elements] from a 5-D view (8
+// elements, rows, D/8 chunks, heads, batch) whose chunk dimension sits
+// outside the row dimension: each 8 rows x 16 bytes are one contiguous
+// no-swizzle core matrix (K-major: LBO = one chunk block, SBO = 8 rows;
+// MN-major: LBO = 8 keys, SBO = one chunk block). Chunks past D (up to a
+// multiple of 16 columns for q.k^T's depth) and rows past S are outside the
+// views and arrive as zeros. q comes once, all of it in the chunk layout.
+//
+// Consumers: q's fragments come from shared memory once (ldmatrix), are
+// scaled and rounded to bf16 in registers and stay there as the A operand
+// of q.k^T (wgmma m64n64k16). The f32 logits come back in registers in the
+// mma.sync accumulator layout; the softmax turns them into bf16 p, which is
+// already the A operand layout of p.v (wgmma m64nNk16 over the swizzled
+// part, and one over the chunk part). The exact softmax keeps its two
+// passes (pass 1: q.k^T and the row max only).
+//
+// Overlap: wgmma runs asynchronously, so each warpgroup issues the next
+// tile's q.k^T before it works on the current one (pass 1: the row max,
+// from a second logit buffer; pass 2: q.k^T of tile j+1, then p.v of tile
+// j, then the softmax of tile j+1 while p.v runs). Every issue and wait sits
+// on a path without branches (the last tile is peeled off): ptxas keeps the
+// products asynchronous only where it can count the groups in flight. The
+// exp is ex2 of the f32 logit times log2(e) (ex2.approx); pairs of values
+// round to bf16 in one conversion. Where the denominator sums p as rounded
+// to bf16 (D not a multiple of 128), V's tile carries one more 8-column
+// chunk of ones, as the TPU kernel's spare lane: p.v also yields the
+// denominator.
+template <int DC>
+struct Tma {
+  static constexpr int kMain = DC / 8;            // swizzled 64-column blocks
+  static constexpr int kRC = DC - 8 * kMain;      // chunks of the rest
+  static constexpr bool kOnes = DC < 16;          // D % 128 != 0: the ones chunk
+  static constexpr int kKRest = (kRC + 1) / 2 * 2;  // K rest chunks, to q.k^T's depth
+  static constexpr int kVRest = kRC + (kOnes ? 1 : 0);
+  static constexpr int kDKC = 8 * kMain + kKRest;  // q chunks
+  static constexpr int kKs = kDKC / 2;            // k16 steps of q.k^T
+  static constexpr int kKT = 64;  // keys per tile
+  static constexpr int kS = kKT / 2;  // logits a thread holds
+  static constexpr int kMaxWG = 3;
+  static constexpr int kConsumerRegs = 160, kProducerRegs = 32;
+  static constexpr int kThreads = (kMaxWG + 1) * 128;
+  static constexpr int kMainBytes = kKT * 128;   // one swizzled block of a tile
+  static constexpr int kKBytes = kMain * kMainBytes + kKRest * kKT * 16;
+  static constexpr int kVBytes = kMain * kMainBytes + kVRest * kKT * 16;
+  static constexpr int kQMax = kDKC * kMaxWG * 64 * 16;
+  // (stages start on 1024-byte boundaries: the swizzled blocks need them)
+  static constexpr int kStageBytes = (kKBytes + kVBytes + 1023) / 1024 * 1024;
+  static constexpr int kStages = (200 * 1024 - kQMax) / kStageBytes < 6
+                                     ? (200 * 1024 - kQMax) / kStageBytes
+                                     : 6;
+  // + 1024: the swizzled boxes need a 1024-byte aligned base
+  static constexpr size_t kSmem =
+      1024 + kQMax + (size_t)kStages * kStageBytes + (2 * kStages + 1) * sizeof(uint64_t);
+  static_assert(kStages >= 2, "ring too shallow");
+  static_assert(kQMax % 1024 == 0 && kStageBytes % 1024 == 0 &&
+                    (kMain == 0 || kKBytes % 1024 == 0),
+                "1024-byte sections");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DC>
+__global__ void __launch_bounds__(Tma<DC>::kThreads, 1)
+    flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmain,
+                     const __grid_constant__ CUtensorMap vmain,
+                     const __grid_constant__ CUtensorMap krest,
+                     const __grid_constant__ CUtensorMap vrest, const float* __restrict__ mask,
+                     bf16* __restrict__ op, const Attn a) {
+  namespace hp = hopper;
+  using L = Tma<DC>;
+  constexpr int kKs = L::kKs, kMain = L::kMain, kRC = L::kRC, kVRest = L::kVRest;
+  constexpr int kStages = L::kStages, kKT = L::kKT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nwg = blockDim.x / 128 - 1;
+  const int qrows = nwg * 64;
+  unsigned char* qs = smem;  // [kDKC][qrows][16 B]
+  // stage: K [kMain][64][128 B] swizzled, [kKRest][64][16 B]; V the same
+  // with kVRest chunks (the last one the ones)
+  unsigned char* ring = smem + L::kQMax;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;
+  constexpr int kKRestOff = kMain * L::kMainBytes;
+  constexpr int kVOff = L::kKBytes, kVRestOff = L::kKBytes + kMain * L::kMainBytes;
+
+  const int seq = a.seq;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int q0 = blockIdx.y * qrows;
+  const int n_kt = (seq + kKT - 1) / kKT;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], nwg);  // one arrival per consumer warpgroup
+    }
+    hp::mbar_init(qfull, 1);
+    hp::mbar_fence_init();
+  }
+  if (L::kOnes) {  // every stage's V ones chunk (the TMA never writes it)
+    for (int i = threadIdx.x; i < kStages * kKT; i += blockDim.x)
+      *reinterpret_cast<uint4*>(ring + (i / kKT) * L::kStageBytes + kVRestOff +
+                                kRC * kKT * 16 + (i % kKT) * 16) =
+          make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);  // bf16 1.0
+    hp::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == nwg) {  // producer
+    hp::regs_dealloc<L::kProducerRegs>();
+    if (threadIdx.x == nwg * 128) {
+      hp::prefetch_map(&qmap);
+      if (kMain) {
+        hp::prefetch_map(&kmain);
+        hp::prefetch_map(&vmain);
+      }
+      if (kRC) {
+        hp::prefetch_map(&krest);
+        hp::prefetch_map(&vrest);
+      }
+      hp::mbar_expect_tx(qfull, L::kDKC * qrows * 16);
+      hp::tma_load_5d(qs, &qmap, qfull, 0, q0, 0, h, b);
+      int it = 0;
+      auto push = [&](int kt, bool with_v) {
+        const int st = it % kStages;
+        if (it >= kStages) hp::mbar_wait(&empty[st], ((it / kStages) - 1) & 1);
+        unsigned char* dst = ring + st * L::kStageBytes;
+        const int row = kt * kKT;
+        hp::mbar_expect_tx(&full[st], (kMain * L::kMainBytes + L::kKRest * kKT * 16) +
+                                          (with_v ? kMain * L::kMainBytes + kRC * kKT * 16 : 0));
+        for (int m = 0; m < kMain; ++m)
+          hp::tma_load_4d(dst + m * L::kMainBytes, &kmain, &full[st], 64 * m, row, h, b);
+        if (kRC) hp::tma_load_5d(dst + kKRestOff, &krest, &full[st], 0, row, 8 * kMain, h, b);
+        if (with_v) {
+          for (int m = 0; m < kMain; ++m)
+            hp::tma_load_4d(dst + kVOff + m * L::kMainBytes, &vmain, &full[st], 64 * m, row, h,
+                            b);
+          if (kRC)
+            hp::tma_load_5d(dst + kVRestOff, &vrest, &full[st], 0, row, 8 * kMain, h, b);
+        }
+        ++it;
+      };
+      if (!a.fast)
+        for (int kt = 0; kt < n_kt; ++kt) push(kt, false);
+      for (int kt = 0; kt < n_kt; ++kt) push(kt, true);
+    }
+    return;
+  }
+
+  hp::regs_alloc<L::kConsumerRegs>();
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+
+  // q: this warpgroup's 64 rows scaled and rounded in place (zeros past D),
+  // then read by q.k^T straight from shared memory
+  hp::mbar_wait(qfull, 0);
+  for (int i = threadIdx.x % 128; i < L::kDKC * 64; i += 128) {
+    uint4* p = reinterpret_cast<uint4*>(qs + ((size_t)(i / 64) * qrows + wg * 64 + i % 64) * 16);
+    uint4 u = *p;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h2[j] = __halves2bfloat162(__float2bfloat16(__low2float(h2[j]) * a.scale),
+                                 __float2bfloat16(__high2float(h2[j]) * a.scale));
+    *p = u;
+  }
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, 128);
+
+  int it = 0;  // position in the producer's sequence of tiles
+  auto stage_of = [&](int i) { return ring + (i % kStages) * L::kStageBytes; };
+  auto wait_full = [&](int i) { hp::mbar_wait(&full[i % kStages], (i / kStages) & 1); };
+  auto release = [&](int i) {
+    if (threadIdx.x % 128 == 0) hp::mbar_arrive(&empty[i % kStages]);
+  };
+  // issue (not wait for) the logits of this warpgroup's 64 rows against the
+  // kKT keys of one K tile; s[4*nt + e] sits at row e < 2 ? row_a : row_b,
+  // key nt*8 + 2t + (e & 1)
+  // (q: K-major, no swizzle: LBO = one chunk block of qrows rows, SBO = 8 rows)
+  const unsigned char* qa = qs + wg * 64 * 16;
+  auto issue_scores = [&](const unsigned char* ktile, float (&s)[L::kS]) {
+    hp::fence_regs(s);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) {
+      const uint64_t d =
+          kk < 4 * kMain
+              ? hp::desc(ktile + (kk / 4) * L::kMainBytes + (kk % 4) * 32, 16, 1024,
+                         hp::kSwizzle128)
+              : hp::desc(ktile + kKRestOff + (kk - 4 * kMain) * 2 * kKT * 16, kKT * 16, 128,
+                         hp::kInterleave);
+      const uint64_t dq = hp::desc(qa + kk * 2 * qrows * 16, qrows * 16, 128, hp::kInterleave);
+      WgmmaSS<kKT, 0>::run(s, dq, d, kk > 0);
+    }
+    hp::wgmma_commit();
+  };
+  auto key_of = [&](int kt, int nt, int e) { return kt * kKT + nt * 8 + 2 * t + (e & 1); };
+  auto logit = [&](const float (&s)[L::kS], int kt, int nt, int e) {
+    const int row = e < 2 ? row_a : row_b;
+    float l = s[4 * nt + e];
+    if (mask != nullptr && row < seq) l += mask[(size_t)row * seq + key_of(kt, nt, e)];
+    return l;
+  };
+  // A tile whose keys all exist and that has no mask takes its logits as
+  // they are: the per-element checks, resolved per tile at compile time.
+  auto plain_tile = [&](int kt) { return mask == nullptr && (kt + 1) * kKT <= seq; };
+
+  // pass 1 (exact softmax): the whole-row max over every key tile, tile
+  // kt + 1's q.k^T in flight while tile kt's max is taken
+  float m_a = neg_inf(), m_b = neg_inf();
+  if (!a.fast) {
+    auto tile_max = [&](const float (&s)[L::kS], int kt) {
+      auto body = [&](auto checked) {
+        constexpr bool kChecked = decltype(checked)::value;
+#pragma unroll
+        for (int nt = 0; nt < kKT / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (kChecked && key_of(kt, nt, e) >= seq) continue;
+            const float l = kChecked ? logit(s, kt, nt, e) : s[4 * nt + e];
+            if (e < 2) m_a = fmaxf(m_a, l); else m_b = fmaxf(m_b, l);
+          }
+        }
+      };
+      if (plain_tile(kt)) body(No{}); else body(Yes{});
+    };
+    // cur holds tile kt's logits: start tile kt + 1's into nxt, take kt's max
+    auto step = [&](int kt, float (&cur)[L::kS], float (&nxt)[L::kS]) {
+      release(it++);
+      wait_full(it);
+      issue_scores(stage_of(it), nxt);
+      tile_max(cur, kt);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(nxt);
+    };
+    float s0[L::kS], s1[L::kS];
+    wait_full(it);
+    issue_scores(stage_of(it), s0);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s0);
+    int kt = 0;
+    for (; kt + 2 < n_kt; kt += 2) {
+      step(kt, s0, s1);
+      step(kt + 1, s1, s0);
+    }
+    if (kt + 1 < n_kt) {  // two tiles left
+      step(kt, s0, s1);
+      release(it++);
+      tile_max(s1, kt + 1);
+    } else {
+      release(it++);
+      tile_max(s0, kt);
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // the 4 threads of a row
+      m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, o));
+      m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, o));
+    }
+    m_a = fmaxf(m_a, -1e30f);  // fully masked rows
+    m_b = fmaxf(m_b, -1e30f);
+  }
+  const float ml_a = m_a * kLog2e, ml_b = m_b * kLog2e;
+
+  // pass 2: p = exp(.), denominator, p.v
+  constexpr int kAM = kMain ? 32 * kMain : 1, kAR = kVRest ? 4 * kVRest : 1;
+  float acc_m[kAM], acc_r[kAR];  // p.v over the swizzled columns, over the chunks
+#pragma unroll
+  for (int i = 0; i < kAM; ++i) acc_m[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kAR; ++i) acc_r[i] = 0.0f;
+  float l_a = 0.0f, l_b = 0.0f;  // the denominator where V has no ones chunk
+  // p of one tile as the A operand of the 4 k16 steps of p.v: pairs of keys
+  // of one row, each pair rounded to bf16 in one conversion
+  auto weights = [&](const float (&s)[L::kS], uint32_t (&pa)[L::kKT / 16][4], int kt, auto checked,
+                     auto fast_c, auto exp_c) {
+    constexpr bool kChecked = decltype(checked)::value;
+    constexpr bool kFast = decltype(fast_c)::value, kExpBf16 = decltype(exp_c)::value;
+#pragma unroll
+    for (int nt = 0; nt < kKT / 8; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // row_a, then row_b
+        float p[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * half + j;
+          // (keys past the end read no mask: their weight is set to 0 below)
+          const float l = !kChecked ? s[4 * nt + e]
+                                    : (key_of(kt, nt, e) < seq ? logit(s, kt, nt, e) : 0.0f);
+          if (kFast) p[j] = fminf(fmaxf(l, -60.0f), 60.0f);
+          else p[j] = kExpBf16 ? l - (half ? m_b : m_a) : l;
+        }
+        if (kExpBf16) {  // the exp's argument rounded to bf16
+          const float2 r = __bfloat1622float2(__floats2bfloat162_rn(p[0], p[1]));
+          p[0] = ex2(r.x * kLog2e);
+          p[1] = ex2(r.y * kLog2e);
+        } else if (kFast) {
+          p[0] = ex2(p[0] * kLog2e);
+          p[1] = ex2(p[1] * kLog2e);
+        } else {
+          p[0] = ex2(fmaf(p[0], kLog2e, -(half ? ml_b : ml_a)));
+          p[1] = ex2(fmaf(p[1], kLog2e, -(half ? ml_b : ml_a)));
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)  // keys past the end weigh nothing
+          if (kChecked && key_of(kt, nt, 2 * half + j) >= seq) p[j] = 0.0f;
+        __nv_bfloat162 pb = __floats2bfloat162_rn(p[0], p[1]);
+        if (!L::kOnes) {  // under exp_bf16, p is the rounded value
+          const float2 r = kExpBf16 ? __bfloat1622float2(pb) : make_float2(p[0], p[1]);
+          if (half) l_b += r.x + r.y; else l_a += r.x + r.y;
+        }
+        pa[nt / 2][(nt & 1) * 2 + half] = *reinterpret_cast<uint32_t*>(&pb);
+      }
+    }
+  };
+  auto softmax = [&](const float (&s)[L::kS], uint32_t (&pa)[L::kKT / 16][4], int kt) {
+    auto with_flags = [&](auto checked) {
+      if (a.fast) {
+        if (a.exp_bf16) weights(s, pa, kt, checked, Yes{}, Yes{});
+        else weights(s, pa, kt, checked, Yes{}, No{});
+      } else {
+        if (a.exp_bf16) weights(s, pa, kt, checked, No{}, Yes{});
+        else weights(s, pa, kt, checked, No{}, No{});
+      }
+    };
+    if (plain_tile(kt)) with_flags(No{}); else with_flags(Yes{});
+  };
+  // (the caller has put p's and the accumulators' registers in place)
+  auto issue_pv = [&](const unsigned char* tile, const uint32_t (&pa)[L::kKT / 16][4]) {
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKT / 16; ++kk) {
+      if constexpr (kMain > 0)
+        WgmmaRS<64 * kMain, 1>::run(
+            acc_m, pa[kk],
+            hp::desc(tile + kVOff + kk * 2048, L::kMainBytes, 1024, hp::kSwizzle128), 1);
+      if constexpr (kVRest > 0)
+        WgmmaRS<8 * kVRest, 1>::run(
+            acc_r, pa[kk], hp::desc(tile + kVRestOff + kk * 256, 128, kKT * 16, hp::kInterleave),
+            1);
+    }
+    hp::wgmma_commit();
+  };
+
+  // Registers a product reads are settled (fenced) before anything is in
+  // flight: ptxas serializes the products if an instruction defines them
+  // while one runs.
+  auto settle = [&](uint32_t (&pa)[L::kKT / 16][4]) {
+    hp::fence_regs(pa);
+    hp::fence_regs(acc_m);
+    hp::fence_regs(acc_r);
+  };
+  // p of tile kt in `cur`: tile kt + 1's q.k^T first, then tile kt's p.v,
+  // and tile kt + 1's softmax into `nxt` while p.v runs
+  float s[L::kS];
+  auto step = [&](int kt, uint32_t (&cur)[L::kKT / 16][4], uint32_t (&nxt)[L::kKT / 16][4]) {
+    settle(cur);
+    wait_full(it + 1);
+    issue_scores(stage_of(it + 1), s);
+    issue_pv(stage_of(it), cur);
+    hp::wgmma_wait<1>();
+    hp::fence_regs(s);
+    softmax(s, nxt, kt + 1);
+    hp::wgmma_wait<0>();
+    settle(cur);
+    release(it++);
+  };
+  auto last = [&](uint32_t (&cur)[L::kKT / 16][4]) {
+    settle(cur);
+    issue_pv(stage_of(it), cur);
+    hp::wgmma_wait<0>();
+    settle(cur);
+    release(it++);
+  };
+  uint32_t pa[L::kKT / 16][4], pn[L::kKT / 16][4];
+  wait_full(it);
+  issue_scores(stage_of(it), s);
+  hp::wgmma_wait<0>();
+  hp::fence_regs(s);
+  softmax(s, pa, 0);
+  {
+    int kt = 0;
+    for (; kt + 2 < n_kt; kt += 2) {
+      step(kt, pa, pn);
+      step(kt + 1, pn, pa);
+    }
+    if (kt + 1 < n_kt) {  // two tiles left
+      step(kt, pa, pn);
+      last(pn);
+    } else {
+      last(pa);
+    }
+  }
+
+  if (L::kOnes) {  // column 8*DC (and the 7 beside it) of p.v: the sum of the rounded p
+    l_a = acc_r[4 * kRC];
+    l_b = acc_r[4 * kRC + 2];
+  } else {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
+    }
+  }
+  const float inv_a = 1.0f / l_a, inv_b = 1.0f / l_b;
+  bf16* out = op + (size_t)b * a.batch_stride + (size_t)h * a.head_stride;
+#pragma unroll
+  for (int nc = 0; nc < DC; ++nc) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row_b : row_a;
+      const float inv = half ? inv_b : inv_a;
+      // (nc is a constant here: each value comes from its register)
+      const int im = (4 * nc + 2 * half) % kAM, ir = (4 * (nc - 8 * kMain) + 2 * half) % kAR;
+      const bool swz = nc < 8 * kMain;
+      const float o0 = swz ? acc_m[im] : acc_r[ir], o1 = swz ? acc_m[im + 1] : acc_r[ir + 1];
+      if (row < seq)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * a.row_stride + nc * 8 + 2 * t) =
+            pack_bf16(__float2bfloat16(o0 * inv), __float2bfloat16(o1 * inv));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: plain FMA, logits staged in shared memory
 // ---------------------------------------------------------------------------
 
@@ -519,6 +975,67 @@ int launch_bf16(const Attn& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Consumer warpgroups per block for `seq` query rows: 3, fewer where that
+// leaves fewer idle 64-row tiles (or the sequence needs fewer).
+inline int tma_warpgroups(int seq) {
+  const int n64 = (seq + 63) / 64;
+  if (n64 <= 2) return n64;
+  const int waste3 = (n64 + 2) / 3 * 3 - n64, waste2 = (n64 + 1) / 2 * 2 - n64;
+  return waste3 <= waste2 ? 3 : 2;
+}
+
+// The 5-D view (8 elements, rows, chunks of 8, heads, batch) of one of q, k,
+// v, loaded in boxes of [chunks][rows][8].
+inline bool tma_chunk_map(CUtensorMap* map, const void* base, const Attn& a, int rows,
+                          int chunks) {
+  const cuuint64_t dims[5] = {8, (cuuint64_t)a.seq, (cuuint64_t)(a.d / 8), (cuuint64_t)a.heads,
+                              (cuuint64_t)a.batch};
+  const cuuint64_t strides[4] = {(cuuint64_t)a.row_stride * 2, 16, (cuuint64_t)a.head_stride * 2,
+                                 (cuuint64_t)a.batch_stride * 2};
+  const cuuint32_t box[5] = {8, (cuuint32_t)rows, (cuuint32_t)chunks, 1, 1};
+  return hopper::bf16_map(map, base, 5, dims, strides, box, false);
+}
+
+// The 4-D view (D, rows, heads, batch) of k or v, loaded in swizzled boxes
+// of [rows][64 columns].
+inline bool tma_swizzled_map(CUtensorMap* map, const void* base, const Attn& a, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)a.d, (cuuint64_t)a.seq, (cuuint64_t)a.heads,
+                              (cuuint64_t)a.batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)a.row_stride * 2, (cuuint64_t)a.head_stride * 2,
+                                 (cuuint64_t)a.batch_stride * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return hopper::bf16_map(map, base, 4, dims, strides, box, true);
+}
+
+template <int DC>
+int launch_tma(const Attn& a, cudaStream_t stream) {
+  using L = Tma<DC>;
+  if (((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+        reinterpret_cast<uintptr_t>(a.v)) % 16) != 0)
+    return (int)cudaErrorInvalidValue;  // TMA reads 16-byte aligned tensors
+  if (a.denom_rounded != (L::kOnes ? 1 : 0)) return (int)cudaErrorInvalidValue;
+  const int nwg = tma_warpgroups(a.seq);
+  // the parts a head dim has no use for get q's map (never loaded)
+  CUtensorMap qmap, kmain, vmain, krest, vrest;
+  bool ok = tma_chunk_map(&qmap, a.q, a, nwg * 64, L::kDKC);
+  kmain = vmain = krest = vrest = qmap;
+  if (L::kMain > 0)
+    ok = ok && tma_swizzled_map(&kmain, a.k, a, L::kKT) &&
+         tma_swizzled_map(&vmain, a.v, a, L::kKT);
+  if (L::kRC > 0)
+    ok = ok && tma_chunk_map(&krest, a.k, a, L::kKT, L::kKRest) &&
+         tma_chunk_map(&vrest, a.v, a, L::kKT, L::kRC);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  auto kern = flash_tma_kernel<DC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.seq + nwg * 64 - 1) / (nwg * 64));
+  kern<<<grid, (nwg + 1) * 128, L::kSmem, stream>>>(qmap, kmain, vmain, krest, vrest, a.mask,
+                                                     static_cast<bf16*>(a.out), a);
+  return (int)cudaGetLastError();
+}
+
 inline int launch_f32(const Attn& a, cudaStream_t stream) {
   const F32Layout L(a.d);
   cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel,
@@ -531,11 +1048,38 @@ inline int launch_f32(const Attn& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. The route is the shape's: f32 takes the
+// FMA kernel; bf16 with D a multiple of 8 (16-byte rows, as TMA needs) the
+// TMA + wgmma kernel, which then needs 16-byte aligned q, k and v; bf16 with
+// any other D <= 128 the mma.sync kernel. Returns cudaGetLastError().
 inline int launch(const Attn& a, int dtype, cudaStream_t stream) {
   if (a.d < 1 || a.d > kMaxDP) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_f32(a, stream);  // f32: p rounded to v's type is p itself
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (a.d % 8 == 0) {
+    switch (a.d / 8) {
+#define CLIPK_FLASH_TMA(N) \
+  case N:                  \
+    return launch_tma<N>(a, stream);
+      CLIPK_FLASH_TMA(1)
+      CLIPK_FLASH_TMA(2)
+      CLIPK_FLASH_TMA(3)
+      CLIPK_FLASH_TMA(4)
+      CLIPK_FLASH_TMA(5)
+      CLIPK_FLASH_TMA(6)
+      CLIPK_FLASH_TMA(7)
+      CLIPK_FLASH_TMA(8)
+      CLIPK_FLASH_TMA(9)
+      CLIPK_FLASH_TMA(10)
+      CLIPK_FLASH_TMA(11)
+      CLIPK_FLASH_TMA(12)
+      CLIPK_FLASH_TMA(13)
+      CLIPK_FLASH_TMA(14)
+      CLIPK_FLASH_TMA(15)
+      CLIPK_FLASH_TMA(16)
+#undef CLIPK_FLASH_TMA
+    }
+  }
   switch ((a.d + 15) / 16) {
 #define CLIPK_FLASH(N) \
   case N:              \

@@ -18,12 +18,12 @@
 // for short sequences and narrow heads (the fixtures' S = 16, D = 16) and
 // the tensor cores from S*D/2 ~ 295 FLOP per byte up.
 //
-// What the design does about that: it is flash.cuh's kernel, reading each
-// head's [S, D] slice at head stride S*D and row stride D (contiguous rows,
-// 16-byte cp.async copies) instead of the packed layout's strides: a block
-// per (batch*head, 64-query tile), key/value tiles through a 2-stage
-// cp.async ring, the logits and softmax in registers between the two
-// mma.sync products. No padding of S or D goes through device memory.
+// What the design does about that: it is flash.cuh's kernels, reading each
+// head's [S, D] slice at head stride S*D and row stride D instead of the
+// packed layout's strides. Its main path, the golden fixtures in f32, takes
+// the FMA kernel; bf16 takes the TMA + wgmma kernel where D is a multiple
+// of 8 (TMA views of the same strides), else the mma.sync one. No padding
+// of S or D goes through device memory.
 
 #include "flash.cuh"
 

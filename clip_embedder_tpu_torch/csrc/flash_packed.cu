@@ -18,11 +18,14 @@
 // S*S logits per head (one special-function op each) is a third limit of
 // the same size. Rope adds one read of each [S, H*D] f32 table.
 //
-// What the design does about that: a block per (batch*head, 64-query
-// tile) reads its head's columns straight from the packed layout (column
-// offset h*D, row stride H*D; no transposes); key/value tiles stream
-// through a 2-stage cp.async ring; the logits and the softmax stay in
-// registers between the two mma.sync products (flash.cuh has the details).
+// What the design does about that: a block per (batch*head, up to 192
+// query rows) reads its head's columns straight from the packed layout
+// (column offset h*D, row stride H*D; no transposes) through TMA views of
+// those strides: a producer warp streams key/value tiles into an mbarrier
+// ring, three consumer warpgroups run q.k^T and p.v on wgmma with the
+// logits and the softmax in registers between them, the next tile's q.k^T
+// in flight during the softmax (flash.cuh has the layouts; head dims that
+// are not a multiple of 8 keep the first mma.sync kernel).
 // Rope runs as a pre-pass (`rope_kernel`): one thread per lane pair rotates
 // q and k once into scratch copies, which the attention kernel then reads.
 // The TPU kernel rotates inside the attention kernel because its block holds

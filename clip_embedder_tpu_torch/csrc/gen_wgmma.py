@@ -1,0 +1,99 @@
+"""Write ``wgmma.cuh``: the ``wgmma.mma_async`` shapes the kernels use.
+
+PTX lists every accumulator register of a warpgroup product by name, so
+each shape is its own asm statement; this script writes them out.
+
+    python clip_embedder_tpu_torch/csrc/gen_wgmma.py
+
+* ``WgmmaRS<N, TRANS_B>``: m64nNk16, bf16 in, f32 accumulators, A (64 x 16)
+  in registers (the ``mma.sync`` m16n8k16 A fragment of each warp's 16
+  rows), B (16 x N) in shared memory through a matrix descriptor; N = 8,
+  16, ..., 64 and 128. The attention kernel's p.v (64 or 128 swizzled
+  columns, then the rest of the head dim in 8-column chunks).
+* ``WgmmaSS<N, TRANS_B>``: m64nNk16 with A and B both in shared memory, A
+  K-major; N = 64 (the attention's q.k^T, B K-major) and 128 (the q/k/v
+  projection, B MN-major).
+"""
+
+from pathlib import Path
+
+HEAD = """\
+// Generated by gen_wgmma.py: warpgroup matrix multiplies (sm_90a). Do not edit.
+//
+// WgmmaRS<N, TRANS_B>::run(d, a, desc_b, scale_d): d (64 x N f32, N / 2
+// registers a thread) = a (64 x 16 bf16 in registers) . B (16 x N bf16,
+// shared memory) + (scale_d ? d : 0). TRANS_B = 1: B is MN-major.
+// WgmmaSS<N, TRANS_B>::run(d, desc_a, desc_b, scale_d): the same with A
+// K-major in shared memory.
+#pragma once
+
+#include <cstdint>
+
+namespace clipk {
+
+template <int N, int TRANS_B>
+struct WgmmaRS;
+
+template <int N, int TRANS_B>
+struct WgmmaSS;
+"""
+
+
+def regs(n: int, start: int) -> str:
+    return ", ".join(f"%{start + i}" for i in range(n))
+
+
+def outs(n: int) -> str:
+    lines = (", ".join(f'"+f"(d[{i}])' for i in range(j, min(n, j + 8)))
+             for j in range(0, n, 8))
+    return ",\n          ".join(lines)
+
+
+def rs(n: int) -> str:
+    nd = n // 2
+    a0, desc, scale = nd, nd + 4, nd + 5
+    return f"""
+template <int TRANS_B>
+struct WgmmaRS<{n}, TRANS_B> {{
+  __device__ __forceinline__ static void run(float (&d)[{nd}], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{regs(nd, 0)}}}, {{{regs(4, a0)}}}, %{desc}, p, 1, 1, %{scale + 1};\\n}}\\n"
+        : {outs(nd)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(TRANS_B));
+  }}
+}};
+"""
+
+
+def ss(n: int) -> str:
+    nd = n // 2
+    da, db, scale = nd, nd + 1, nd + 2
+    return f"""
+template <int TRANS_B>
+struct WgmmaSS<{n}, TRANS_B> {{
+  __device__ __forceinline__ static void run(float (&d)[{nd}], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{regs(nd, 0)}}}, %{da}, %{db}, p, 1, 1, 0, %{scale + 1};\\n}}\\n"
+        : {outs(nd)}
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }}
+}};
+"""
+
+
+def main() -> None:
+    body = HEAD + "".join(rs(n) for n in (*range(8, 65, 8), 128)) + "".join(
+        ss(n) for n in (64, 128))
+    body += "\n}  // namespace clipk\n"
+    (Path(__file__).resolve().parent / "wgmma.cuh").write_text(body)
+
+
+if __name__ == "__main__":
+    main()

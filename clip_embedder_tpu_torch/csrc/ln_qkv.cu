@@ -10,30 +10,28 @@
 // a few hundred FLOP per byte: the tensor cores bound it, not memory.
 //
 // What the design does about that: the LayerNorm is a small pass of its own
-// and the products are a plain tiled matrix product, so nothing but loads,
-// ldmatrix and mma sits in the product's loop.
+// and the products are a tiled matrix product fed by TMA.
 // 1. `ln_kernel` normalizes each row in f32 (one warp per row; mean, then the
 //    variance about the mean, eps inside the rsqrt) and writes
 //    x^ = x_hat * gamma + beta rounded once to the activation dtype: one
-//    read and one write of x, about 6% of the product's time at batch 32.
+//    read and one write of x.
 //    The TPU kernel keeps x^ in VMEM; normalizing it inside the product's
 //    K loop instead (an earlier design) redid the normalization once per
 //    column tile, 27 times at W = 1152, on the path of the products.
-// 2. `qkv_gemm_kernel`: the grid is (BN-wide column tiles over the 3W outputs
-//    of q|k|v) x (BM-row tiles), column tiles fastest so that the blocks in
-//    flight share their rows of x^ and the 3W^2 weights stay in L2. K-slabs
-//    of x^ and of the weight go through a kStages-deep cp.async ring with
-//    one barrier per slab. bf16 multiplies on the tensor cores with mma.sync
-//    m16n8k16 (ldmatrix operands, 64 x 64 warp tiles, f32 accumulators in
-//    registers) and writes each output pair straight from the accumulators
-//    with the f32 bias added, rounded once. f32 activations keep full f32
-//    products with FMA, staged through shared memory for the epilogue. The
-//    ragged last row tile is zero-filled and masked, not padded in device
-//    memory.
-// Not yet done: TMA and wgmma, warp specialization, clusters sharing their
-// tiles (TMA multicast), a persistent grid.
+// 2. bf16, widths that are multiples of 128 (every configuration the repo
+//    runs): `tma::qkv_kernel`, warp-specialized, TMA loads through an
+//    mbarrier ring into wgmma, on a persistent grid (the section below says
+//    how).
+// 3. Other widths (multiples of 64) and f32: `qkv_gemm_kernel`, a plain
+//    tiled product: (column tiles over q|k|v) x (row tiles), K-slabs of x^
+//    and the weight through a 4-deep cp.async ring with one barrier per
+//    slab; bf16 on mma.sync m16n8k16 (ldmatrix operands, 64 x 64 warp
+//    tiles), f32 on FMA staged through shared memory for the epilogue.
+// Every route adds the f32 bias to the f32 accumulators and rounds each
+// output once; the ragged last row tile is zero-filled and masked, not
+// padded in device memory.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 using clipk::align128;
 using clipk::bf16;
@@ -42,7 +40,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 4;  // cp.async ring depth (217 KB at the 256 x 128 bf16 tile)
+constexpr int kStages = 4;  // cp.async ring depth
 constexpr int kBK = 64;     // K-slab depth
 
 template <typename T, int BM, int BN>
@@ -61,8 +59,7 @@ template <typename T, int BM, int BN>
 struct Acc;
 
 // bf16: the 8 warps tile the block as 4 (rows) x 2 (columns); a warp owns
-// BM / 4 rows (kMI m16 tiles) and BN / 2 columns (kNJ n8 tiles). At the
-// 256 x 128 tile a warp's 64 x 64 tile takes 8 ldmatrix per 32 mma.
+// BM / 4 rows (kMI m16 tiles) and BN / 2 columns (kNJ n8 tiles).
 template <int BM, int BN>
 struct Acc<bf16, BM, BN> {
   static constexpr int kWM = 4, kWN = kWarps / kWM;
@@ -320,34 +317,226 @@ __global__ void __launch_bounds__(kThreads, 1)
   acc.finish(out, bias, row0, col0, rows, width, cs);
 }
 
+// -- bf16, widths that are multiples of 128: TMA + wgmma ------------------------
+//
+// A 256 x 128 output tile per block of three warpgroups, on a persistent
+// grid (one block per SM, each walking tiles columns-fastest, so that the
+// tiles in flight share their rows of x^ and the weights stay in L2).
+// Warpgroup 2 is the producer: one thread keeps TMA loads of the K-slabs in
+// flight through a kStages-deep ring (full/empty mbarriers), running ahead
+// into the next tile while the consumers write one: the x^ slab [256 rows x
+// 64] with the 128-byte swizzle, K-major, and the weight slab [64 x 128] as
+// two [64 x 64] boxes, swizzled, MN-major (the weights are [in, out]
+// row-major: wgmma reads them transposed, no copy). Warpgroups 0 and 1 each
+// own 128 rows: per K-slab 2 x 4 wgmma m64n128k16 from shared memory into
+// 128 f32 registers a thread, one group kept in flight, the slab released
+// when the group before it completes. The epilogue adds the f32 bias, rounds
+// once and stores bf16 pairs straight from the accumulators.
+
+namespace tma {
+
+using clipk::hopper::desc;
+using clipk::hopper::kSwizzle128;
+
+constexpr int kBM = 256, kBN = 128, kBK = 64;
+constexpr int kStages = 4;
+constexpr int kThreads = 384;
+constexpr uint32_t kABytes = kBM * kBK * 2;  // 32 KB
+constexpr uint32_t kBBytes = kBK * kBN * 2;  // 16 KB
+constexpr size_t kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kThreads, 1)
+    qkv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wqmap,
+               const __grid_constant__ CUtensorMap wkmap, const __grid_constant__ CUtensorMap wvmap,
+               const float* __restrict__ bq, const float* __restrict__ bk,
+               const float* __restrict__ bv, bf16* __restrict__ q, bf16* __restrict__ k,
+               bf16* __restrict__ v, int rows, int width) {
+  namespace hp = clipk::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on such a boundary
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* as = smem;                       // [kStages][256][64] bf16, swizzled
+  unsigned char* bs = smem + kStages * kABytes;   // [kStages][2][64][64] bf16, swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tiles_per_mat = width / kBN;
+  const int n_col = 3 * tiles_per_mat;
+  const int n_tiles = n_col * ((rows + kBM - 1) / kBM);
+  const int slabs = width / kBK;
+  const int wg = threadIdx.x / 128;
+  // tile -> (matrix, first column, first row): columns fastest
+  auto tile_at = [&](int tile, int& mat, int& col0, int& row0) {
+    const int c = tile % n_col;
+    mat = c / tiles_per_mat;
+    col0 = (c % tiles_per_mat) * kBN;
+    row0 = tile / n_col * kBM;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    hp::regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      hp::prefetch_map(&xmap);
+      hp::prefetch_map(&wqmap);
+      hp::prefetch_map(&wkmap);
+      hp::prefetch_map(&wvmap);
+      int it = 0;  // slabs issued so far, over every tile of this block
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int mat, col0, row0;
+        tile_at(tile, mat, col0, row0);
+        const CUtensorMap* wmap = mat == 0 ? &wqmap : (mat == 1 ? &wkmap : &wvmap);
+        for (int s = 0; s < slabs; ++s, ++it) {
+          const int st = it % kStages;
+          if (it >= kStages) hp::mbar_wait(&empty[st], ((it / kStages) - 1) & 1);
+          hp::mbar_expect_tx(&full[st], kABytes + kBBytes);
+          hp::tma_load_2d(as + st * kABytes, &xmap, &full[st], s * kBK, row0);
+          hp::tma_load_2d(bs + st * kBBytes, wmap, &full[st], col0, s * kBK);
+          hp::tma_load_2d(bs + st * kBBytes + kBBytes / 2, wmap, &full[st], col0 + 64,
+                          s * kBK);
+        }
+      }
+    }
+  } else {  // consumers: rows wg * 128 + [0, 128) of each tile
+    hp::regs_alloc<232>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4, t = lane % 4;
+    float acc[2][64];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int mat, col0, row0;
+      tile_at(tile, mat, col0, row0);
+      for (int s = 0; s < slabs; ++s, ++it) {
+        const int st = it % kStages;
+        hp::mbar_wait(&full[st], (it / kStages) & 1);
+        const unsigned char* a = as + st * kABytes + wg * 128 * 128;
+        const unsigned char* b = bs + st * kBBytes;
+        hp::fence_regs(acc[0]);
+        hp::fence_regs(acc[1]);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // B: rows kk*16.. of the slab (2048 bytes on), the 64-column boxes 8 KB apart
+          const uint64_t db = desc(b + kk * 2048, 8192, 1024, kSwizzle128);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)  // A: 64 rows (8 KB) on, 16 columns (32 bytes) on
+            clipk::WgmmaSS<128, 1>::run(acc[mi],
+                                        desc(a + mi * 8192 + kk * 32, 16, 1024, kSwizzle128),
+                                        db, s > 0 || kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::fence_regs(acc[0]);
+        hp::fence_regs(acc[1]);
+        hp::wgmma_wait<1>();  // the previous slab's products are done: free its stage
+        if (s > 0 && threadIdx.x % 128 == 0) hp::mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc[0]);
+      hp::fence_regs(acc[1]);
+      if (threadIdx.x % 128 == 0) hp::mbar_arrive(&empty[(it - 1) % kStages]);
+
+      const float* bias = mat == 0 ? bq : (mat == 1 ? bk : bv);
+      bf16* out = mat == 0 ? q : (mat == 1 ? k : v);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = col0 + j * 8 + 2 * t;
+        const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = row0 + wg * 128 + mi * 64 + warp * 16 + g + half * 8;
+            if (row < rows)
+              *reinterpret_cast<uint32_t*>(out + (size_t)row * width + col) =
+                  clipk::pack_bf16(__float2bfloat16(acc[mi][4 * j + 2 * half] + b0),
+                                   __float2bfloat16(acc[mi][4 * j + 2 * half + 1] + b1));
+          }
+      }
+    }
+  }
+}
+
+// xn: [rows, width] bf16; the weights [width, width] bf16 row-major.
+int launch(const void* xn, const void* wq, const void* wk, const void* wv, const void* bq,
+           const void* bk, const void* bv, void* q, void* k, void* v, int rows, int width,
+           cudaStream_t stream) {
+  CUtensorMap xmap, wmaps[3];
+  const cuuint64_t xdims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t wdims[2] = {(cuuint64_t)width, (cuuint64_t)width};
+  const cuuint64_t stride[1] = {(cuuint64_t)width * 2};
+  const cuuint32_t xbox[2] = {kBK, kBM}, wbox[2] = {64, kBK};
+  if (!clipk::hopper::bf16_map(&xmap, xn, 2, xdims, stride, xbox, true))
+    return (int)cudaErrorInvalidValue;
+  const void* ws[3] = {wq, wk, wv};
+  for (int i = 0; i < 3; ++i)
+    if (!clipk::hopper::bf16_map(&wmaps[i], ws[i], 2, wdims, stride, wbox, true))
+      return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int tiles = 3 * (width / kBN) * ((rows + kBM - 1) / kBM);
+  qkv_kernel<<<tiles < sms ? tiles : sms, kThreads, kSmem, stream>>>(
+      xmap, wmaps[0], wmaps[1], wmaps[2], static_cast<const float*>(bq),
+      static_cast<const float*>(bk), static_cast<const float*>(bv), static_cast<bf16*>(q),
+      static_cast<bf16*>(k), static_cast<bf16*>(v), rows, width);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tma
+
+template <typename T>
+int launch_ln(const void* x, void* xn, const void* gamma, const void* beta, int rows, int width,
+              float eps, cudaStream_t stream) {
+  ln_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(xn), rows, width, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int BM, int BN>
 int launch(const void* x, void* xn, const void* gamma, const void* beta, const void* wq,
            const void* wk, const void* wv, const void* bq, const void* bk, const void* bv,
            void* q, void* k, void* v, int rows, int width, float eps, cudaStream_t stream) {
-  ln_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<T*>(xn), rows, width, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = (cudaError_t)launch_ln<T>(x, xn, gamma, beta, rows, width, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  using L = Layout<T, BM, BN>;
-  auto kern = qkv_gemm_kernel<T, BM, BN>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(3 * (width / BN), (rows + BM - 1) / BM);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(xn), static_cast<const T*>(wq), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), static_cast<const float*>(bq), static_cast<const float*>(bk),
-      static_cast<const float*>(bv), static_cast<T*>(q), static_cast<T*>(k), static_cast<T*>(v),
-      rows, width);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value && BM == tma::kBM && BN == tma::kBN) {
+    return tma::launch(xn, wq, wk, wv, bq, bk, bv, q, k, v, rows, width, stream);
+  } else {
+    using L = Layout<T, BM, BN>;
+    auto kern = qkv_gemm_kernel<T, BM, BN>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(3 * (width / BN), (rows + BM - 1) / BM);
+    kern<<<grid, kThreads, L::kBytes, stream>>>(
+        static_cast<const T*>(xn), static_cast<const T*>(wq), static_cast<const T*>(wk),
+        static_cast<const T*>(wv), static_cast<const float*>(bq), static_cast<const float*>(bk),
+        static_cast<const float*>(bv), static_cast<T*>(q), static_cast<T*>(k),
+        static_cast<T*>(v), rows, width);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Tiles (bm, bn): bf16 (256, 128) or
-// (64, 64), f32 (64, 64); width % bn == 0. xn: scratch shaped like x, for
-// the normalized rows. gamma and beta 16-byte aligned. Returns
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. Tiles (bm, bn): bf16 (256, 128), the
+// TMA + wgmma kernel (x, xn and the weights 16-byte aligned), or (64, 64),
+// the mma.sync one; f32 (64, 64). width % bn == 0. xn:
+// scratch shaped like x, for the normalized rows. gamma and beta 16-byte
+// aligned. Returns cudaGetLastError().
 extern "C" int ln_qkv_launch(const void* x, void* xn, const void* gamma, const void* beta,
                              const void* wq, const void* wk, const void* wv, const void* bq,
                              const void* bk, const void* bv, void* q, void* k, void* v,

@@ -98,6 +98,25 @@ def library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def kernel(stem: str, name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of ``csrc/<stem>.cu``, its signature (``argtypes``,
+    an int cudaError returned) set once, when it is first fetched after the
+    library loads: a launch then costs a dict lookup, not a re-declaration."""
+    fn = _entries.get((stem, name))
+    if fn is None:
+        fn = getattr(library(stem), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _entries[(stem, name)] = fn
+    return fn
+
+
+VOID_P, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 

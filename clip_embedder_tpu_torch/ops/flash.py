@@ -30,12 +30,12 @@ packed kernel and raise; ``flash_attention`` hands them, and
 cross-attention, to ``attention_core``, as the JAX kernel does.
 
 The wrappers launch the CUDA kernels for tensors on the card and run the
-``*_plain`` versions for tensors on the CPU.
+``*_plain`` versions for tensors on the CPU. On the card the head dim and
+dtype pick the kernel (``kernel_route``): bf16 with D a multiple of 8 the
+TMA + wgmma kernel, other bf16 head dims the mma.sync one, f32 the FMA one.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -52,6 +52,27 @@ def head_group(num_heads: int, d: int) -> int | None:
         if num_heads % g == 0 and (g * d) % 128 == 0:
             return g
     return None
+
+
+def kernel_route(d: int, dtype: torch.dtype) -> str | None:
+    """Which kernel of ``csrc/flash.cuh`` runs head dim ``d`` in ``dtype``
+    (its ``launch`` gate, by shape): ``"fma_f32"`` for f32; for bf16
+    ``"tma_wgmma"`` where d is a multiple of 8 (TMA moves 16-byte rows),
+    else ``"mma_sync"``; None for what no kernel takes (d outside 1..128, or
+    another dtype)."""
+    if not 1 <= d <= MAX_HEAD_DIM or dtype not in cuda.DTYPE_CODES:
+        return None
+    if dtype == torch.float32:
+        return "fma_f32"
+    return "tma_wgmma" if d % 8 == 0 else "mma_sync"
+
+
+def _tma_operands(d: int, dtype: torch.dtype, *ts):
+    """The operands as the TMA kernel reads them: 16-byte aligned (a view
+    that starts mid-allocation is copied)."""
+    if kernel_route(d, dtype) != "tma_wgmma":
+        return ts
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
 def fits_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,12 +195,11 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    q, k, v = _tma_operands(d, q.dtype, q, k, v)
     # rope: the kernel's pre-pass writes the rotated q and k here
     qr, kr = (torch.empty_like(q), torch.empty_like(k)) if tables is not None else (None, None)
-    fn = cuda.library("flash_packed").flash_packed_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cuda.kernel("flash_packed", "flash_packed_launch", (cuda.VOID_P,) * 9 + (cuda.INT,) * 4
+                     + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
     code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(sin),
               cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d,
               float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), int(d % 128 != 0),
@@ -240,14 +260,12 @@ def flash_attention(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.
         if t is not None and t.device != q.device:
             raise ValueError(f"flash_attention: operands must be on {q.device}")
     # the heads split off the [B, S, H·D] projections arrive as strided views
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = _tma_operands(d, q.dtype, *(t.contiguous() for t in (q, k, v)))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = cuda.library("flash_bhsd").flash_bhsd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = cuda.kernel("flash_bhsd", "flash_bhsd_launch", (cuda.VOID_P,) * 5 + (cuda.INT,) * 4
+                     + (cuda.FLOAT,) + (cuda.INT,) * 3 + (cuda.VOID_P,))
     code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out), b, h, s, d,
               float(1.0 / d ** 0.5), int(fast_softmax), int(d % 128 != 0),
               cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))

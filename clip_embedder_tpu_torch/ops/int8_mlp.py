@@ -31,8 +31,6 @@ the JAX package does there. The TPU's VMEM budgets are dropped, except the
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -269,11 +267,9 @@ def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
     h = torch.empty(rows, hidden, dtype=torch.float32, device=dev)   # act(fc1), f32
     hq = torch.empty(rows, hidden, dtype=torch.int8, device=dev)
     hs = torch.empty(rows, slabs, dtype=torch.float32, device=dev)   # requant scales
-    fn = getattr(cuda.library(what), f"{what}_launch")
     extra = () if chunk is None else (chunk,)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * (4 + len(extra)) \
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cuda.kernel(what, f"{what}_launch", (cuda.VOID_P,) * 15 + (cuda.INT,) * (4 + len(extra))
+                     + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
     code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
               cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
               cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
@@ -346,9 +342,8 @@ def int8_linear_fused(params, x: torch.Tensor, *,
         return out
     xq = torch.empty(rows, k_in, dtype=torch.int8, device=x.device)
     xs = torch.empty(rows, dtype=torch.float32, device=x.device)
-    fn = cuda.library("int8_linear").int8_linear_fused_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cuda.kernel("int8_linear", "int8_linear_fused_launch",
+                     (cuda.VOID_P,) * 8 + (cuda.INT,) * 4 + (cuda.VOID_P,))
     code = fn(cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
               cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out,
               cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))

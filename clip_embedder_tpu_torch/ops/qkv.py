@@ -21,8 +21,6 @@ same functions in plain PyTorch. Used by
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda
@@ -34,7 +32,9 @@ from .quant import int_matmul
 def tile_config(width: int, dtype: torch.dtype) -> tuple[int, int] | None:
     """(rows, columns) of the kernel's block tile for this width (the tiles
     ln_qkv.cu instantiates), or None when the kernel does not take it:
-    f32 or bf16, and a width that is a multiple of 64."""
+    f32 or bf16, and a width that is a multiple of 64. bf16 widths that are
+    multiples of 128 take the TMA + wgmma product's 256 x 128 tile, the
+    others the 64 x 64 mma.sync (bf16) or FMA (f32) one."""
     if width % 64 or dtype not in cuda.DTYPE_CODES:
         return None
     if dtype == torch.bfloat16 and width % 128 == 0:
@@ -109,10 +109,8 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     if rows == 0:
         return tuple(outs)
     xn = torch.empty_like(x)  # the normalized rows, rounded to x's dtype
-    fn = cuda.library("ln_qkv").ln_qkv_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_float] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = cuda.kernel("ln_qkv", "ln_qkv_launch", (cuda.VOID_P,) * 13 + (cuda.INT,) * 2
+                     + (cuda.FLOAT,) + (cuda.INT,) * 3 + (cuda.VOID_P,))
     code = fn(cuda.ptr(x), cuda.ptr(xn), cuda.ptr(gamma), cuda.ptr(beta),
               *(cuda.ptr(w) for w in ws), *(cuda.ptr(b) for b in bs),
               *(cuda.ptr(o) for o in outs), rows, width, float(eps),
@@ -180,10 +178,8 @@ def ln_qkv_int8(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
         return tuple(outs)
     xq = torch.empty(rows, width, dtype=torch.int8, device=x.device)
     xs = torch.empty(rows, dtype=torch.float32, device=x.device)
-    fn = cuda.library("ln_qkv_int8").ln_qkv_int8_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2 + [ctypes.c_float] \
-        + [ctypes.c_int] + [ctypes.c_void_p]
+    fn = cuda.kernel("ln_qkv_int8", "ln_qkv_int8_launch", (cuda.VOID_P,) * 17
+                     + (cuda.INT,) * 2 + (cuda.FLOAT,) + (cuda.INT,) + (cuda.VOID_P,))
     code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
               *(cuda.ptr(w) for w, _, _ in ops), *(cuda.ptr(s) for _, s, _ in ops),
               *(cuda.ptr(b) for _, _, b in ops), *(cuda.ptr(o) for o in outs),

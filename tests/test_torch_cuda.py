@@ -70,6 +70,21 @@ def test_ln_qkv_kernel_matches_plain(dev, rows, width, dtype):
             torch.testing.assert_close(g, r, atol=1e-2, rtol=2 ** -7)
 
 
+@pytest.mark.parametrize("rows,width", [(1, 128), (300, 128), (2 * 61, 768), (257, 1024),
+                                        (3 * 77, 1280), (2 * 257, 1536)])
+def test_ln_qkv_tma_kernel_widths(dev, rows, width):
+    """The TMA + wgmma product (bf16, widths that are multiples of 128) at
+    the repo's widths, row counts not a multiple of its 256-row tile. (1,
+    128) is one tile per weight: x^ through the swizzled K-major
+    descriptor, the weights through the swizzled MN-major one."""
+    assert qkv.tile_config(width, torch.bfloat16) == (256, 128)
+    params, pre_ln, x = _qkv_inputs(rows, width, torch.bfloat16, dev, seed=rows)
+    got = qkv.ln_qkv(params, pre_ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    for g, r in zip(got, qkv.ln_qkv_plain(params, pre_ln, x, eps=1e-6)):
+        torch.testing.assert_close(g.float(), r.float(), atol=1e-2, rtol=2 ** -7)
+
+
 @pytest.mark.parametrize("b,h,s,d", [(2, 16, 61, 72), (2, 8, 64, 64), (1, 16, 33, 8),
                                      (1, 4, 130, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -99,6 +114,60 @@ def test_flash_kernel_causal_mask(dev, dtype):
     ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, mask=mask)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _packed(b, h, s, d, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32)).to(dev, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,s,d,causal", [
+    (2, 16, 576, 72, False), (2, 16, 577, 72, False),    # SO400M vision, and ragged
+    (3, 16, 64, 72, False), (3, 16, 64, 72, True),       # SigLIP text, with and without the mask
+    (2, 20, 72, 64, True),                               # PE-Core text
+    (2, 4, 130, 80, False), (2, 16, 200, 96, False), (1, 8, 300, 128, True)])
+@pytest.mark.parametrize("mode", ["exact", "fast", "fast_bf16exp"])
+def test_flash_tma_kernel_main_path_shapes(dev, b, h, s, d, causal, mode):
+    """The TMA + wgmma kernel (bf16, D a multiple of 8) at the towers' head
+    layouts and sequence lengths, every softmax mode."""
+    assert flash.kernel_route(d, torch.bfloat16) == "tma_wgmma"
+    q, k, v = _packed(b, h, s, d, torch.bfloat16, dev, seed=13)
+    kw = {"fast_softmax": mode != "exact", "exp_bf16": mode == "fast_bf16exp",
+          "mask": causal_mask(s, device=dev) if causal else None}
+    before = flash.flash_attention_packed.launches
+    got = flash.flash_attention_packed(q, k, v, num_heads=h, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_packed.launches == before + 1
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 56, 64, 72, 128])
+def test_flash_tma_kernel_one_tile_layouts(dev, d):
+    """One head, one 64-key tile, each layout alone and together: below 64
+    columns K and V come in 8-column chunks (q.k^T's K-major and p.v's
+    MN-major no-swizzle descriptors; d = 8 and 24 pad the depth with a zero
+    chunk); d = 64 takes one swizzled block (both swizzled descriptors), 72
+    one block and a chunk, 128 two blocks. Keys 0..63 carry distinct values,
+    so a descriptor that reads the wrong core matrix moves the output."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, d)).astype(np.float32) * 2)
+               .to(dev, torch.bfloat16) for _ in range(3))
+    got = flash.flash_attention_packed(q, k, v, num_heads=1)
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=1)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [36, 60, 100, 127])
+def test_flash_mma_sync_kernel_takes_other_head_dims(dev, d):
+    """Head dims that are not a multiple of 8 (rows TMA cannot move) keep
+    the mma.sync kernel."""
+    assert flash.kernel_route(d, torch.bfloat16) == "mma_sync"
+    q, k, v = _packed(2, 2, 77, d, torch.bfloat16, dev, seed=14)
+    got = flash.flash_attention_packed(q, k, v, num_heads=2)
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=2)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_flash_kernel_refuses_per_batch_mask(dev):

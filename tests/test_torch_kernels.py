@@ -139,6 +139,26 @@ def test_kernel_gates():
     assert not flash.fits_packed(*(torch.zeros(1, 5, 2 * 160),) * 3, 2)  # D > 128
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_width_and_head_dim_keeps_a_kernel_route(dtype):
+    """Every width ln_qkv's kernel took (each multiple of 64) keeps a tile:
+    bf16 multiples of 128 the TMA + wgmma one, the rest the 64 x 64 one; and
+    every head dim the packed wrapper accepts (1..128) has a kernel in
+    flash.cuh: bf16 multiples of 8 the TMA + wgmma one, other bf16 head dims
+    the mma.sync one, f32 the FMA one."""
+    for width in range(64, 8193, 64):
+        tma = dtype == torch.bfloat16 and width % 128 == 0
+        assert qkv.tile_config(width, dtype) == ((256, 128) if tma else (64, 64))
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        t = torch.zeros(1, 3, 2 * d, dtype=dtype)
+        assert flash.fits_packed(t, t, t, 2)
+        want = ("fma_f32" if dtype == torch.float32 else
+                "tma_wgmma" if d % 8 == 0 else "mma_sync")
+        assert flash.kernel_route(d, dtype) == want
+    assert flash.kernel_route(flash.MAX_HEAD_DIM + 1, dtype) is None
+    assert flash.kernel_route(64, torch.float16) is None
+
+
 @pytest.mark.parametrize("impl", ["kernel", "kernel_fast"])
 @pytest.mark.parametrize("width,heads", [(64, 4), (128, 2)], ids=["4x16", "2x64"])
 def test_mha_kernel_impl_dispatches_to_both_kernels(impl, width, heads, monkeypatch):
