@@ -6,12 +6,15 @@ card, in phases, and fail loudly if any phase fails.
 
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
-2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a;
+2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a; for
+   the int8 sources, ptxas's wgmma-serialization warnings and the int8
+   wgmma (IGMMA) instructions in their SASS (none fails kernels 4 and 7);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes (max error beside the tolerance), and its time (CUDA
    events, median of 20) beside the plain version's, one PyTorch library
    call's or, for the int8 kernels, a composition of PyTorch ops around
-   ``torch._int_mm`` (a yardstick the port never calls) and the bound: the
+   ``torch._int_mm`` (a yardstick the port never calls) and the bound, and
+   for kernels 4 and 7 their device time by launch: the
    packed attention kernel also with PE-Core's rope, the [B, H, S, D]
    attention kernel at the fixtures' and at SO400M's head layout, the
    streamed int8 MLP at PE-Core-bigG's;
@@ -489,12 +492,10 @@ def _lib_row_quant(x32):
     return torch.round(x32 / xs).clamp_(-127, 127).to(torch.int8), xs
 
 
-def _col_major(w):
-    return w.t().contiguous().t()
-
-
 def int8_linear_library(p, w_cm, x, residual):
-    """Row quant, torch._int_mm (cuBLASLt) and the epilogue as PyTorch ops."""
+    """Row quant, torch._int_mm (cuBLASLt) and the epilogue as PyTorch ops.
+    The weights go in as stored: K-major, which cuBLASLt reads as a
+    column-major [K, N] operand."""
     xq, xs = _lib_row_quant(x.float())
     y = torch._int_mm(xq, w_cm).float() * (xs * p["w_scale"]) + p["b"].float()
     return (y + residual.float()).to(x.dtype)
@@ -568,11 +569,12 @@ def phase_int8_kernels(dev, peaks) -> dict:
             [int8_mlp.int8_linear_fused(qp["q"], x, residual=r)],
             [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype),
     }
-    w1_cm, w2_cm = _col_major(p["fc"]["w_q"]), _col_major(p["proj"]["w_q"])
-    wqkv_cm = _col_major(torch.cat([qp[n]["w_q"] for n in "qkv"], dim=1))
+    w1_cm, w2_cm = p["fc"]["w_q"], p["proj"]["w_q"]
+    # the three stored [out, in] weights stacked into one [3W, W], seen as [W, 3W]
+    wqkv_cm = torch.cat([qp[n]["w_q"].t() for n in "qkv"]).t()
     s_cat = torch.cat([qp[n]["w_scale"] for n in "qkv"])
     b_cat = torch.cat([qp[n]["b"].float() for n in "qkv"])
-    wq_cm = _col_major(qp["q"]["w_q"])
+    wq_cm = qp["q"]["w_q"]
     calls = {
         "int8_mlp": (lambda: int8_mlp.int8_mlp(p, x, **kw),
                      lambda: int8_mlp.int8_mlp_plain(p, x, **kw),
@@ -607,12 +609,36 @@ def phase_int8_kernels(dev, peaks) -> dict:
         bound = max(t_ops, t_bytes) * 1e3
         say(f"  {name}: {t_k:.4f} ms; plain {t_p:.4f} ms; library {t_l:.4f} ms; bound "
             f"{bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B)")
+        if name == "int8_mlp":
+            launch_breakdown(name, kern)
         src, tpu = sources[name]
         out[name] = {"name": name, "route": "cuda",
                      "source": f"clip_embedder_tpu_torch/csrc/{src}", "replaces": tpu,
                      "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
                      "library_ms": t_l}
+    return out
+
+
+def launch_breakdown(label, fn, calls: int = 5) -> dict:
+    """Device ms of each kernel that one call of ``fn`` launches (the mean
+    over ``calls`` calls under torch.profiler), by kernel name: where a
+    wrapper's time goes among its row passes and products."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = us / 1e3 / calls
+    parts = "; ".join(f"{k[:72]} {v:.4f}" for k, v in sorted(out.items(), key=lambda kv: -kv[1]))
+    say(f"  {label} by launch (device ms a call, torch.profiler, mean of {calls}): {parts}")
     return out
 
 
@@ -654,8 +680,8 @@ def phase_streamed_mlp_kernel(dev, peaks) -> dict:
     err = hold_int8("int8_mlp_streamed rows=32x1025 bf16",
                     [int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw)],
                     [int8_mlp.int8_mlp_streamed_plain(p, x, pre_ln=ln, **kw)], torch.bfloat16)
-    w1_cm = _col_major(p["fc"]["w_q"])
-    w2_slabs = [_col_major(p["proj"]["w_q"][j:j + chunk]) for j in range(0, hidden, chunk)]
+    w1_cm = p["fc"]["w_q"]
+    w2_slabs = [p["proj"]["w_q"][j:j + chunk] for j in range(0, hidden, chunk)]
     t_k = cuda_ms(lambda: int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw))
     t_p = cuda_ms(lambda: int8_mlp.int8_mlp_streamed_plain(p, x, pre_ln=ln, **kw), iters=5)
     t_l = cuda_ms(lambda: int8_mlp_streamed_library(p, w1_cm, w2_slabs, ln, x, eps, chunk))
@@ -665,6 +691,8 @@ def phase_streamed_mlp_kernel(dev, peaks) -> dict:
     bound = max(t_ops, t_bytes) * 1e3
     say(f"  int8_mlp_streamed: {t_k:.4f} ms; plain {t_p:.4f} ms (median of 5); library "
         f"{t_l:.4f} ms; bound {bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B)")
+    launch_breakdown("int8_mlp_streamed",
+                     lambda: int8_mlp.int8_mlp_streamed(p, x, pre_ln=ln, **kw))
     return {"int8_mlp_streamed": {
         "name": "int8_mlp_streamed", "route": "cuda",
         "source": "clip_embedder_tpu_torch/csrc/int8_mlp_streamed.cu",
@@ -822,7 +850,7 @@ def kernel_group(name: str) -> str:
     n = name.lower()
     if "i8::row_quant_kernel" in n:
         return "int8 row passes (LayerNorm + quantization)"
-    if "i8::gemm_kernel" in n:
+    if "i8::gemm_kernel" in n or "i8w::gemm_kernel" in n:
         return "int8 products (with their epilogues)"
     if "qkv_gemm_kernel" in n or "qkv_kernel" in n or "ln_kernel<" in n:
         return "ln_qkv"
@@ -1202,6 +1230,45 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     return out
 
 
+# the int8 sources, and those whose products run on the s8 TMA + wgmma kernel
+INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
+INT8_WGMMA_SOURCES = ("int8_mlp", "int8_mlp_streamed")
+
+
+def int8_sass_report(libs) -> None:
+    """Per int8 source: the ptxas warnings that say it serialized wgmma
+    (C7512-C7514 in the build log) and the count of IGMMA (int8 wgmma)
+    instructions in the built library's SASS (``cuobjdump -sass``). Fails if
+    a source whose products run on wgmma has none, and if the build log or
+    ``cuobjdump`` (beside nvcc, on PATH or in $CUDA_HOME/bin) is missing, so
+    that the check never passes without looking."""
+    import os
+    import re
+    import shutil
+
+    from clip_embedder_tpu_torch.ops import cuda as kernels
+
+    cands = (Path(kernels.find_nvcc()).with_name("cuobjdump"), shutil.which("cuobjdump"),
+             Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    cuobjdump = next((Path(c) for c in cands if c and Path(c).is_file()), None)
+    if cuobjdump is None:
+        raise FileNotFoundError("cuobjdump not found (beside nvcc, PATH, $CUDA_HOME/bin): "
+                                "the int8 SASS check cannot run")
+    for stem in INT8_SOURCES:
+        path = libs[stem]
+        log = path.with_suffix(".log")
+        if not log.is_file():
+            raise FileNotFoundError(f"{stem}: no build log {log}")
+        serial = sorted(set(re.findall(r"C751[234]", log.read_text())))
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        igmma = sum("IGMMA" in line for line in sass.splitlines())
+        say(f"  {stem}: ptxas wgmma serialization warnings {serial or 'none'}; IGMMA "
+            f"instructions in SASS: {igmma}")
+        if stem in INT8_WGMMA_SOURCES and igmma == 0:
+            raise AssertionError(f"{stem}: no int8 wgmma (IGMMA) in the built library")
+
+
 def main() -> int:
     say("[1] environment")
     if not torch.cuda.is_available():
@@ -1233,6 +1300,7 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line:
                 say(f"  {stem}: {line.strip()}")
+    int8_sass_report(libs)
 
     record = phase_kernels(dev, peaks)
     pe_attn = phase_pe_attention_kernels(dev, peaks)

@@ -13,6 +13,9 @@ each shape is its own asm statement; this script writes them out.
 * ``WgmmaSS<N, TRANS_B>``: m64nNk16 with A and B both in shared memory, A
   K-major; N = 64 (the attention's q.k^T, B K-major) and 128 (the q/k/v
   projection, B MN-major).
+* ``WgmmaS8<N>``: m64nNk32, s8 x s8 -> s32 accumulators (N / 2 registers a
+  thread), A and B both K-major in shared memory (the integer forms have no
+  transpose); N = 128 (the int8 MLPs' products, ``int8_wgmma.cuh``).
 """
 
 from pathlib import Path
@@ -25,6 +28,8 @@ HEAD = """\
 // shared memory) + (scale_d ? d : 0). TRANS_B = 1: B is MN-major.
 // WgmmaSS<N, TRANS_B>::run(d, desc_a, desc_b, scale_d): the same with A
 // K-major in shared memory.
+// WgmmaS8<N>::run(d, desc_a, desc_b, scale_d): d (64 x N s32) = A (64 x 32
+// s8) . B (32 x N s8) + (scale_d ? d : 0), A and B K-major in shared memory.
 #pragma once
 
 #include <cstdint>
@@ -36,6 +41,9 @@ struct WgmmaRS;
 
 template <int N, int TRANS_B>
 struct WgmmaSS;
+
+template <int N>
+struct WgmmaS8;
 """
 
 
@@ -43,8 +51,8 @@ def regs(n: int, start: int) -> str:
     return ", ".join(f"%{start + i}" for i in range(n))
 
 
-def outs(n: int) -> str:
-    lines = (", ".join(f'"+f"(d[{i}])' for i in range(j, min(n, j + 8)))
+def outs(n: int, kind: str = "f") -> str:
+    lines = (", ".join(f'"+{kind}"(d[{i}])' for i in range(j, min(n, j + 8)))
              for j in range(0, n, 8))
     return ",\n          ".join(lines)
 
@@ -88,9 +96,28 @@ struct WgmmaSS<{n}, TRANS_B> {{
 """
 
 
+def s8(n: int) -> str:
+    nd = n // 2
+    da, db, scale = nd, nd + 1, nd + 2
+    return f"""
+template <>
+struct WgmmaS8<{n}> {{
+  __device__ __forceinline__ static void run(int (&d)[{nd}], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 "
+        "{{{regs(nd, 0)}}}, %{da}, %{db}, p;\\n}}\\n"
+        : {outs(nd, "r")}
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }}
+}};
+"""
+
+
 def main() -> None:
     body = HEAD + "".join(rs(n) for n in (*range(8, 65, 8), 128)) + "".join(
-        ss(n) for n in (64, 128))
+        ss(n) for n in (64, 128)) + s8(128)
     body += "\n}  // namespace clipk\n"
     (Path(__file__).resolve().parent / "wgmma.cuh").write_text(body)
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (ln_qkv.cu, flash.cuh): mbarriers, TMA tensor loads and their host-side
+// (ln_qkv.cu, flash.cuh, int8_wgmma.cuh): mbarriers, TMA tensor loads and their host-side
 // descriptors, warpgroup matrix-multiply descriptors and fences, register
 // hand-over between warpgroups.
 #pragma once
@@ -133,6 +133,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -152,9 +158,13 @@ __device__ __forceinline__ void regs_alloc() {
 }
 
 // Named barrier over `threads` threads (a multiple of 32), id 1..15 (0 is
-// __syncthreads').
+// __syncthreads'). named_arrive counts the caller's warps in without waiting.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // -- host: tensor maps -------------------------------------------------------
@@ -181,19 +191,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (dims[0] contiguous; strides in bytes for
-// dims 1..rank-1, any order), loaded in boxes of `box`; elements outside
-// the dims read as zero. Returns false if the driver refuses it.
-inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128) {
+// A tensor map of `rank` dims of `type` (dims[0] contiguous; strides in
+// bytes for dims 1..rank-1, any order), loaded in boxes of `box`; elements
+// outside the dims read as zero. Returns false if the driver refuses it.
+inline bool tiled_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      bool swizzle128) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return enc(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                   swizzle128);
 }
 
 }  // namespace hopper

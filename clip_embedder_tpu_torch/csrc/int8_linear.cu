@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel clip_embedder_tpu/ops/int8_mlp.py `int8_linear_fused`
 // (`_linear_kernel`, `_linear_res_kernel`):
-//   x -> per-row int8 quantization -> int8 product with the [in, out] int8
-//   weight -> acc * (xs * s) + b [+ residual] in f32 -> one rounding to x's type.
+//   x -> per-row int8 quantization -> int8 product with the int8 weight
+//   (stored K-major, [out, in]) -> acc * (xs * s) + b [+ residual] in f32 ->
+//   one rounding to x's type.
 // Used for the attention out-projection with its residual and the map-pool
 // k/v projections under quantize="int8_all".
 //
@@ -15,12 +16,13 @@
 //
 // What the design does about that: the row pass (int8.cuh `row_quant_kernel`)
 // reads x once and writes its int8 codes (half of x's bf16 bytes) and one f32
-// scale per row; the product (`gemm_kernel`) reads the codes and the weight
-// through a cp.async ring and adds the bias and the residual in its epilogue,
-// so the output is written once and no f32 intermediate reaches memory. The
-// TPU kernel quantizes the row tile in VMEM instead; here the codes make one
-// round trip (an extra rows * 1152 * 2 bytes) so that the product stays a
-// plain tiled loop. Not yet done: TMA, wgmma, and quantizing inside the
+// scale per row; the product (`gemm_kernel`, mma.sync) reads the codes and
+// the K-major weight through a cp.async ring and adds the bias and the
+// residual in its epilogue, so the output is written once and no f32
+// intermediate reaches memory. The TPU kernel quantizes the row tile in
+// VMEM instead; here the codes make one round trip (an extra rows * 1152 * 2
+// bytes) so that the product stays a plain tiled loop. Not yet done: the
+// s8 TMA + wgmma product of int8_wgmma.cuh, and quantizing inside the
 // product's prologue.
 
 #include "int8.cuh"
@@ -32,18 +34,19 @@ namespace {
 template <typename T>
 int run(const void* x, void* xq, void* xs, const void* w, const void* s, const void* b,
         const void* res, void* out, int rows, int k_in, int k_out, cudaStream_t stream) {
-  cudaError_t err =
-      i8::launch_row_quant<T, false>(x, nullptr, nullptr, xq, xs, rows, k_in, 0.0f, stream);
+  cudaError_t err = i8::launch_row_quant<T, i8::kRaw>(x, nullptr, nullptr, xq, xs, rows, k_in,
+                                                      0.0f, stream);
   if (err != cudaSuccess) return (int)err;
   i8::GemmArgs args{};
   args.m[0] = i8::make_mat(w, s, b, out);
   args.res = res;
-  return (int)i8::launch_gemm<T, i8::kOut>(xq, xs, args, 1, rows, k_in, k_out, 0, stream);
+  return (int)i8::launch_gemm<T>(xq, xs, args, 1, rows, k_in, k_out, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, residual and out). xq: [rows, k_in]
+// dtype: 0 = float32, 1 = bfloat16 (x, residual and out). w: [k_out, k_in]
+// int8, 16-byte aligned (the K-major storage). xq: [rows, k_in]
 // int8 scratch; xs: [rows] f32 scratch; s, b: [k_out] f32, 16-byte aligned;
 // res: [rows, k_out] or null. k_in % 16 == 0, k_out % 16 == 0. Returns
 // cudaGetLastError().

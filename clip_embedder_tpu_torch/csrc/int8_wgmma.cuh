@@ -1,0 +1,352 @@
+// The s8 TMA + wgmma product of the int8 MLPs for Hopper (sm_90a):
+// int8_mlp.cu and int8_mlp_streamed.cu run both of their products on it.
+//
+// C[rows, N] = A[rows, K] · Wᵀ: A the row pass's int8 codes, W a quantized
+// weight in its K-major storage ([N, K], each output column's K bytes
+// contiguous, `ops/quant.py`). The integer wgmma takes both operands
+// K-major from shared memory (it has no transpose), which is that layout as
+// it is stored: no copy, no transposition in registers.
+//
+// The block is three warpgroups on a persistent grid (one block per SM,
+// walking output tiles columns-fastest, so that the tiles in flight share
+// their rows of A and the weight stays in L2). Warpgroup 2 is the producer:
+// one thread keeps TMA loads in flight through a ring of 128-byte K boxes
+// (full/empty mbarriers; 4 to 6 stages, 192 KB), running ahead into the next
+// tile while the consumers finish one: A's box [kBM rows x 128 bytes] and
+// W's [128 columns x 128 bytes], both with the 128-byte swizzle. TMA
+// zero-fills rows, columns and K past the ends, so a ragged edge needs no
+// code in the loop. Warpgroups 0 and 1 run per box 4 k32 steps of wgmma
+// m64n128k32 (s8 x s8 -> s32) for each of their m64 tiles, the step
+// advancing both descriptors by 32 bytes inside the swizzle row; one box's
+// group stays in flight while the next is issued, and a box's stage is
+// released when the group after it has been issued and its own completes.
+// kOut and kSlab split each tile between the two warpgroups (256 and 128
+// rows); kAct runs them in ping-pong on 128-row tiles of their own, so that
+// one's epilogue (the activation, the f32 hidden's stores) overlaps the
+// other's products. Ping-pong measured slower for kOut and kSlab (smaller
+// tiles, more operand traffic) and 3% faster for kAct.
+//
+// The int32 sums are exact, so the numerics live in the epilogues, which
+// keep the TPU kernels' order of operations and run straight from the
+// accumulator registers:
+// - kAct (fc1): h = act(acc * (xs * s1) + b1) in f32, written as the f32
+//   hidden; the same epilogue reduces each row's |h| over its 128 columns
+//   and atomicMax-es it, as the int bits of a non-negative float (which
+//   order like the floats), into amax[row, slab] (zeroed on the stream
+//   before the launch; a 128-column tile never straddles a slab, whose
+//   width is a multiple of 128). The requantization pass then reads the
+//   hidden once, for its codes (int8.cuh kGivenAmax). Max is exact in any
+//   order, so the scales are the plain version's. The activation is a
+//   template argument and branch-free (int8.cuh `rcp_rn`): unrolled over a
+//   thread's 128 values, a runtime switch or a branch per value cut the
+//   epilogue into one basic block per value, and fc1 at PE-Core-bigG's
+//   shape took 5.5 ms instead of 1.5.
+// - kOut (the resident MLP's fc2): acc * (hs * s2) + b2 [+ x] in f32, one
+//   rounding to the output type.
+// - kSlab (the streamed MLP's fc2): K runs in slabs of `chunk` (a multiple
+//   of the 128-byte box); at each slab's end the s32 accumulators fold into
+//   an f32 sum as part * (as_j * s2), in slab order, and the next slab's
+//   first wgmma restarts them with scale-d = 0; after the last, + b2 [+ x]
+//   and one rounding. The f32 sum doubles the accumulator registers, so a
+//   kSlab warpgroup holds one m64 tile where kOut's and kAct's hold two.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "int8.cuh"
+
+namespace clipk {
+namespace i8w {
+
+using hopper::desc;
+using hopper::kSwizzle128;
+
+enum Mode { kOut = 0, kAct = 1, kSlab = 2 };
+
+constexpr int kBK = 128;  // K box: 128 bytes, the swizzle's row
+constexpr int kBN = 128;  // output columns per tile
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+
+// kAct runs its two consumer warpgroups in ping-pong, each on its own tile,
+// so that one's epilogue (the activation) overlaps the other's products;
+// kOut and kSlab split each tile between them.
+template <int kMode>
+struct Tile {
+  static constexpr bool kPingPong = kMode == kAct;
+  static constexpr int kMT = kMode == kSlab ? 1 : 2;  // m64 tiles per consumer warpgroup
+  static constexpr int kBM = (kPingPong ? 1 : 2) * 64 * kMT;  // rows of a tile
+  static constexpr uint32_t kABytes = kBM * kBK, kBBytes = kBN * kBK;
+  static constexpr int kStages = 192 * 1024 / (kABytes + kBBytes);  // 4 (kOut), else 6
+  static constexpr size_t kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kStages * 8;
+};
+
+struct Args {
+  const float* xs;  // A's row scales: [rows] (kOut, kAct) or [rows, slabs] (kSlab)
+  const float* s;   // [N] weight scales
+  const float* b;   // [N] bias
+  const void* res;  // [rows, N] residual in the output type, or null (kOut, kSlab)
+  void* out;        // [rows, N]: the output type, f32 for kAct
+  float* amax;      // kAct: [rows, N / chunk rounded up], zeroed before the launch
+  int rows, K, N;
+  int chunk;  // kSlab: K per slab; kAct: output columns per amax slab
+  int act;    // kAct: 0 gelu_tanh, 1 gelu, 2 quick_gelu, 3 relu
+};
+
+// kActFn: kAct's activation (i8::activate), -1 for the other modes.
+template <typename OutT, int kMode, int kActFn>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap amap,
+                const __grid_constant__ CUtensorMap wmap, const Args args) {
+  namespace hp = clipk::hopper;
+  using L = Tile<kMode>;
+  constexpr int kMT = L::kMT, kBM = L::kBM, kStages = L::kStages;
+  constexpr bool kPP = L::kPingPong;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: boxes start on such a boundary
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* as = smem;                        // [kStages][kBM][128] s8, swizzled
+  unsigned char* bs = smem + kStages * L::kABytes;  // [kStages][kBN][128] s8, swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kStages * L::kBBytes);
+  uint64_t* empty = full + kStages;
+
+  const int rows = args.rows, N = args.N;
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int n_tiles = tiles_n * ((rows + kBM - 1) / kBM);
+  const int n_local = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int boxes = (args.K + kBK - 1) / kBK;
+  // boxes per run of the accumulators: a slab's for kSlab, all of K otherwise
+  const int per_run = kMode == kSlab ? args.chunk / kBK : boxes;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kPP ? 1 : 2);  // one arrival per warpgroup reading the box
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    hp::regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      hp::prefetch_map(&amap);
+      hp::prefetch_map(&wmap);
+      int it = 0;  // boxes issued so far, over every tile of this block
+      for (int lt = 0; lt < n_local; ++lt) {
+        const int tile = blockIdx.x + lt * gridDim.x;
+        const int col0 = (tile % tiles_n) * kBN, row0 = tile / tiles_n * kBM;
+        for (int s = 0; s < boxes; ++s, ++it) {
+          const int st = it % kStages;
+          if (it >= kStages) hp::mbar_wait(&empty[st], ((it / kStages) - 1) & 1);
+          hp::mbar_expect_tx(&full[st], L::kABytes + L::kBBytes);
+          hp::tma_load_2d(as + st * L::kABytes, &amap, &full[st], s * kBK, row0);
+          hp::tma_load_2d(bs + st * L::kBBytes, &wmap, &full[st], s * kBK, col0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: rows wg * kBM / 2 + [0, kBM / 2) of each of this block's
+  // tiles lt; or, in ping-pong, all rows of tiles lt = wg, wg + 2, ..., whose
+  // products start when those of tile lt - 1 (the other warpgroup's) have
+  // finished (named barrier 1 + wg): one warpgroup's epilogue runs while the
+  // other's products do, and neither waits on the ring more than one phase
+  // ahead
+  hp::regs_alloc<232>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, t = lane % 4;
+  // acc[mi][4j + 2h + e]: row r0 + 64mi + 8h, column col0 + 8j + 2t + e
+  int acc[kMT][kBN / 2];
+  float facc[kMode == kSlab ? kMT : 1][kMode == kSlab ? kBN / 2 : 1];  // kSlab's f32 sum
+  const int a_off = kPP ? 0 : wg * (kBM / 2);  // the warpgroup's first row in a tile
+  for (int lt = kPP ? wg : 0; lt < n_local; lt += kPP ? 2 : 1) {
+    const int tile = blockIdx.x + lt * gridDim.x;
+    const int col0 = (tile % tiles_n) * kBN, row0 = tile / tiles_n * kBM;
+    const int r0 = row0 + a_off + warp * 16 + g;
+    int it = lt * boxes;
+    if (kPP && lt > 0) hp::named_sync(1 + wg, 256);
+    if constexpr (kMode == kSlab) {
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) facc[mi][i] = 0.0f;
+    }
+    for (int s0 = 0; s0 < boxes; s0 += per_run) {
+      const int s1 = min(boxes, s0 + per_run);
+      for (int s = s0; s < s1; ++s, ++it) {
+        const int st = it % kStages;
+        hp::mbar_wait(&full[st], (it / kStages) & 1);
+        const unsigned char* a = as + st * L::kABytes + a_off * kBK;
+        const unsigned char* b = bs + st * L::kBBytes;
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) hp::fence_regs(acc[mi]);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk) {
+          const uint64_t db = desc(b + kk * 32, 16, 1024, kSwizzle128);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi)  // A: 64 rows (8 KB) on, 32 bytes of K on
+            clipk::WgmmaS8<kBN>::run(acc[mi], desc(a + mi * 8192 + kk * 32, 16, 1024, kSwizzle128),
+                                     db, s > s0 || kk > 0);
+        }
+        hp::wgmma_commit();
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) hp::fence_regs(acc[mi]);
+        hp::wgmma_wait<1>();  // the previous box's products are done: free its stage
+        if (s > s0 && threadIdx.x % 128 == 0) hp::mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      hp::wgmma_wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) hp::fence_regs(acc[mi]);
+      if (threadIdx.x % 128 == 0) hp::mbar_arrive(&empty[(it - 1) % kStages]);
+
+      if constexpr (kMode == kSlab) {  // fold slab j: facc += part * (as_j * s2)
+        const int j = s0 / per_run, n_slabs = (boxes + per_run - 1) / per_run;
+        float ar[kMT][2];
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 64 * mi + 8 * h;
+            ar[mi][h] = row < rows ? args.xs[(size_t)row * n_slabs + j] : 0.0f;
+          }
+#pragma unroll
+        for (int jj = 0; jj < kBN / 8; ++jj) {
+          const int col = col0 + 8 * jj + 2 * t;
+          const float2 sc = col < N ? *reinterpret_cast<const float2*>(args.s + col)
+                                    : make_float2(0.0f, 0.0f);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& f = facc[mi][4 * jj + 2 * h + e];
+                f = __fadd_rn(f, __fmul_rn(__int2float_rn(acc[mi][4 * jj + 2 * h + e]),
+                                           __fmul_rn(ar[mi][h], e ? sc.y : sc.x)));
+              }
+        }
+      }
+    }
+
+    if (kPP && lt + 1 < n_local) hp::named_arrive(1 + (wg ^ 1), 256);  // tile lt + 1's products
+
+    // the epilogue, straight from the registers
+    float xr[kMT][2];  // kOut, kAct: the rows' scales
+    float am[kMT][2];  // kAct: the rows' |h| max over this thread's columns
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 64 * mi + 8 * h;
+        xr[mi][h] = kMode != kSlab && row < rows ? args.xs[row] : 0.0f;
+        am[mi][h] = 0.0f;
+      }
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj) {
+      const int col = col0 + 8 * jj + 2 * t;
+      if (col >= N) continue;  // N % 16 == 0: both columns of the pair, or neither
+      const float2 sc = *reinterpret_cast<const float2*>(args.s + col);
+      const float2 bi = *reinterpret_cast<const float2*>(args.b + col);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 64 * mi + 8 * h;
+          if (row >= rows) continue;
+          const int i = 4 * jj + 2 * h;
+          float v0, v1;
+          if constexpr (kMode == kSlab) {
+            v0 = facc[mi][i];
+            v1 = facc[mi][i + 1];
+          } else {
+            v0 = __fmul_rn(__int2float_rn(acc[mi][i]), __fmul_rn(xr[mi][h], sc.x));
+            v1 = __fmul_rn(__int2float_rn(acc[mi][i + 1]), __fmul_rn(xr[mi][h], sc.y));
+          }
+          v0 = __fadd_rn(v0, bi.x);
+          v1 = __fadd_rn(v1, bi.y);
+          const size_t off = (size_t)row * N + col;
+          if constexpr (kMode == kAct) {
+            v0 = i8::activate<kActFn>(v0);
+            v1 = i8::activate<kActFn>(v1);
+            am[mi][h] = fmaxf(am[mi][h], fmaxf(fabsf(v0), fabsf(v1)));
+          } else if (args.res != nullptr) {
+            const float2 r = i8::Pair<OutT>::load(static_cast<const OutT*>(args.res) + off);
+            v0 = __fadd_rn(v0, r.x);
+            v1 = __fadd_rn(v1, r.y);
+          }
+          i8::Pair<OutT>::store(static_cast<OutT*>(args.out) + off, v0, v1);
+        }
+    }
+    if constexpr (kMode == kAct) {  // the 4 threads of a row pool their maxima, one atomic a row
+      const int slabs = (N + args.chunk - 1) / args.chunk, slab = col0 / args.chunk;
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = am[mi][h];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          const int row = r0 + 64 * mi + 8 * h;
+          if (t == 0 && row < rows)
+            atomicMax(reinterpret_cast<int*>(args.amax) + (size_t)row * slabs + slab,
+                      __float_as_int(m));
+        }
+    }
+  }
+}
+
+// a: [rows, K] int8 codes, w: [N, K] int8 (the K-major storage), both
+// 16-byte aligned, K % 16 == 0 (TMA's stride rule), N % 16 == 0.
+template <typename OutT, int kMode, int kActFn>
+cudaError_t launch_gemm_act(const void* a, const void* w, const Args& args,
+                            cudaStream_t stream) {
+  using L = Tile<kMode>;
+  if (args.rows <= 0) return cudaSuccess;
+  CUtensorMap amap, wmap;
+  const cuuint64_t adims[2] = {(cuuint64_t)args.K, (cuuint64_t)args.rows};
+  const cuuint64_t wdims[2] = {(cuuint64_t)args.K, (cuuint64_t)args.N};
+  const cuuint64_t stride[1] = {(cuuint64_t)args.K};
+  const cuuint32_t abox[2] = {kBK, L::kBM}, wbox[2] = {kBK, kBN};
+  if (!hopper::tiled_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 2, adims, stride, abox, true) ||
+      !hopper::tiled_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 2, wdims, stride, wbox, true))
+    return cudaErrorInvalidValue;
+  auto kern = gemm_kernel<OutT, kMode, kActFn>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int tiles = ((args.N + kBN - 1) / kBN) * ((args.rows + L::kBM - 1) / L::kBM);
+  kern<<<tiles < sms ? tiles : sms, kThreads, L::kSmem, stream>>>(amap, wmap, args);
+  return cudaGetLastError();
+}
+
+// kAct takes its activation as a template argument (args.act picks it).
+template <typename OutT, int kMode>
+cudaError_t launch_gemm(const void* a, const void* w, const Args& args, cudaStream_t stream) {
+  if constexpr (kMode != kAct) {
+    return launch_gemm_act<OutT, kMode, -1>(a, w, args, stream);
+  } else {
+    switch (args.act) {
+      case 0:
+        return launch_gemm_act<OutT, kMode, 0>(a, w, args, stream);
+      case 1:
+        return launch_gemm_act<OutT, kMode, 1>(a, w, args, stream);
+      case 2:
+        return launch_gemm_act<OutT, kMode, 2>(a, w, args, stream);
+      case 3:
+        return launch_gemm_act<OutT, kMode, 3>(a, w, args, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+}
+
+}  // namespace i8w
+}  // namespace clipk

@@ -20,11 +20,12 @@
 //    VMEM; normalizing inside the product's K loop would redo it once per
 //    column tile (27 times at W = 1152), which stalled the tensor cores in
 //    ln_qkv.cu's measured designs.
-// 2. One product (`gemm_kernel`) covers the three weights: its grid runs over
-//    3 * W / 128 column tiles x row tiles, columns fastest, so the blocks in
-//    flight share their rows of codes and the 4 MB of weights stay in L2; the
-//    epilogue dequantizes, adds the bias and writes each output once.
-// Not yet done: TMA and wgmma, a persistent grid.
+// 2. One product (`gemm_kernel`, mma.sync over the K-major weights) covers
+//    the three weights: its grid runs over 3 * W / 128 column tiles x row
+//    tiles, columns fastest, so the blocks in flight share their rows of
+//    codes and the 4 MB of weights stay in L2; the epilogue dequantizes,
+//    adds the bias and writes each output once.
+// Not yet done: int8_wgmma.cuh's s8 TMA + wgmma product, a persistent grid.
 
 #include "int8.cuh"
 
@@ -36,17 +37,18 @@ template <typename T>
 int run(const void* x, const void* gamma, const void* beta, void* xq, void* xs,
         const void* const* w, const void* const* s, const void* const* b, void* const* out,
         int rows, int width, float eps, cudaStream_t stream) {
-  cudaError_t err = i8::launch_row_quant<T, true>(x, gamma, beta, xq, xs, rows, width, eps,
-                                                  stream);
+  cudaError_t err =
+      i8::launch_row_quant<T, i8::kNorm>(x, gamma, beta, xq, xs, rows, width, eps, stream);
   if (err != cudaSuccess) return (int)err;
   i8::GemmArgs args{};
   for (int i = 0; i < 3; ++i) args.m[i] = i8::make_mat(w[i], s[i], b[i], out[i]);
-  return (int)i8::launch_gemm<T, i8::kOut>(xq, xs, args, 3, rows, width, width, 0, stream);
+  return (int)i8::launch_gemm<T>(xq, xs, args, 3, rows, width, width, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, q, k, v). gamma, beta, sq..sv,
+// dtype: 0 = float32, 1 = bfloat16 (x, q, k, v). wq, wk, wv: [width,
+// width] int8, K-major ([out, in]), 16-byte aligned. gamma, beta, sq..sv,
 // bq..bv: [width] f32, 16-byte aligned. xq: [rows, width] int8 scratch; xs:
 // [rows] f32 scratch. width % 16 == 0. Returns cudaGetLastError().
 extern "C" int ln_qkv_int8_launch(const void* x, const void* gamma, const void* beta, void* xq,

@@ -17,7 +17,8 @@ Dequantization is ``acc·(xs·s) + b`` and a residual is added in f32 before
 the one rounding to the output dtype, the TPU kernels' order of operations
 (the unfused ``ops.quant.int8_linear`` computes ``acc·xs·s``, another f32
 rounding). Weights use ``ops.quant`` layout: ``{"w_q": [in, out] int8,
-"w_scale": [out] f32, "b"?}``.
+"w_scale": [out] f32, "b"?}``, ``w_q`` stored K-major (``quant.kmajor``),
+which the kernels require (``check_weight_layout``).
 
 For a tensor on the card the wrappers launch the CUDA kernels, raising on
 anything they do not take; for a tensor on the CPU they run the
@@ -215,18 +216,34 @@ def fits_streamed_mlp(params, activation_name: str, rows: int, x: torch.Tensor) 
 
 # -- wrappers -------------------------------------------------------------
 
+def check_weight_layout(w: torch.Tensor, what: str) -> None:
+    """The kernels read a quantized [in, out] weight in its K-major storage
+    (``quant.kmajor``, as ``quant.quantize_weight`` stores it): ``w.t()``
+    contiguous, the [out, in] rows 16-byte aligned. An N-contiguous weight
+    raises ``ValueError``: no wrapper copies or transposes a weight per
+    call."""
+    if not w.t().is_contiguous():
+        raise ValueError(f"{what}: the kernel reads the int8 weight stored K-major "
+                         f"([out, in] contiguous, seen as [in, out]; ops.quant.kmajor), "
+                         f"got shape {tuple(w.shape)} with strides {w.stride()}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{what}: the weight must be 16-byte aligned")
+
+
 def qlinear_operands(p, k_in: int, x: torch.Tensor, what: str):
     """(w_q, scale, bias) of one quantized linear, checked for the kernels:
-    a contiguous, 16-byte aligned [k_in, N] int8 weight on x's device with
-    N a multiple of 16, and f32 [N] scale and bias."""
+    a [k_in, N] int8 weight on x's device, stored K-major and 16-byte
+    aligned (``check_weight_layout``) with N a multiple of 16, and f32 [N]
+    scale and bias. The kernels take ``w_q.data_ptr()`` as the [N, k_in]
+    storage."""
     w = p["w_q"]
     if (w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != k_in
             or not kernel_dims_ok(*w.shape)):
         raise ValueError(f"{what}: the kernel takes a [{k_in}, N] int8 weight with "
                          f"widths that are multiples of 16, got {tuple(w.shape)} {w.dtype}")
-    if w.device != x.device or not w.is_contiguous() or w.data_ptr() % 16:
-        raise ValueError(f"{what}: the weight must be contiguous and 16-byte aligned "
-                         f"on {x.device}")
+    if w.device != x.device:
+        raise ValueError(f"{what}: the weight must be on {x.device}, got {w.device}")
+    check_weight_layout(w, what)
     n = w.shape[1]
     return w, cuda.f32_vector(p["w_scale"], n, x, what), cuda.f32_vector(p.get("b"), n, x, what)
 
@@ -266,7 +283,7 @@ def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
     xs = torch.empty(rows, dtype=torch.float32, device=dev)
     h = torch.empty(rows, hidden, dtype=torch.float32, device=dev)   # act(fc1), f32
     hq = torch.empty(rows, hidden, dtype=torch.int8, device=dev)
-    hs = torch.empty(rows, slabs, dtype=torch.float32, device=dev)   # requant scales
+    hs = torch.empty(rows, slabs, dtype=torch.float32, device=dev)   # hidden amax, then scales
     extra = () if chunk is None else (chunk,)
     fn = cuda.kernel(what, f"{what}_launch", (cuda.VOID_P,) * 15 + (cuda.INT,) * (4 + len(extra))
                      + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))

@@ -12,6 +12,14 @@ the dequantization fused into the output:
 ``quantize_tree`` (``{"w_q": [in, out] int8, "w_scale": [out] f32, "b"?}``)
 run quantized; LayerNorm, softmax and attention keep full precision.
 
+``w_q`` has the JAX package's shape, ``[..., in, out]``, but is stored
+K-major: a contiguous ``[..., out, in]`` tensor seen through
+``transpose(-1, -2)`` (``kmajor``), so that ``w_q.t()`` of one layer is
+contiguous. That is the layout the CUDA kernels' int8 products read as it is
+(the s8 wgmma takes its B operand K-major only); no second copy exists, and
+everything that treats ``w_q`` as a tensor (``int_matmul``, slicing,
+``.numpy()``) sees the same values as before.
+
 The clip search runs in torch on the weights' device with the JAX
 package's arithmetic (f32 division, round half to even, clip to ±127, the
 ``err < best_err`` choice), so a full tower quantizes on the card in well
@@ -47,9 +55,18 @@ def true_div(a: torch.Tensor, c: float) -> torch.Tensor:
     return a / a.new_tensor(c)
 
 
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """``w`` ([..., in, out]) with the same values, stored K-major: its last
+    two dims transposed in memory (a contiguous [..., out, in] tensor seen
+    through ``transpose(-1, -2)``). Returns ``w`` itself when it already is."""
+    t = w.transpose(-1, -2)
+    return w if t.is_contiguous() else t.contiguous().transpose(-1, -2)
+
+
 def quantize_weight(w: torch.Tensor, *, clip: str = "mse") -> dict:
     """[..., in, out] float weight → per-output-channel symmetric int8
-    (leading dims, e.g. the stacked-layer axis, quantize independently).
+    (leading dims, e.g. the stacked-layer axis, quantize independently);
+    ``w_q`` stored K-major (``kmajor``).
 
     ``clip="mse"`` searches a per-channel clip ratio α ∈ [0.70, 1.0] that
     minimizes the channel's round-trip squared error; ``clip="max"`` scales
@@ -74,7 +91,7 @@ def quantize_weight(w: torch.Tensor, *, clip: str = "mse") -> dict:
     else:
         scale = true_div(amax, 127.0)
     w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return {"w_q": w_q, "w_scale": scale.squeeze(-2)}
+    return {"w_q": kmajor(w_q), "w_scale": scale.squeeze(-2)}
 
 
 def quantize_tree(params: Mapping, *, paths: tuple[str, ...] = DEFAULT_QUANT_PATHS,

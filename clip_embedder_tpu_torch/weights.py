@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from .errors import WeightError
+from .ops.quant import kmajor
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -94,14 +95,17 @@ def to_device_tree(tree: Any, *, device: torch.device | str, dtype: torch.dtype)
     ``dtype`` except the int8 dequantization scales (``w_scale``), which
     stay f32 (rounding them to bf16 would add a systematic per-channel
     error on top of the int8 budget); integer leaves (``w_q``) keep their
-    dtype. Counterpart of the JAX package's ``vision.to_device_tree``."""
+    dtype and are stored K-major (``ops.quant.kmajor``: a tree that arrives
+    quantized elsewhere, e.g. from numpy, gets the kernels' layout too).
+    Counterpart of the JAX package's ``vision.to_device_tree``."""
     def walk(node, key):
         if isinstance(node, Mapping):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, None) for v in node]
         if not node.is_floating_point():
-            return node.to(device=device)
+            node = node.to(device=device)
+            return kmajor(node) if key == "w_q" and node.dim() >= 2 else node
         return node.to(device=device, dtype=torch.float32 if key == "w_scale" else dtype)
 
     return walk(tree, None)

@@ -384,6 +384,141 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
            "proj": _qlinear(rng, 256, 64, torch.float32, dev)}
     with pytest.raises(ValueError, match="multiple of 128"):
         int8_mlp.int8_mlp_streamed(mlp, x, chunk=100)
+    # a weight stored N-contiguous ([in, out] row-major), not K-major: every
+    # int8 wrapper refuses it rather than copy or transpose it per call
+    n_contig = {**p, "w_q": p["w_q"].contiguous()}
+    assert not n_contig["w_q"].t().is_contiguous()
+    with pytest.raises(ValueError, match="K-major"):
+        int8_mlp.int8_linear_fused(n_contig, x)
+    for name in ("fc", "proj"):
+        bad = {**mlp, name: {**mlp[name], "w_q": mlp[name]["w_q"].contiguous()}}
+        with pytest.raises(ValueError, match="K-major"):
+            int8_mlp.int8_mlp(bad, x)
+        with pytest.raises(ValueError, match="K-major"):
+            int8_mlp.int8_mlp_streamed(bad, x, chunk=128)
+    qkvp = {n: _qlinear(rng, 64, 64, torch.float32, dev) for n in "qkv"}
+    qkvp["k"] = {**qkvp["k"], "w_q": qkvp["k"]["w_q"].contiguous()}
+    ln = {"scale": torch.ones(64, device=dev), "bias": torch.zeros(64, device=dev)}
+    with pytest.raises(ValueError, match="K-major"):
+        qkv.ln_qkv_int8(qkvp, ln, x)
+
+
+def _arr(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _mlp_params(rng, k_in, hidden, dtype, dev, k_out=None, zero_fc_bias=False):
+    params = {"fc": _qlinear(rng, k_in, hidden, dtype, dev),
+              "proj": _qlinear(rng, hidden, k_out or k_in, dtype, dev)}
+    if zero_fc_bias:
+        params["fc"]["b"] = torch.zeros_like(params["fc"]["b"])
+    return params
+
+
+@pytest.mark.parametrize("rows,k_in,hidden,chunk", [
+    pytest.param(64, 128, 128, None, id="kAct_kOut"),  # one tile of fc1 (kAct), of fc2 (kOut)
+    pytest.param(256, 128, 128, None, id="kAct_kOut_256rows"),  # both warpgroups' m64 tiles
+    pytest.param(64, 128, 128, 128, id="kSlab_one"),   # one slab of one box
+    pytest.param(128, 128, 256, 128, id="kSlab_two"),  # two slabs: a fold in between
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_wgmma_one_tile_epilogues(dev, rows, k_in, hidden, chunk, dtype):
+    """The s8 TMA + wgmma product at one output tile per product, per
+    epilogue: A and W through the 128-byte-swizzled K-major descriptors (a
+    wrong one gives wrong numbers, not an error). Distinct random codes in
+    every row and column, so a misread core matrix moves the output."""
+    rng = np.random.default_rng(20 + rows + hidden)
+    params = _mlp_params(rng, k_in, hidden, dtype, dev)
+    x = torch.from_numpy(_arr(rng, rows, k_in)).to(dev, dtype)
+    if chunk is None:
+        got = int8_mlp.int8_mlp(params, x, activation="relu")
+        ref = int8_mlp.int8_mlp_plain(params, x, activation="relu")
+    else:
+        got = int8_mlp.int8_mlp_streamed(params, x, activation="relu", chunk=chunk)
+        ref = int8_mlp.int8_mlp_streamed_plain(params, x, activation="relu", chunk=chunk)
+    torch.cuda.synchronize()
+    assert_rows_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("rows,k_in,hidden,k_out", [
+    (1, 48, 144, 48),       # K of 48 in a 128-byte box; N 144 and 48 ragged in 128
+    (7, 16, 272, 32),       # the least K; a 16-column last tile
+    (257, 96, 400, 112),    # a ragged 256-row tile
+    (300, 208, 1040, 208),  # both ragged, several column tiles
+])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_int8_wgmma_ragged_rows_k_and_n(dev, rows, k_in, hidden, k_out, streamed):
+    """TMA zero-fills rows, K and N past the ends; the epilogue masks N."""
+    rng = np.random.default_rng(rows + k_in)
+    dtype = torch.bfloat16
+    params = _mlp_params(rng, k_in, hidden, dtype, dev, k_out=k_out)
+    x = torch.from_numpy(_arr(rng, rows, k_in)).to(dev, dtype)
+    kw = {"activation": "gelu_tanh"}
+    if streamed:
+        got = int8_mlp.int8_mlp_streamed(params, x, chunk=128, **kw)
+        ref = int8_mlp.int8_mlp_streamed_plain(params, x, chunk=128, **kw)
+    else:
+        got = int8_mlp.int8_mlp(params, x, **kw)
+        ref = int8_mlp.int8_mlp_plain(params, x, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, k_out)
+    assert_rows_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("chunk,hidden", [(128, 400), (256, 656), (1792, 3856)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_wgmma_slab_boundaries(dev, chunk, hidden, dtype):
+    """kSlab's fold at every slab's end, the last slab ragged (16, 144 and
+    272 columns); fc1's amax lands in the (row, slab) its tile lies in."""
+    rng = np.random.default_rng(chunk)
+    params = _mlp_params(rng, 128, hidden, dtype, dev)
+    _, pre_ln, x = _qkv_inputs(3 * 61, 128, dtype, dev, seed=chunk)
+    kw = {"activation": "gelu", "pre_ln": pre_ln, "add_residual": True, "chunk": chunk}
+    got = int8_mlp.int8_mlp_streamed(params, x, **kw)
+    torch.cuda.synchronize()
+    assert_rows_close(got, int8_mlp.int8_mlp_streamed_plain(params, x, **kw), dtype)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_int8_wgmma_all_zero_row(dev, streamed):
+    """A row of zeros (no LayerNorm, fc1 without bias, relu): both row
+    passes see amax = 0 and take scale 1, and the row's output is fc2's
+    bias exactly."""
+    rng = np.random.default_rng(30)
+    params = _mlp_params(rng, 128, 384, torch.float32, dev, zero_fc_bias=True)
+    x = torch.from_numpy(_arr(rng, 70, 128)).to(dev)
+    x[3] = 0.0
+    kw = {"activation": "relu", **({"chunk": 128} if streamed else {})}
+    fn = int8_mlp.int8_mlp_streamed if streamed else int8_mlp.int8_mlp
+    plain = int8_mlp.int8_mlp_streamed_plain if streamed else int8_mlp.int8_mlp_plain
+    got = fn(params, x, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[3], params["proj"]["b"].float(), atol=0, rtol=0)
+    assert_rows_close(got, plain(params, x, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_wgmma_quick_gelu_saturates(dev, streamed, dtype):
+    """quick_gelu far below zero: an fc1 bias of -60 puts h near -60, where
+    1 + exp(-1.702 h) overflows to inf and the activation is -0, as in the
+    plain version. Every seventh column is saturated, and for the streamed
+    MLP also a whole slab (its amax is 0, so it takes scale 1). A NaN there
+    would win the row's or slab's amax and poison the whole output row."""
+    rng = np.random.default_rng(40)
+    params = _mlp_params(rng, 128, 384, dtype, dev)
+    bias = params["fc"]["b"].float()
+    bias[::7] = -60.0
+    if streamed:
+        bias[128:256] = -60.0
+    params["fc"]["b"] = bias.to(dtype)
+    x = torch.from_numpy(_arr(rng, 70, 128)).to(dev, dtype)
+    kw = {"activation": "quick_gelu", **({"chunk": 128} if streamed else {})}
+    fn = int8_mlp.int8_mlp_streamed if streamed else int8_mlp.int8_mlp
+    plain = int8_mlp.int8_mlp_streamed_plain if streamed else int8_mlp.int8_mlp_plain
+    got = fn(params, x, **kw)
+    torch.cuda.synchronize()
+    assert_rows_close(got, plain(params, x, **kw), dtype)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8_all"])
