@@ -2,22 +2,25 @@
 """Drive the PyTorch/CUDA port (``clip_embedder_tpu_torch``) on one NVIDIA
 card, in phases, and fail loudly if any phase fails.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --int8   # phases 1-2 for the int8 sources, phase 3's int8 kernels
 
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
 2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a; for
-   the int8 sources, ptxas's wgmma-serialization warnings and the int8
-   wgmma (IGMMA) instructions in their SASS (none fails kernels 4 and 7);
+   the four int8 sources, ptxas's wgmma-serialization warnings and the int8
+   wgmma (IGMMA) and mma.sync (IMMA) instructions in their SASS (a warning,
+   no IGMMA or any IMMA fails);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes (max error beside the tolerance), and its time (CUDA
    events, median of 20) beside the plain version's, one PyTorch library
    call's or, for the int8 kernels, a composition of PyTorch ops around
    ``torch._int_mm`` (a yardstick the port never calls) and the bound, and
-   for kernels 4 and 7 their device time by launch: the
-   packed attention kernel also with PE-Core's rope, the [B, H, S, D]
-   attention kernel at the fixtures' and at SO400M's head layout, the
-   streamed int8 MLP at PE-Core-bigG's;
+   for the int8 kernels their device time by launch (row passes against
+   products): the packed attention kernel also with PE-Core's rope, the
+   [B, H, S, D] attention kernel at the fixtures' and at SO400M's head
+   layout, ``ln_qkv_int8`` and ``int8_linear_fused`` also at PE-Core-bigG's
+   vision width, the streamed int8 MLP at PE-Core-bigG's;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
    embeddings and classify results (4 heads x 16: no 128-lane head group, so
@@ -39,7 +42,7 @@ card, in phases, and fail loudly if any phase fails.
    ``Clip`` in bf16, ``"int8"`` and ``"int8_all"`` (its vision MLPs take the
    streamed int8 MLP, kernel 7): unit norms, launch counts, kernel path
    against plain path, images/s and p50, and device time by kernel group
-   for bf16 and ``int8``.
+   in each mode.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -550,73 +553,107 @@ def phase_int8_kernels(dev, peaks) -> dict:
             hold_int8(f"int8_linear_fused rows={b}x576 1152x1152 +residual {dtype}", [got],
                       [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype)
 
+    say("[3] ln_qkv_int8 and int8_linear_fused at PE-Core-bigG's vision width")
+    pe_rows, pe_width = 8 * 1025, 1536
+    for dtype in (torch.bfloat16, torch.float32):
+        _, ln, x = int8_inputs(pe_rows, pe_width, pe_width, dtype, dev, seed=11)
+        qp = {n: int8_inputs(1, pe_width, pe_width, dtype, dev, seed=12 + i)[0]
+              for i, n in enumerate("qkv")}
+        got = qkv.ln_qkv_int8(qp, ln, x, eps=eps)
+        torch.cuda.synchronize()
+        hold_int8(f"ln_qkv_int8 rows=8x1025 W=1536 {dtype}", got,
+                  qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps), dtype)
+        r = x.flip(0).contiguous()
+        got = int8_mlp.int8_linear_fused(qp["q"], x, residual=r)
+        torch.cuda.synchronize()
+        hold_int8(f"int8_linear_fused rows=8x1025 1536x1536 +residual {dtype}", [got],
+                  [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype)
+
     say("[3] int8 kernel times at batch 32, bf16 (CUDA events, median of 20 back-to-back "
         "calls); library = PyTorch ops around torch._int_mm")
-    rows, es = 32 * seq, 2
     dtype = torch.bfloat16
+    rows = 32 * seq
     p, ln, x = int8_inputs(rows, width, width, dtype, dev, hidden=hidden)
+    kw = {"activation": "gelu_tanh", "pre_ln": ln, "add_residual": True}
+    err = hold_int8("int8_mlp rows=32x576 bf16", [int8_mlp.int8_mlp(p, x, **kw)],
+                    [int8_mlp.int8_mlp_plain(p, x, **kw)], dtype)
+    w1_cm, w2_cm = p["fc"]["w_q"], p["proj"]["w_q"]
+    out = {"int8_mlp": {
+        "name": "int8_mlp", "route": "cuda", "source": "clip_embedder_tpu_torch/csrc/int8_mlp.cu",
+        "replaces": "clip_embedder_tpu/ops/int8_mlp.py:181", "max_abs_err": err,
+        **time_int8("int8_mlp", peaks, lambda: int8_mlp.int8_mlp(p, x, **kw),
+                    lambda: int8_mlp.int8_mlp_plain(p, x, **kw),
+                    lambda: int8_mlp_library(p, w1_cm, w2_cm, ln, x, eps),
+                    4 * rows * width * hidden,
+                    2 * rows * width * 2 + 2 * width * hidden + 4 * 2 * (hidden + width)
+                    + 4 * 2 * width)}}
+    # kernels 5 and 6 at SO400M's shape (the record's) and at PE-Core-bigG's vision
+    for label, rows, w in (("SO400M rows=32x576 W=1152", 32 * seq, width),
+                           ("PE-Core-bigG rows=32x1025 W=1536", 32 * 1025, 1536)):
+        recs = time_qkv_linear(label, rows, w, dev, peaks, eps)
+        if w == width:
+            out.update(recs)
+    return out
+
+
+def time_int8(label, peaks, kern, plain, lib, ops, nbytes, plain_iters=20) -> dict:
+    """Times one int8 kernel (CUDA events) beside its plain version, its
+    library composition and its bound (``ops`` int8 operations, ``nbytes``:
+    each input read once, each output written once), and its device time by
+    launch; returns the record's timing keys."""
+    t_k, t_p, t_l = cuda_ms(kern), cuda_ms(plain, iters=plain_iters), cuda_ms(lib)
+    t_ops, t_bytes = ops / peaks["int8"], nbytes / peaks["bytes"]
+    bound = max(t_ops, t_bytes) * 1e3
+    say(f"  {label}: {t_k:.4f} ms; plain {t_p:.4f} ms (median of {plain_iters}); library "
+        f"{t_l:.4f} ms; bound {bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B); "
+        f"{ops / t_k * 1e-9:.1f} TOP/s")
+    launch_breakdown(label, kern)
+    return {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": t_l}
+
+
+def time_qkv_linear(label, rows, width, dev, peaks, eps) -> dict:
+    """Kernels 5 (ln_qkv_int8) and 6 (int8_linear_fused with the residual)
+    at [rows, width] in bf16: held against their plain versions, then timed
+    (``time_int8``). Returns their records."""
+    from clip_embedder_tpu_torch.ops import int8_mlp, qkv
+
+    dtype, es, vec = torch.bfloat16, 2, 4 * 2  # vec: an f32 scale and bias per column
+    _, ln, x = int8_inputs(rows, width, width, dtype, dev)
     qp = {n: int8_inputs(1, width, width, dtype, dev, seed=3 + i)[0]
           for i, n in enumerate("qkv")}
     r = x.flip(0).contiguous()
-    kw = {"activation": "gelu_tanh", "pre_ln": ln, "add_residual": True}
-    errs = {
-        "int8_mlp": hold_int8("int8_mlp rows=32x576 bf16", [int8_mlp.int8_mlp(p, x, **kw)],
-                              [int8_mlp.int8_mlp_plain(p, x, **kw)], dtype),
-        "ln_qkv_int8": hold_int8("ln_qkv_int8 rows=32x576 bf16", qkv.ln_qkv_int8(qp, ln, x),
-                                 qkv.ln_qkv_int8_plain(qp, ln, x), dtype),
-        "int8_linear_fused": hold_int8(
-            "int8_linear_fused rows=32x576 +residual bf16",
-            [int8_mlp.int8_linear_fused(qp["q"], x, residual=r)],
-            [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype),
-    }
-    w1_cm, w2_cm = p["fc"]["w_q"], p["proj"]["w_q"]
     # the three stored [out, in] weights stacked into one [3W, W], seen as [W, 3W]
     wqkv_cm = torch.cat([qp[n]["w_q"].t() for n in "qkv"]).t()
     s_cat = torch.cat([qp[n]["w_scale"] for n in "qkv"])
     b_cat = torch.cat([qp[n]["b"].float() for n in "qkv"])
-    wq_cm = qp["q"]["w_q"]
-    calls = {
-        "int8_mlp": (lambda: int8_mlp.int8_mlp(p, x, **kw),
-                     lambda: int8_mlp.int8_mlp_plain(p, x, **kw),
-                     lambda: int8_mlp_library(p, w1_cm, w2_cm, ln, x, eps)),
-        "ln_qkv_int8": (lambda: qkv.ln_qkv_int8(qp, ln, x, eps=eps),
-                        lambda: qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps),
-                        lambda: ln_qkv_int8_library(s_cat, b_cat, wqkv_cm, ln, x, eps)),
-        "int8_linear_fused": (lambda: int8_mlp.int8_linear_fused(qp["q"], x, residual=r),
-                              lambda: int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r),
-                              lambda: int8_linear_library(qp["q"], wq_cm, x, r)),
-    }
-    vec = 4 * 2  # an f32 scale and bias per output column
-    work = {  # (operations, bytes: each input read once, each output written once)
-        "int8_mlp": (4 * rows * width * hidden,
-                     2 * rows * width * es + 2 * width * hidden + vec * (hidden + width)
-                     + 4 * 2 * width),
-        "ln_qkv_int8": (6 * rows * width * width,
-                        4 * rows * width * es + 3 * width * width + 3 * vec * width
-                        + 4 * 2 * width),
-        "int8_linear_fused": (2 * rows * width * width,
-                              3 * rows * width * es + width * width + vec * width),
-    }
-    sources = {"int8_mlp": ("int8_mlp.cu", "clip_embedder_tpu/ops/int8_mlp.py:181"),
-               "ln_qkv_int8": ("ln_qkv_int8.cu", "clip_embedder_tpu/ops/qkv.py:142"),
-               "int8_linear_fused": ("int8_linear.cu",
-                                     "clip_embedder_tpu/ops/int8_mlp.py:511")}
+    plain_iters = 20 if width <= 1152 else 5
     out = {}
-    for name, (kern, plain, lib) in calls.items():
-        t_k, t_p, t_l = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
-        ops, nbytes = work[name]
-        t_ops, t_bytes = ops / peaks["int8"], nbytes / peaks["bytes"]
-        bound = max(t_ops, t_bytes) * 1e3
-        say(f"  {name}: {t_k:.4f} ms; plain {t_p:.4f} ms; library {t_l:.4f} ms; bound "
-            f"{bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B)")
-        if name == "int8_mlp":
-            launch_breakdown(name, kern)
-        src, tpu = sources[name]
-        out[name] = {"name": name, "route": "cuda",
-                     "source": f"clip_embedder_tpu_torch/csrc/{src}", "replaces": tpu,
-                     "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                     "library_ms": t_l}
+    err = hold_int8(f"ln_qkv_int8 {label} bf16", qkv.ln_qkv_int8(qp, ln, x, eps=eps),
+                    qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps), dtype)
+    out["ln_qkv_int8"] = {
+        "name": "ln_qkv_int8", "route": "cuda",
+        "source": "clip_embedder_tpu_torch/csrc/ln_qkv_int8.cu",
+        "replaces": "clip_embedder_tpu/ops/qkv.py:142", "max_abs_err": err,
+        **time_int8(f"ln_qkv_int8 {label}", peaks, lambda: qkv.ln_qkv_int8(qp, ln, x, eps=eps),
+                    lambda: qkv.ln_qkv_int8_plain(qp, ln, x, eps=eps),
+                    lambda: ln_qkv_int8_library(s_cat, b_cat, wqkv_cm, ln, x, eps),
+                    6 * rows * width * width,
+                    4 * rows * width * es + 3 * width * width + 3 * vec * width
+                    + 4 * 2 * width, plain_iters)}
+    err = hold_int8(f"int8_linear_fused {label} +residual bf16",
+                    [int8_mlp.int8_linear_fused(qp["q"], x, residual=r)],
+                    [int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r)], dtype)
+    out["int8_linear_fused"] = {
+        "name": "int8_linear_fused", "route": "cuda",
+        "source": "clip_embedder_tpu_torch/csrc/int8_linear.cu",
+        "replaces": "clip_embedder_tpu/ops/int8_mlp.py:511", "max_abs_err": err,
+        **time_int8(f"int8_linear_fused {label}", peaks,
+                    lambda: int8_mlp.int8_linear_fused(qp["q"], x, residual=r),
+                    lambda: int8_mlp.int8_linear_fused_plain(qp["q"], x, residual=r),
+                    lambda: int8_linear_library(qp["q"], qp["q"]["w_q"], x, r),
+                    2 * rows * width * width,
+                    3 * rows * width * es + width * width + vec * width, plain_iters)}
     return out
 
 
@@ -1222,24 +1259,22 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
         out[label] = {"launches": counts, "vision_layers": v.layers}
         if timed:
             out[label].update(time_embedder(clip.vision, arrays, f"PE-Core {label}"))
-            if mode != "int8_all":
-                out[label]["breakdown"] = profile_embedder(clip.vision, arrays,
-                                                           f"PE-Core {label}")
+            out[label]["breakdown"] = profile_embedder(clip.vision, arrays, f"PE-Core {label}")
         del clip
         free_device_memory()
     return out
 
 
-# the int8 sources, and those whose products run on the s8 TMA + wgmma kernel
+# the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
-INT8_WGMMA_SOURCES = ("int8_mlp", "int8_mlp_streamed")
 
 
 def int8_sass_report(libs) -> None:
     """Per int8 source: the ptxas warnings that say it serialized wgmma
-    (C7512-C7514 in the build log) and the count of IGMMA (int8 wgmma)
-    instructions in the built library's SASS (``cuobjdump -sass``). Fails if
-    a source whose products run on wgmma has none, and if the build log or
+    (C7512-C7514 in the build log) and the counts of IGMMA (int8 wgmma) and
+    IMMA (an mma.sync int8 product) instructions in the built library's SASS
+    (``cuobjdump -sass``). Fails if a source has no IGMMA or any IMMA, if
+    ptxas serialized a wgmma, and if the build log or
     ``cuobjdump`` (beside nvcc, on PATH or in $CUDA_HOME/bin) is missing, so
     that the check never passes without looking."""
     import os
@@ -1263,13 +1298,16 @@ def int8_sass_report(libs) -> None:
         sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         igmma = sum("IGMMA" in line for line in sass.splitlines())
+        imma = len(re.findall(r"\bIMMA\.", sass))
         say(f"  {stem}: ptxas wgmma serialization warnings {serial or 'none'}; IGMMA "
-            f"instructions in SASS: {igmma}")
-        if stem in INT8_WGMMA_SOURCES and igmma == 0:
-            raise AssertionError(f"{stem}: no int8 wgmma (IGMMA) in the built library")
+            f"instructions in SASS: {igmma}; IMMA (mma.sync s8): {imma}")
+        if igmma == 0 or imma or serial:
+            raise AssertionError(f"{stem}: want int8 wgmma (IGMMA) in the built library, no "
+                                 f"mma.sync s8 product (IMMA) and no serialized wgmma")
 
 
-def main() -> int:
+def main(argv) -> int:
+    int8_only = "--int8" in argv
     say("[1] environment")
     if not torch.cuda.is_available():
         say("  torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1292,7 +1330,7 @@ def main() -> int:
 
     say("[2] build")
     t = time.perf_counter()
-    libs = kernels.build_all()
+    libs = kernels.build_all(INT8_SOURCES if int8_only else None)
     say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for stem, path in sorted(libs.items()):
@@ -1301,6 +1339,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  {stem}: {line.strip()}")
     int8_sass_report(libs)
+    if int8_only:  # a quick look at the int8 kernels alone: no result line
+        phase_int8_kernels(dev, peaks)
+        phase_streamed_mlp_kernel(dev, peaks)
+        say(card)
+        return 0
 
     record = phase_kernels(dev, peaks)
     pe_attn = phase_pe_attention_kernels(dev, peaks)
@@ -1340,4 +1383,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

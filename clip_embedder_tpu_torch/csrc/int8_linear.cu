@@ -14,20 +14,22 @@
 // 1.3 MB weight: about 380 operations per byte, under the int8 tensor cores'
 // 590, so memory bounds it (0.039 ms at batch 32).
 //
-// What the design does about that: the row pass (int8.cuh `row_quant_kernel`)
-// reads x once and writes its int8 codes (half of x's bf16 bytes) and one f32
-// scale per row; the product (`gemm_kernel`, mma.sync) reads the codes and
-// the K-major weight through a cp.async ring and adds the bias and the
-// residual in its epilogue, so the output is written once and no f32
-// intermediate reaches memory. The TPU kernel quantizes the row tile in
-// VMEM instead; here the codes make one round trip (an extra rows * 1152 * 2
-// bytes) so that the product stays a plain tiled loop. Not yet done: the
-// s8 TMA + wgmma product of int8_wgmma.cuh, and quantizing inside the
-// product's prologue.
+// What the design does about that: the row pass (int8.cuh
+// `row_quant_kernel`) reads x once, the row held in a warp's registers, and
+// writes its int8 codes (half of x's bf16 bytes) and one f32 scale per row;
+// int8_wgmma.cuh's s8 TMA + wgmma product (epilogue kOut, one weight) reads
+// the codes and the K-major weight and adds the bias and the residual in
+// its epilogue (bf16 staged through shared memory, the residual read and
+// the output written 16 bytes a thread), so the output is written once and
+// no f32 intermediate reaches memory. The TPU kernel quantizes the row tile
+// in VMEM instead; here the codes make one round trip (an extra rows *
+// 1152 * 2 bytes) so that the product stays the shared one. Not yet done:
+// quantizing inside the product's producer.
 
-#include "int8.cuh"
+#include "int8_wgmma.cuh"
 
 namespace i8 = clipk::i8;
+namespace i8w = clipk::i8w;
 
 namespace {
 
@@ -37,10 +39,10 @@ int run(const void* x, void* xq, void* xs, const void* w, const void* s, const v
   cudaError_t err = i8::launch_row_quant<T, i8::kRaw>(x, nullptr, nullptr, xq, xs, rows, k_in,
                                                       0.0f, stream);
   if (err != cudaSuccess) return (int)err;
-  i8::GemmArgs args{};
-  args.m[0] = i8::make_mat(w, s, b, out);
-  args.res = res;
-  return (int)i8::launch_gemm<T>(xq, xs, args, 1, rows, k_in, k_out, stream);
+  i8w::Args args{static_cast<const float*>(xs),
+                 {{static_cast<const float*>(s), static_cast<const float*>(b), out}},
+                 1, res, nullptr, rows, k_in, k_out, 0, 0};
+  return (int)i8w::launch_gemm<T, i8w::kOut>(xq, &w, args, stream);
 }
 
 }  // namespace

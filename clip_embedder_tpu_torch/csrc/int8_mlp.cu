@@ -62,18 +62,18 @@ int run(const void* x, const void* gamma, const void* beta, void* xq, void* xs, 
   // hs holds fc1's row amax (atomicMax from zero), then the row pass's scales
   if ((err = cudaMemsetAsync(hs, 0, (size_t)rows * sizeof(float), stream)) != cudaSuccess)
     return (int)err;
-  i8w::Args fc1{static_cast<const float*>(xs), static_cast<const float*>(s1),
-                static_cast<const float*>(b1), nullptr, h, static_cast<float*>(hs),
-                rows, k_in, hidden, hidden, act};
-  err = i8w::launch_gemm<float, i8w::kAct>(xq, w1, fc1, stream);
+  i8w::Args fc1{static_cast<const float*>(xs),
+                {{static_cast<const float*>(s1), static_cast<const float*>(b1), h}},
+                1, nullptr, static_cast<float*>(hs), rows, k_in, hidden, hidden, act};
+  err = i8w::launch_gemm<float, i8w::kAct>(xq, &w1, fc1, stream);
   if (err != cudaSuccess) return (int)err;
   err = i8::launch_row_quant<float, i8::kGivenAmax>(h, nullptr, nullptr, hq, hs, rows, hidden,
                                                     0.0f, stream);
   if (err != cudaSuccess) return (int)err;
-  i8w::Args fc2{static_cast<const float*>(hs), static_cast<const float*>(s2),
-                static_cast<const float*>(b2), add_res ? x : nullptr, out, nullptr,
-                rows, hidden, k_out, 0, 0};
-  return (int)i8w::launch_gemm<T, i8w::kOut>(hq, w2, fc2, stream);
+  i8w::Args fc2{static_cast<const float*>(hs),
+                {{static_cast<const float*>(s2), static_cast<const float*>(b2), out}},
+                1, add_res ? x : nullptr, nullptr, rows, hidden, k_out, 0, 0};
+  return (int)i8w::launch_gemm<T, i8w::kOut>(hq, &w2, fc2, stream);
 }
 
 }  // namespace

@@ -13,23 +13,25 @@
 // operations per byte, over the int8 tensor cores' 590: the tensor cores
 // bound it (0.074 ms at batch 32).
 //
-// What the design does about that: the split design of ln_qkv.cu carries over.
-// 1. The row pass (int8.cuh `row_quant_kernel` with the LayerNorm) reads x,
-//    normalizes each row in f32 and writes its int8 codes (21 MB at batch 32)
-//    and one f32 scale per row, once. The TPU kernel keeps the row tile in
-//    VMEM; normalizing inside the product's K loop would redo it once per
-//    column tile (27 times at W = 1152), which stalled the tensor cores in
-//    ln_qkv.cu's measured designs.
-// 2. One product (`gemm_kernel`, mma.sync over the K-major weights) covers
-//    the three weights: its grid runs over 3 * W / 128 column tiles x row
-//    tiles, columns fastest, so the blocks in flight share their rows of
-//    codes and the 4 MB of weights stay in L2; the epilogue dequantizes,
-//    adds the bias and writes each output once.
-// Not yet done: int8_wgmma.cuh's s8 TMA + wgmma product, a persistent grid.
+// What the design does about that: two launches.
+// 1. The row pass (int8.cuh `row_quant_kernel` with the LayerNorm) reads x
+//    once, the row held in a warp's registers, normalizes it in f32 and
+//    writes its int8 codes (21 MB at batch 32) and one f32 scale per row.
+//    The TPU kernel keeps the row tile in VMEM; normalizing inside the
+//    product's K loop would redo it once per column tile (27 times at W =
+//    1152), which stalled the tensor cores in ln_qkv.cu's measured designs.
+// 2. One launch of int8_wgmma.cuh's s8 TMA + wgmma product (epilogue kOut)
+//    covers the three weights: its persistent blocks walk 3 * W / 128
+//    column tiles x 256-row tiles, columns fastest across q, k and v, so
+//    the tiles in flight share their rows of codes and the weights (4 MB at
+//    W = 1152, 7 MB at 1536) stay in L2; the epilogue dequantizes, adds the
+//    bias and writes each output once (bf16 through shared memory, 16
+//    bytes a store).
 
-#include "int8.cuh"
+#include "int8_wgmma.cuh"
 
 namespace i8 = clipk::i8;
+namespace i8w = clipk::i8w;
 
 namespace {
 
@@ -40,9 +42,11 @@ int run(const void* x, const void* gamma, const void* beta, void* xq, void* xs,
   cudaError_t err =
       i8::launch_row_quant<T, i8::kNorm>(x, gamma, beta, xq, xs, rows, width, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  i8::GemmArgs args{};
-  for (int i = 0; i < 3; ++i) args.m[i] = i8::make_mat(w[i], s[i], b[i], out[i]);
-  return (int)i8::launch_gemm<T>(xq, xs, args, 3, rows, width, width, stream);
+  i8w::Args args{static_cast<const float*>(xs), {}, 3, nullptr, nullptr, rows, width, width,
+                 0, 0};
+  for (int i = 0; i < 3; ++i)
+    args.o[i] = {static_cast<const float*>(s[i]), static_cast<const float*>(b[i]), out[i]};
+  return (int)i8w::launch_gemm<T, i8w::kOut>(xq, w, args, stream);
 }
 
 }  // namespace

@@ -57,11 +57,13 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every ``csrc/*.cu`` not yet built, all ``nvcc`` processes at
-    once. Returns {stem: library path}; the compiler's output (registers,
-    shared memory, spills) is kept beside each library as ``.log``."""
-    todo = {src.stem: (src, _lib_path(src)) for src in sources()}
+def build_all(stems=None) -> dict[str, Path]:
+    """Compile every ``csrc/*.cu`` (or those of ``stems``) not yet built, all
+    ``nvcc`` processes at once. Returns {stem: library path}; the compiler's
+    output (registers, shared memory, spills) is kept beside each library as
+    ``.log``."""
+    todo = {src.stem: (src, _lib_path(src)) for src in sources()
+            if stems is None or src.stem in stems}
     missing = {k: v for k, v in todo.items() if not v[1].is_file()}
     if missing:
         nvcc = find_nvcc()
@@ -88,12 +90,13 @@ def build_all() -> dict[str, Path]:
 
 
 def library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu`` (builds on first
-    use)."""
+    """The loaded library built from ``csrc/<stem>.cu``: if it is not built
+    yet, every source not yet built is, at once."""
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[stem]))
+            path = _lib_path(CSRC / f"{stem}.cu")
+            lib = ctypes.CDLL(str(path if path.is_file() else build_all()[stem]))
             _libs[stem] = lib
         return lib
 

@@ -325,6 +325,90 @@ def test_ln_qkv_int8_kernel_matches_plain(dev, rows, width, dtype):
         assert_rows_close(g, r, dtype)
 
 
+@pytest.mark.parametrize("rows,width", [
+    pytest.param(32 * 576, 1152, id="multi_wave"),   # 1944 tiles of 256 x 128 over 132 SMs
+    pytest.param(3 * 61, 272, id="ragged_columns"),  # each weight ends in a 16-column tile
+    pytest.param(37, 128, id="rows_under_64"),
+    pytest.param(130, 64, id="k64"),                 # the 128-byte K box runs past K
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_qkv_int8_wgmma_three_weight_walk(dev, rows, width, dtype):
+    """The three weights' column tiles in one walk over the shared codes:
+    every (weight, column, row) tile once, the right weight's scales, bias
+    and output for each, at the edges TMA zero-fills."""
+    rng = np.random.default_rng(50 + width)
+    params = {n: _qlinear(rng, width, width, dtype, dev) for n in "qkv"}
+    _, pre_ln, x = _qkv_inputs(rows, width, dtype, dev, seed=51)
+    got = qkv.ln_qkv_int8(params, pre_ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    for g, r in zip(got, qkv.ln_qkv_int8_plain(params, pre_ln, x, eps=1e-6)):
+        assert_rows_close(g, r, dtype)
+
+
+@pytest.mark.parametrize("rows,k_in,k_out", [
+    pytest.param(32 * 576, 1152, 1152, id="multi_wave"),
+    pytest.param(3 * 61, 272, 272, id="ragged_columns"),
+    pytest.param(37, 128, 384, id="rows_under_64"),
+    pytest.param(130, 64, 128, id="k64"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_int8_linear_fused_wgmma_edges(dev, rows, k_in, k_out, dtype, with_residual):
+    """One weight on the s8 wgmma product with the kOut epilogue: bf16
+    staged through shared memory (the residual read and the output written
+    in 16-byte chunks), f32 from the registers."""
+    rng = np.random.default_rng(60 + k_in)
+    p = _qlinear(rng, k_in, k_out, dtype, dev)
+    x = torch.from_numpy(_arr(rng, rows, k_in)).to(dev, dtype)
+    r = torch.from_numpy(_arr(rng, rows, k_out)).to(dev, dtype) if with_residual else None
+    got = int8_mlp.int8_linear_fused(p, x, residual=r)
+    torch.cuda.synchronize()
+    assert_rows_close(got, int8_mlp.int8_linear_fused_plain(p, x, residual=r), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_qkv_and_linear_all_zero_row(dev, dtype):
+    """A row of zeros (for ln_qkv_int8 under a LayerNorm without bias, so
+    that it normalizes to zeros): amax 0, scale 1, codes 0, and the row's
+    output is the bias [+ residual] exactly."""
+    rng = np.random.default_rng(70)
+    width = 256
+    params = {n: _qlinear(rng, width, width, dtype, dev) for n in "qkv"}
+    _, pre_ln, x = _qkv_inputs(70, width, dtype, dev, seed=71)
+    pre_ln = {**pre_ln, "bias": torch.zeros_like(pre_ln["bias"])}
+    x[5] = 0.0
+    got = qkv.ln_qkv_int8(params, pre_ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    for g, r, n in zip(got, qkv.ln_qkv_int8_plain(params, pre_ln, x, eps=1e-6), "qkv"):
+        torch.testing.assert_close(g[5], params[n]["b"], atol=0, rtol=0)
+        assert_rows_close(g, r, dtype)
+    res = torch.from_numpy(_arr(rng, 70, width)).to(dev, dtype)
+    got = int8_mlp.int8_linear_fused(params["q"], x, residual=res)
+    torch.cuda.synchronize()
+    want = (params["q"]["b"].float() + res[5].float()).to(dtype)
+    torch.testing.assert_close(got[5], want, atol=0, rtol=0)
+    assert_rows_close(got, int8_mlp.int8_linear_fused_plain(params["q"], x, residual=res),
+                      dtype)
+
+
+@pytest.mark.parametrize("width", [1536, 1552])  # the held row's last width, and one past it
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_row_pass_register_limit(dev, width, dtype):
+    """The row pass holds rows up to 1536 values in a warp's registers and
+    walks wider ones in device memory; both sides of the limit, with the
+    LayerNorm (ln_qkv_int8) and without (int8_linear_fused)."""
+    rng = np.random.default_rng(80 + width)
+    params = {n: _qlinear(rng, width, width, dtype, dev) for n in "qkv"}
+    _, pre_ln, x = _qkv_inputs(67, width, dtype, dev, seed=81)
+    got = qkv.ln_qkv_int8(params, pre_ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    for g, r in zip(got, qkv.ln_qkv_int8_plain(params, pre_ln, x, eps=1e-6)):
+        assert_rows_close(g, r, dtype)
+    got = int8_mlp.int8_linear_fused(params["k"], x, residual=x)
+    torch.cuda.synchronize()
+    assert_rows_close(got, int8_mlp.int8_linear_fused_plain(params["k"], x, residual=x), dtype)
+
+
 @pytest.mark.parametrize("rows,k_in,hidden", [(2 * 61, 64, 272), (3 * 17, 256, 1040),
                                               (2 * 576, 1152, 4304)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,6 +6,7 @@ agrees with the JAX ``Clip`` on the same inputs."""
 import json
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -82,6 +83,28 @@ def test_agrees_with_jax_clip(clips, name):
     got = clip.rank_images(images, TEXTS[1])
     ref = jclip.rank_images(images, TEXTS[1])
     assert [i for i, _ in got] == [i for i, _ in ref]
+
+
+@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("quantize", [None, "int8", "int8_all"])
+def test_agrees_with_jax_clip_in_bf16(name, quantize):
+    """bf16 weights and activations in both packages, under each quantize
+    mode: image and text embeddings at cosine >= 1 - 1e-3, the budget the
+    JAX package grants its int8 modes against bf16
+    (clip_embedder_tpu/ops/quant.py). The two frameworks round bf16 at other
+    places, so this holds the algorithm, not the bits; a bias rounded twice
+    or an activation taken in bf16 moves a 64-wide model past it."""
+    fixture = FIXTURES / name
+    clip = Clip.from_local_dir(fixture, device="cpu", dtype=torch.bfloat16, quantize=quantize)
+    jclip = JaxClip.from_local_dir(fixture, dtype=jnp.bfloat16, quantize=quantize)
+    rng = np.random.default_rng(1)
+    images = [np.load(fixture / "golden_image.npy"),
+              rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)]
+    texts = TEXTS + ["an unusually long caption " * 8]
+    assert cosines(clip.vision.embed_images(images),
+                   jclip.vision.embed_images(images)).min() >= 1 - 1e-3
+    assert cosines(clip.text.embed_texts(texts), jclip.text.embed_texts(texts)).min() \
+        >= 1 - 1e-3
 
 
 @pytest.mark.parametrize("name", [p.name for p in sorted(FIXTURES.iterdir())
