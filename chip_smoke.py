@@ -4,6 +4,7 @@ card, in phases, and fail loudly if any phase fails.
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --int8   # phases 1-2 for the int8 sources, phase 3's int8 kernels
+    python3 chip_smoke.py --masks  # phases 1-2 for flash_packed, its time by mask form
 
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
@@ -42,7 +43,16 @@ card, in phases, and fail loudly if any phase fails.
    ``Clip`` in bf16, ``"int8"`` and ``"int8_all"`` (its vision MLPs take the
    streamed int8 MLP, kernel 7): unit norms, launch counts, kernel path
    against plain path, images/s and p50, and device time by kernel group
-   in each mode.
+   in each mode;
+8. masked towers — BiomedCLIP-PubMedBERT_256-vit_base_patch16_224 (BERT-base
+   text: kernel 2's per-batch key mask) in bf16 and ``"int8_all"``, and
+   coca_ViT-L-14 (attentional pool; text with the causal + cls mask: kernel
+   2's per-batch full form) in bf16, at full width and depth with seeded
+   random weights, through ``Clip``: ``embed_images``, ``embed_texts`` on
+   captions of distinct lengths and ``classify``, launch counts per call
+   (the masked launches by form), both towers against the plain path,
+   images/s, texts/s and device time by kernel group. Phase 3 holds and
+   times kernel 2 with those masks at their shapes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -293,6 +303,113 @@ def phase_kernels(dev, peaks) -> dict:
             "ms": t_fl, "plain_ms": t_fl_plain, "bound_ms": b_fl, "bound_by": by_fl,
             "library_ms": t_fl_lib},
     }
+
+
+def key_mask(b, s, dev):
+    """BERT's [B, 1, 1, S] key mask: a different key length in every batch
+    row (row 2 none at all: every key masked, as bucket padding makes),
+    -1e30 on the masked keys."""
+    lengths = torch.tensor([s if i == 0 else 0 if i == 2 else 1 + (i * 37) % s
+                            for i in range(b)])
+    valid = torch.arange(s)[None, :] < lengths[:, None]
+    return torch.where(valid, 0.0, -1e30)[:, None, None, :].to(dev)
+
+
+def full_mask(b, s, dev):
+    """CoCa text's [B, 1, S, S] mask: causal plus open_clip's cls mask of
+    S - 1 ids whose pad counts differ in every batch row (only the cls row,
+    query S - 1, differs between rows)."""
+    from clip_embedder_tpu_torch.models.text_transformer import cls_mask
+    from clip_embedder_tpu_torch.ops.attention import causal_mask
+
+    ids = torch.full((b, s - 1), 7)
+    for i in range(b):
+        n = (i * 5) % (s - 1)
+        if n:
+            ids[i, -n:] = 0
+    return (causal_mask(s) + cls_mask(ids, 0)).to(dev)
+
+
+def phase_mask_kernels(dev, peaks) -> dict:
+    """Kernel 2's per-batch masks at the shapes phase 8 gives them: BERT-base's
+    key mask (q/k/v [32, 256, 768], 12 heads) and CoCa text's full mask
+    ([32, 77, 768], 12 heads), exact and fast + bf16 exp against the plain
+    version (the all-masked batch row and the cls query each held on their
+    own as well), then timed beside the plain version, SDPA with the same
+    float mask, and the bound (q, k, v, out and the mask moved once)."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import flash
+
+    say("[3] flash_attention_packed with per-batch masks (BERT-base key rows, CoCa text's "
+        "causal + cls blocks)")
+    b, heads, hdim = 32, 12, 64
+    out = {}
+    for form, s, make in (("key", 256, key_mask), ("full", 77, full_mask)):
+        mask = make(b, s, dev)
+        q, k, v = attn_inputs(b, heads, s, hdim, torch.bfloat16, dev, seed=9)
+        own_row = (slice(2, 3), slice(None)) if form == "key" else (slice(None), slice(-1, None))
+        for label, kw in (("exact", {}), ("fast_softmax+exp_bf16",
+                                          {"fast_softmax": True, "exp_bf16": True})):
+            got = flash.flash_attention_packed(q, k, v, num_heads=heads, mask=mask, **kw)
+            torch.cuda.synchronize()
+            ref = flash.flash_attention_packed_plain(q, k, v, num_heads=heads, mask=mask, **kw)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{form} mask {label}: non-finite output")
+            err = hold(f"flash_attention_packed {form} mask B=32 H=12 S={s} D=64 {label} bf16",
+                       [got], [ref], 2e-2, 2e-2)
+            hold(f"  the {'all-masked batch row' if form == 'key' else 'cls query (row 76)'} "
+                 "on its own", [got[own_row]], [ref[own_row]], 2e-2, 2e-2)
+            if label == "exact":
+                err_exact = err
+        t_k = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, mask=mask))
+        t_fast = cuda_ms(lambda: flash.flash_attention_packed(
+            q, k, v, num_heads=heads, mask=mask, fast_softmax=True, exp_bf16=True))
+        t_none = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads))
+        t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads,
+                                                                 mask=mask))
+        qh, kh, vh = (t.view(b, s, heads, hdim).transpose(1, 2) for t in (q, k, v))
+        lib_mask = mask.to(q.dtype)
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=lib_mask))
+        bound, by, ops, nbytes = attn_bound(b, heads, s, hdim, peaks,
+                                            extra_bytes=mask.numel() * 4)
+        say(f"  flash_attention_packed {form} mask [32, {s}, 768] 12x64: exact {t_k:.4f} ms, "
+            f"fast+exp_bf16 {t_fast:.4f} ms (the same q, k, v without a mask: exact "
+            f"{t_none:.4f} ms); plain {t_p:.4f} ms; F.scaled_dot_product_attention "
+            f"with the same float mask {t_l:.4f} ms; bound {bound:.4f} ms ({ops:.3e} FLOP, "
+            f"{nbytes:.3e} B, {by})")
+        out[f"flash_attention_packed[{form}_mask]"] = {
+            "name": f"flash_attention_packed[{form}_mask]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/flash_packed.cu",
+            "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err_exact,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+    return out
+
+
+def mask_path_table(dev) -> None:
+    """The packed kernel's time (bf16, 12 x 64 heads, batch 32, CUDA events,
+    median of 20) by mask, exact and fast + bf16 exp: none, a shared [S, S]
+    zero mask, zero key rows, BERT's key rows (``key_mask``) and, at S = 77,
+    CoCa's blocks (``full_mask``), at S = 256, 77 and 576 (``--masks``: what
+    the masked path costs beside the plain one)."""
+    from clip_embedder_tpu_torch.ops import flash
+
+    say("[3] flash_attention_packed by mask form, B=32 H=12 D=64 bf16 (ms, CUDA events, "
+        "median of 20; /fast: fast_softmax + exp_bf16)")
+    b, h, d = 32, 12, 64
+    for s in (256, 77, 576):
+        q, k, v = attn_inputs(b, h, s, d, torch.bfloat16, dev, seed=9)
+        masks = {"none": None, "shared0": torch.zeros(s, s, device=dev),
+                 "key0": torch.zeros(b, 1, 1, s, device=dev), "key": key_mask(b, s, dev)}
+        if s == 77:
+            masks["full"] = full_mask(b, s, dev)
+        row = {}
+        for name, m in masks.items():
+            for fast in (False, True):
+                row[f"{name}{'/fast' if fast else ''}"] = cuda_ms(
+                    lambda: flash.flash_attention_packed(q, k, v, num_heads=h, mask=m,
+                                                         fast_softmax=fast, exp_bf16=fast))
+        say(f"  S={s}: " + "; ".join(f"{name} {t:.4f}" for name, t in row.items()))
 
 
 def rope_library(q, k, v, heads, sin, cos):
@@ -823,45 +940,56 @@ def phase_fixtures_quantized(device) -> None:
 # ---------------------------------------------------------------------------
 
 def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None,
-               model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS):
+               model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS, tokenizer="golden_siglip"):
     """A ``Clip`` of ``model`` (ViT-SO400M-16-SigLIP2-384 unless given) with
     seeded random weights, resolved through the port's config → build
-    (``layers``/``vocab_size`` cut it for a CPU rehearsal); ``quantize``
-    converts those same weights on the device, as ``from_local_dir(...,
-    quantize=...)`` converts loaded ones."""
+    (``layers``/``vocab_size`` cut it for a CPU rehearsal), with the
+    tokenizer and scoring config of the fixture ``tokenizer`` (its ids are
+    under 512); ``quantize`` converts those same weights on the device, as
+    ``from_local_dir(..., quantize=...)`` converts loaded ones."""
     import copy
 
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
     from clip_embedder_tpu_torch.config import ModelConfig, OpenClipConfig
-    from clip_embedder_tpu_torch.models import text_transformer, vit
+    from clip_embedder_tpu_torch.models import vit
     from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
-    from clip_embedder_tpu_torch.text import configure_tokenizer
+    from clip_embedder_tpu_torch.text import (configure_tokenizer, text_tower,
+                                              with_tokenizer_pad_id)
     from clip_embedder_tpu_torch.tokenizer import Tokenizer
     from clip_embedder_tpu_torch.vision import quantize_params
+    from clip_embedder_tpu_torch.weights import _family_init
 
     model_cfg = copy.deepcopy(model)
+    vcfg, tcfg = model_cfg["vision_cfg"], model_cfg["text_cfg"]
+    hf_cfg = tcfg.get("hf_config")
     if layers is not None:
-        pe = "_pe_core_" in model_cfg["vision_cfg"]["timm_model_name"]
-        model_cfg["vision_cfg"]["pe_cfg" if pe else "vit_cfg"] = {"layers": layers}
-        model_cfg["text_cfg"]["layers"] = layers
+        name = vcfg.get("timm_model_name", "")
+        if name:
+            vcfg["pe_cfg" if "_pe_core_" in name else "vit_cfg"] = {"layers": layers}
+        else:
+            vcfg["layers"] = layers
+        if hf_cfg:
+            hf_cfg["num_hidden_layers"] = layers
+        else:
+            tcfg["layers"] = layers
     if vocab_size is not None:
-        model_cfg["text_cfg"]["vocab_size"] = vocab_size
+        (hf_cfg or tcfg)["vocab_size"] = vocab_size
     config = OpenClipConfig.from_dict({"model_cfg": model_cfg, "preprocess_cfg": preprocess})
-    fixture = FIXTURES / "golden_siglip"  # tokenizer (ids < 512) + scoring config
+    fixture = FIXTURES / tokenizer
     model_config = ModelConfig.from_file(fixture / "model_config.json")
-    tokenizer = Tokenizer.from_file(fixture / "tokenizer.json")
-    configure_tokenizer(tokenizer, model_config, config.model_cfg.text_cfg.context_length)
-    vspec, tspec = resolve_vision(config.model_cfg), resolve_text(config.model_cfg)
+    tok = Tokenizer.from_file(fixture / "tokenizer.json")
+    pad_id = configure_tokenizer(tok, model_config, config.model_cfg.text_cfg.context_length)
+    vspec = resolve_vision(config.model_cfg)
+    tspec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
     gen = torch.Generator(device=device).manual_seed(seed)
     vparams = vit.init(vspec.cfg, generator=gen, device=device, dtype=dtype)
-    tparams = text_transformer.init(tspec.cfg, generator=gen, device=device, dtype=dtype)
+    tparams = _family_init(tspec.family)(tspec.cfg, generator=gen, device=device, dtype=dtype)
     vtower = vit.ViT(vspec.cfg, quantize_params(vparams, vspec, quantize, device, dtype))
-    ttower = text_transformer.TextTransformer(
-        tspec.cfg, quantize_params(tparams, tspec, quantize, device, dtype))
+    ttower = text_tower(tspec, quantize_params(tparams, tspec, quantize, device, dtype))
     common = {"config": config, "model_config": model_config, "model_dir": fixture,
               "device": device, "dtype": dtype, "quantize": quantize}
     vision = VisionEmbedder(tower=vtower, spec=vspec, **common)
-    text = TextEmbedder(tower=ttower, spec=tspec, tokenizer=tokenizer, **common)
+    text = TextEmbedder(tower=ttower, spec=tspec, tokenizer=tok, **common)
     return Clip(vision=vision, text=text, model_dir=fixture), vspec, tspec
 
 
@@ -1039,9 +1167,20 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def mask_launch_counts() -> dict:
+    """The packed kernel's launches with a mask, by form (shared, key, full)."""
+    from clip_embedder_tpu_torch.ops import flash
+
+    return dict(flash.flash_attention_packed.mask_launches)
+
+
 def reset_launch_counts() -> None:
+    from clip_embedder_tpu_torch.ops import flash
+
     for fn in _wrappers().values():
         fn.launches = 0
+    flash.flash_attention_packed.mask_launches = dict.fromkeys(
+        flash.flash_attention_packed.mask_launches, 0)
 
 
 def expected_int8_launches(mode, depth_v, depth_t, *, streamed=False) -> dict:
@@ -1171,12 +1310,12 @@ def free_device_memory() -> None:
         torch.cuda.empty_cache()
 
 
-def hold_pe_towers(clip, vspec, tspec, embs, images, mode, label) -> None:
+def hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=LABELS) -> None:
     """Both towers' kernel path against the plain path (eager for bf16, the
     plain int8 wrappers for the int8 modes) at min cosine 0.999: the vision
-    tower on ``images`` (``embs`` is its kernel run), the text tower on the
-    labels, whose kernels run at their own shapes (20 x 64 heads, the causal
-    mask, W = 1280, MLP 5120)."""
+    tower on ``images`` (``embs`` is its kernel run), the text tower on
+    ``texts`` (PE-Core's: the labels, whose kernels run at the text tower's
+    own shapes: 20 x 64 heads, the causal mask, W = 1280, MLP 5120)."""
     from clip_embedder_tpu_torch import TextEmbedder, VisionEmbedder
 
     kernel = {"vision": clip.vision.embed_images, "text": clip.text.embed_texts}
@@ -1198,7 +1337,7 @@ def hold_pe_towers(clip, vspec, tspec, embs, images, mode, label) -> None:
         plain = {name: plain_of(fn) for name, fn in kernel.items()}
         what = "the plain int8 wrappers"
     runs = {"vision": (clip.vision.tower, embs, images),
-            "text": (clip.text.tower, kernel["text"](LABELS), LABELS)}
+            "text": (clip.text.tower, kernel["text"](texts), texts)}
     for name, (tower, got, inputs) in runs.items():
         cos = cosines(got, plain[name](inputs))
         say(f"  {name}: kernel path vs {what} (same weights): min cosine {cos.min():.6f}, "
@@ -1208,8 +1347,8 @@ def hold_pe_towers(clip, vspec, tspec, embs, images, mode, label) -> None:
                                     lambda: plain[name](inputs[:2]))
             say("  per-block least token cosine, kernel vs plain: "
                 + ", ".join(f"{c:.6f}" for c in per))
-            raise AssertionError(f"PE-Core {label}: the {name} tower's kernel path disagrees "
-                                 f"with {what}")
+            raise AssertionError(f"{label}: the {name} tower's kernel path disagrees with "
+                                 f"{what}")
 
 
 def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
@@ -1255,13 +1394,190 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
             if counts != want:
                 raise AssertionError(f"PE-Core {label}: launches {counts}, expected {want}")
 
-        hold_pe_towers(clip, vspec, tspec, embs, images, mode, label)
+        hold_towers(clip, vspec, tspec, embs, images, mode, f"PE-Core {label}")
         out[label] = {"launches": counts, "vision_layers": v.layers}
         if timed:
             out[label].update(time_embedder(clip.vision, arrays, f"PE-Core {label}"))
             out[label]["breakdown"] = profile_embedder(clip.vision, arrays, f"PE-Core {label}")
         del clip
         free_device_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the towers that send kernel 2 its per-batch masks
+# ---------------------------------------------------------------------------
+
+# microsoft/BiomedCLIP-PubMedBERT_256-vit_base_patch16_224 as the repo records
+# it (tests/test_reference_model_list.py, reference README.md:143): timm
+# vit_base_patch16_224 (12 x 768, 197 tokens), BERT-base text (12 x 768,
+# context 256, vocab 30522), cls pooler, mlp projection to 512.
+BIOMEDCLIP = {
+    "embed_dim": 512,
+    "vision_cfg": {"image_size": 224, "timm_model_name": "vit_base_patch16_224"},
+    "text_cfg": {
+        "context_length": 256,
+        "hf_model_name": "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract",
+        "hf_tokenizer_name": "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract",
+        "proj": "mlp",
+        "pooler_type": "cls_last_hidden_state_pooler",
+        "hf_config": {"model_type": "bert", "vocab_size": 30522, "hidden_size": 768,
+                      "num_hidden_layers": 12, "num_attention_heads": 12,
+                      "intermediate_size": 3072, "max_position_embeddings": 512,
+                      "type_vocab_size": 2, "pad_token_id": 0, "layer_norm_eps": 1e-12,
+                      "hidden_act": "gelu"},
+    },
+}
+# open_clip model_configs/coca_ViT-L-14.json (benches/bench_suite.py
+# "coca_vit_l14_224"): vision 24 x 1024, patch 14 at 224 (257 tokens), the
+# boolean attentional pooler (256 queries, 8 heads, in the 768-wide embed
+# space); text 12 x 768, context 76 plus the appended cls, causal. Its
+# multimodal decoder makes captions, not embeddings, and is not built.
+COCA_VIT_L_14 = {
+    "embed_dim": 768,
+    "vision_cfg": {"image_size": 224, "layers": 24, "width": 1024, "patch_size": 14,
+                   "attentional_pool": True, "attn_pooler_heads": 8, "output_tokens": True},
+    "text_cfg": {"context_length": 76, "vocab_size": 49408, "layers": 12, "heads": 12,
+                 "width": 768, "embed_cls": True, "output_tokens": True},
+}
+# open_clip's OpenAI mean and std (both configs' preprocess)
+OPENAI_PREPROCESS = {"mean": [0.48145466, 0.4578275, 0.40821073],
+                     "std": [0.26862954, 0.26130258, 0.27577711],
+                     "interpolation": "bicubic", "resize_mode": "shortest"}
+# label, config, tokenizer fixture, the text tower's mask form, the longest
+# caption in words (every word one token), the modes run
+MASKED_MODELS = (
+    ("BiomedCLIP", BIOMEDCLIP, "golden_hf_bert", "key", 250, (None, "int8_all")),
+    ("coca_ViT-L-14", COCA_VIT_L_14, "golden_siglip", "full", 70, (None,)),
+)
+
+
+def captions(n: int, max_words: int) -> list[str]:
+    """``n`` captions of distinct lengths from 1 to ``max_words`` words, each
+    word one token of the fixtures' tokenizers: every row of a batch pads
+    (and so masks) a different number of keys."""
+    words = ("a", "photo", "of", "the", "cat", "dog")
+    counts = np.linspace(1, max_words, n).round().astype(int)
+    return [" ".join(words[j % len(words)] for j in range(c)) for c in counts]
+
+
+def tower_launches(family: str, mode, depth: int) -> dict:
+    """The kernel launches of one forward of a phase-8 tower, by wrapper,
+    from the gates: every block's self-attention takes the packed kernel
+    (12 x 64 and 16 x 64 heads form 128-lane groups); pre-LN blocks fuse
+    their LayerNorm with q/k/v (ln_qkv, or ln_qkv_int8 under int8_all, with
+    the out-projection and its residual on int8_linear_fused); BERT is
+    post-LN, so under int8_all its q, k, v and out-projection take the
+    linear gate (int8_linear_fused without a residual, at 128 rows or more);
+    quantized MLPs take int8_mlp. The poolers' cross-attention and the
+    output projections launch nothing."""
+    n = dict.fromkeys(_wrappers(), 0)
+    n["flash_attention_packed"] = depth
+    if family == "hf_bert":
+        n["int8_linear_fused"] = 4 * depth if mode == "int8_all" else 0
+    elif mode == "int8_all":
+        n["ln_qkv_int8"] = n["int8_linear_fused"] = depth
+    else:
+        n["ln_qkv"] = depth
+    n["int8_mlp"] = depth if mode else 0
+    return n
+
+
+def time_texts(text, texts, label) -> dict:
+    """texts/s at the batch of ``texts`` (median of 5 calls, host clock)."""
+    text.embed_texts(texts)  # warm-up
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        text.embed_texts(texts)
+        times.append(time.perf_counter() - t)
+    tps = len(texts) / statistics.median(times)
+    say(f"  {label}: {tps:.2f} texts/s at batch {len(texts)} (median of 5, host clock, "
+        "tokenization included)")
+    return {"texts_per_s": tps}
+
+
+def phase_masked_towers(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
+                        batch=32, timed=True) -> dict:
+    """BiomedCLIP (BERT text: kernel 2's key mask) and coca_ViT-L-14 (text:
+    its full mask) at full width and depth, seeded random weights, through
+    ``Clip``: ``embed_images`` on ``mixed_batch``, ``embed_texts`` on
+    captions of distinct lengths, one ``classify``, in ``dtype`` and, for
+    BiomedCLIP, under ``int8_all`` (quantized on the device). Launch counts
+    asserted per call (the masked launches by form), both towers held
+    against the plain path, img/s and texts/s, device time by kernel group.
+    Each model is freed before the next (``layers``/``vocab_size`` cut them
+    for a CPU rehearsal)."""
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    free_device_memory()  # the earlier phases' models
+    images = mixed_batch(batch)
+    arrays = [to_rgb_array(im) for im in images]
+    out = {}
+    for name, model, tokenizer, form, max_words, modes in MASKED_MODELS:
+        texts = captions(batch, max_words)
+        for mode in modes:
+            label = f"{name} {mode or str(dtype).removeprefix('torch.')}"
+            say(f"[8] {label}, random weights (seed 0)")
+            t0 = time.perf_counter()
+            clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                            quantize=mode, model=model,
+                                            preprocess=OPENAI_PREPROCESS, tokenizer=tokenizer)
+            v, t = vspec.cfg, tspec.cfg
+            say(f"  built vision {v.layers}x{v.width} ({v.seq_len} tokens, {v.heads}x"
+                f"{v.head_dim} heads, pool {v.pool}), text {tspec.family} {t.layers}x{t.width} "
+                f"({t.heads} heads, ctx {t.context_length}, pad id {t.pad_id}) in "
+                f"{time.perf_counter() - t0:.1f} s; attn_impl={clip.vision.attn_impl}")
+            reset_launch_counts()
+            calls = {}
+            embs = clip.vision.embed_images(images)
+            calls["embed_images"] = (launch_counts(), mask_launch_counts())
+            reset_launch_counts()
+            temb = clip.text.embed_texts(texts)
+            calls["embed_texts"] = (launch_counts(), mask_launch_counts())
+            results = clip.classify(images[0], LABELS)
+            n_cls, m_cls = launch_counts(), mask_launch_counts()
+            calls["classify"] = ({k: n_cls[k] - calls["embed_texts"][0][k] for k in n_cls},
+                                 {k: m_cls[k] - calls["embed_texts"][1][k] for k in m_cls})
+            for what, e, dim in (("embed_images", embs, v.embed_dim),
+                                 ("embed_texts", temb, t.embed_dim)):
+                norms = np.linalg.norm(e, axis=-1)
+                say(f"  {what}: {e.shape}, norms in [{norms.min():.6f}, {norms.max():.6f}]")
+                if e.shape != (batch, dim) or not np.isfinite(e).all() \
+                        or np.abs(norms - 1).max() > 1e-2:
+                    raise AssertionError(f"{label}: {what} returned bad embeddings")
+            probs = [p for _, p in results]
+            say(f"  classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
+            if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
+                raise AssertionError(f"{label}: classify returned bad probabilities")
+            for what, (n, m) in calls.items():
+                say(f"  launches, {what}: {n}; with a mask, by form: {m}")
+            if device == "cuda":
+                vis = tower_launches("vit", mode, v.layers)
+                txt = tower_launches(tspec.family, mode, t.layers)
+                want = {"embed_images": (vis, {}), "embed_texts": (txt, {form: t.layers}),
+                        "classify": ({k: vis[k] + txt[k] for k in vis}, {form: t.layers})}
+                for what, (n, m) in calls.items():
+                    wn, wm = want[what]
+                    wm = {f: wm.get(f, 0) for f in m}
+                    if n != wn or m != wm:
+                        raise AssertionError(f"{label}: {what} launched {n} (masked {m}), "
+                                             f"expected {wn} (masked {wm})")
+            hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=texts)
+            out[label] = {"launches": n_cls, "mask_launches": m_cls, "form": form}
+            if timed:
+                out[label].update(time_embedder(clip.vision, arrays, label))
+                out[label].update(time_texts(clip.text, texts, label))
+                out[label]["breakdown"] = profile_embedder(clip.vision, arrays, label)
+                bd = device_breakdown(lambda: clip.text.embed_texts(texts))
+                groups = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(
+                    bd["groups_ms"].items(), key=lambda kv: -kv[1]))
+                say(f"  {label} embed_texts batch {batch} under torch.profiler: device ms by "
+                    f"kernel group: {groups}; busy {bd['busy_ms']:.3f} of {bd['wall_ms']:.3f} ms "
+                    f"wall, idle share {bd['idle_share']:.3f}")
+                out[label]["text_breakdown"] = bd
+            del clip
+            free_device_memory()
     return out
 
 
@@ -1307,7 +1623,7 @@ def int8_sass_report(libs) -> None:
 
 
 def main(argv) -> int:
-    int8_only = "--int8" in argv
+    int8_only, masks_only = "--int8" in argv, "--masks" in argv
     say("[1] environment")
     if not torch.cuda.is_available():
         say("  torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1330,7 +1646,8 @@ def main(argv) -> int:
 
     say("[2] build")
     t = time.perf_counter()
-    libs = kernels.build_all(INT8_SOURCES if int8_only else None)
+    libs = kernels.build_all(INT8_SOURCES if int8_only else ("flash_packed",) if masks_only
+                             else None)
     say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for stem, path in sorted(libs.items()):
@@ -1338,6 +1655,10 @@ def main(argv) -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line:
                 say(f"  {stem}: {line.strip()}")
+    if masks_only:  # the packed kernel's masked path alone: no result line
+        mask_path_table(dev)
+        say(card)
+        return 0
     int8_sass_report(libs)
     if int8_only:  # a quick look at the int8 kernels alone: no result line
         phase_int8_kernels(dev, peaks)
@@ -1346,6 +1667,7 @@ def main(argv) -> int:
         return 0
 
     record = phase_kernels(dev, peaks)
+    record.update(phase_mask_kernels(dev, peaks))
     pe_attn = phase_pe_attention_kernels(dev, peaks)
     record["flash_attention"] = pe_attn["flash_attention"]
     record.update(phase_int8_kernels(dev, peaks))
@@ -1354,9 +1676,12 @@ def main(argv) -> int:
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
     pe_core = phase_pe_core("cuda")
+    masked = phase_masked_towers("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
-    # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP
+    # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
+    # the packed kernel's masked forms from phase 8's text towers (one
+    # embed_texts plus one classify: BiomedCLIP's key rows, CoCa's blocks)
     record["flash_attention"]["launches"] = fixtures["flash_attention"]
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
@@ -1364,6 +1689,10 @@ def main(argv) -> int:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][
         "int8_mlp_streamed"]
+    for run in ("BiomedCLIP bfloat16", "coca_ViT-L-14 bfloat16"):
+        form = masked[run]["form"]
+        record[f"flash_attention_packed[{form}_mask]"]["launches"] = \
+            masked[run]["mask_launches"][form]
     rope = pe_attn["rope"]
     say(f"flash_attention_packed with rope (PE-Core-bigG): {rope['ms']:.4f} ms, plain "
         f"{rope['plain_ms']:.4f} ms, library {rope['library_ms']:.4f} ms, bound "

@@ -38,6 +38,7 @@ extern "C" int flash_bhsd_launch(const void* q, const void* k, const void* v, co
   a.k = k;
   a.v = v;
   a.mask = static_cast<const float*>(mask);
+  a.mask_row_stride = mask == nullptr ? 0 : seq;
   a.out = out;
   a.batch_stride = (long long)heads * seq * d;
   a.head_stride = (long long)seq * d;

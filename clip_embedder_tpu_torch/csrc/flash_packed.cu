@@ -10,6 +10,12 @@
 // folds into q. The attention's arithmetic is flash.cuh's (shared with
 // flash_bhsd.cu, kernel 3).
 //
+// Masks: the JAX kernel's four forms (one shared [S, S] mask, and per batch
+// element a key row [B, 1, 1, S] or a full [B, 1, S, S] block) are one
+// additive f32 array read through a batch stride and a row stride
+// (flash.cuh `Attn`): the block of batch element b reads its own rows, and
+// a key row is read with row stride 0 by every query row.
+//
 // What bounds it on the H100: at the SO400M shape (S = 576, D = 72) it does
 // 4*S*D FLOP per query row against 4*D*2 bytes of q/k/v/out per row: S/2 =
 // 288 FLOP per byte, at the card's ridge (~295), so by the data-sheet peaks
@@ -92,22 +98,35 @@ int launch_rope(const void* q, const void* k, const void* sin, const void* cos, 
 
 }  // namespace
 
-// q/k/v/out: [batch, seq, heads*d] contiguous; mask: null or a shared
-// additive [seq, seq] f32 mask; sin/cos: null or [seq, heads*d] f32 rope
-// tables (d even; not with a mask), with qr/kr: scratch like q for the
-// rotated q and k. d <= 128. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError().
+// q/k/v/out: [batch, seq, heads*d] contiguous; mask: null or an additive
+// f32 mask in one of the forms of the JAX kernel, given by its element
+// strides (mask_batch_stride, mask_row_stride): shared [seq, seq] (0, seq),
+// one shared key row [seq] (0, 0), a key row per batch element [batch, seq]
+// (seq, 0; the BERT text towers' padding mask), a full block per batch
+// element [batch, seq, seq] (seq*seq, seq; CoCa's causal + cls mask); any
+// other pair is refused, and both are 0 without a mask. sin/cos: null or
+// [seq, heads*d] f32 rope tables (d even; not with a mask), with qr/kr:
+// scratch like q for the rotated q and k. d <= 128. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError().
 extern "C" int flash_packed_launch(const void* q, const void* k, const void* v,
-                                   const void* mask, const void* sin, const void* cos, void* qr,
-                                   void* kr, void* out, int batch, int seq, int heads, int d,
-                                   float scale, int fast, int exp_bf16, int denom_rounded,
+                                   const void* mask, long long mask_batch_stride,
+                                   long long mask_row_stride, const void* sin, const void* cos,
+                                   void* qr, void* kr, void* out, int batch, int seq, int heads,
+                                   int d, float scale, int fast, int exp_bf16, int denom_rounded,
                                    int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long sb = mask_batch_stride, sr = mask_row_stride, s = seq;
+  const bool form_ok = mask == nullptr ? sb == 0 && sr == 0
+                                       : (sb == 0 && (sr == s || sr == 0)) ||
+                                             (sb == s && sr == 0) || (sb == s * s && sr == s);
+  if (!form_ok) return (int)cudaErrorInvalidValue;
   clipk::flash::Attn a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.mask = static_cast<const float*>(mask);
+  a.mask_batch_stride = sb;
+  a.mask_row_stride = sr;
   a.out = out;
   a.batch_stride = (long long)seq * heads * d;
   a.head_stride = d;

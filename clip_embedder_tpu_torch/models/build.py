@@ -3,9 +3,10 @@
 
 Counterpart of ``clip_embedder_tpu.models.build`` for the families ported so
 far: timm ViTs (SigLIP/SigLIP2, gap/avg/tok pools, register tokens), PE-Core
-(``vit_pe_core_*``: 2-D axial rope, map pool), classic open_clip ViTs, and
-open_clip text transformers. Every other family raises ``ConfigError``
-naming it as not yet ported.
+(``vit_pe_core_*``: 2-D axial rope, map pool), classic open_clip ViTs (with
+CoCa's boolean attentional pooler), open_clip text transformers (with
+CoCa's ``embed_cls``) and HF BERT/RoBERTa text towers (``hf_model_name``).
+Every other family raises ``ConfigError`` naming it as not yet ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any
 from ..config import ModelCfg
 from ..errors import ConfigError
 from ..utils.logging import warn_once
+from .hf_text import resolve_hf_text
 from .text_transformer import TextCfgResolved
 from .vit import ViTCfg
 
@@ -50,7 +52,7 @@ _TIMM_VIT_SIZES: dict[str, tuple[int, int, int, int]] = {
 class TowerSpec:
     """A resolved tower: family name + its config object."""
 
-    family: str  # "vit" | "text_transformer"
+    family: str  # "vit" | "text_transformer" | "hf_bert"
     cfg: Any
 
 
@@ -195,8 +197,13 @@ def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
         raise ConfigError("vision_cfg requires layers/width or timm_model_name")
     if v.patch_size is None:
         raise ConfigError("vision_cfg requires patch_size for ViT towers")
-    if v.extra.get("attentional_pool", False):
-        raise _not_ported("The CoCa attentional pooler")
+    # CoCa: the legacy boolean attentional_pool swaps CLS pooling for a
+    # 256-query pooler in the embed space; the string 'parallel'/'cascade'
+    # forms are marked WIP upstream and have no released checkpoints
+    attn_pool = v.extra.get("attentional_pool", False)
+    if isinstance(attn_pool, str):
+        raise ConfigError(f"attentional_pool='{attn_pool}' (parallel/cascade) is not "
+                          "supported; only the boolean CoCa-style pooler is")
     head_width = v.head_width or 64
     mlp_ratio = v.mlp_ratio or 4.0
     return TowerSpec(
@@ -212,10 +219,13 @@ def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
             activation="quick_gelu" if model_cfg.quick_gelu else "gelu",
             use_class_token=True,
             use_ln_pre=True,
-            pool="cls",
+            pool="attn" if attn_pool else "cls",
             use_proj=True,
             proj_bias=False,
             ln_eps=1e-5,
+            attn_pool_queries=int(v.extra.get("attn_pooler_queries", 256)) if attn_pool else 0,
+            attn_pool_dim=embed_dim if attn_pool else 0,
+            pool_heads=int(v.extra.get("attn_pooler_heads", 8)) if attn_pool else 0,
         ),
     )
 
@@ -224,11 +234,9 @@ def resolve_text(model_cfg: ModelCfg) -> TowerSpec:
     """open_clip text_cfg → TowerSpec."""
     t = model_cfg.text_cfg
     if t.hf_model_name or t.extra.get("hf_model_name"):
-        raise _not_ported("The HF (BERT-style) text tower")
+        return TowerSpec("hf_bert", resolve_hf_text(model_cfg))
     if t.extra.get("mct_cfg"):
         raise _not_ported("The MCT hybrid text tower")
-    if t.extra.get("embed_cls", False):
-        raise _not_ported("The CoCa text tower (embed_cls)")
 
     width = t.width or 512
     heads = t.heads or width // 64
@@ -247,6 +255,10 @@ def resolve_text(model_cfg: ModelCfg) -> TowerSpec:
         activation = "gelu"
     norm_kwargs = t.extra.get("norm_kwargs") or {}
     ln_eps = float(norm_kwargs.get("eps", 1e-5))
+    # CoCa text tower: embed_cls appends a learned cls token, pooled at the
+    # last position (open_clip's TextTransformer defaults pad_id to 0 for its
+    # cls mask; the embedder puts in the tokenizer's)
+    embed_cls = bool(t.extra.get("embed_cls", False))
 
     return TowerSpec(
         "text_transformer",
@@ -260,9 +272,10 @@ def resolve_text(model_cfg: ModelCfg) -> TowerSpec:
             embed_dim=model_cfg.embed_dim,
             activation=activation,
             causal=not no_causal,
-            pool=pool,
+            pool="last" if embed_cls else pool,
             proj_bias=proj_bias,
             ln_eps=ln_eps,
+            embed_cls=embed_cls,
             pad_id=int(t.extra.get("pad_id", 0)),
         ),
     )

@@ -5,10 +5,14 @@ Counterpart of ``clip_embedder_tpu.models.text_transformer``:
 * classic CLIP text tower: causal mask, argmax-EOT pooling (the position of
   the highest token id), bias-free projection, quick_gelu option;
 * SigLIP text tower: bidirectional (``no_causal_mask``), "last"-token
-  pooling, projection with bias, tanh-gelu.
+  pooling, projection with bias, tanh-gelu;
+* CoCa text tower (``embed_cls``): a learned cls token appended to the
+  sequence, the causal mask plus open_clip's cls mask (``cls_mask``: a
+  [B, 1, S+1, S+1] block per batch row, the packed attention kernel's full
+  per-batch form), pooled at the cls position with ``ln_final`` after
+  pooling.
 
-The blocks are the vision tower's (``models.vit.Block``). The CoCa text
-tower (``embed_cls``) is not yet ported and is refused with ``ConfigError``.
+The blocks are the vision tower's (``models.vit.Block``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ from typing import Mapping
 
 import torch
 
-from ..errors import ConfigError
 from ..ops.attention import causal_mask
 from ..ops.layers import layer_norm, linear
 from ..ops.normalize import l2_normalize
@@ -52,28 +55,41 @@ class TextCfgResolved:
         return self.width // self.heads
 
 
-def check_ported(cfg: TextCfgResolved) -> None:
-    if cfg.embed_cls:
-        raise ConfigError("the CoCa text tower (embed_cls) is not yet ported to "
-                          "the torch package")
-
-
 def init(cfg: TextCfgResolved, *, generator: torch.Generator | None = None,
          device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32) -> dict:
     """Random-init parameter tree in the JAX package's layout."""
-    check_ported(cfg)
     g, dev, dt = generator, device, dtype
+    num_pos = cfg.context_length + (1 if cfg.embed_cls else 0)
     params = {
         "token_embed": _normal((cfg.vocab_size, cfg.width), 0.02, g, dev, dt),
-        "pos_embed": _normal((cfg.context_length, cfg.width), 0.01, g, dev, dt),
+        "pos_embed": _normal((num_pos, cfg.width), 0.01, g, dev, dt),
         "ln_final": _init_ln(cfg.width, device=dev, dtype=dt),
         "blocks": init_blocks(g, layers=cfg.layers, width=cfg.width,
                               mlp_hidden=cfg.mlp_hidden, device=dev, dtype=dt),
     }
+    if cfg.embed_cls:
+        params["cls_emb"] = _normal((1, 1, cfg.width), 0.01, g, dev, dt)
     if cfg.use_proj:
         params["proj"] = _init_linear(g, cfg.width, cfg.embed_dim, bias=cfg.proj_bias,
                                       device=dev, dtype=dt)
     return params
+
+
+def cls_mask(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """open_clip ``TextTransformer.build_cls_mask``, copied literally (as
+    the JAX package's ``_cls_mask``): for ids [B, S] an additive f32
+    [B, 1, S+1, S+1] mask whose rows 0..S-1 (the text queries) are zero and
+    whose last row (the cls query) is -inf at column j + 1 where token j is
+    padding, column 0 always open. The one-column shift is open_clip's
+    ``F.pad(cls_mask, (1, 0, S, 0), value=True)``, kept because the
+    reference runs graphs exported from that code."""
+    b, s = input_ids.shape
+    dev = input_ids.device
+    keep = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=dev), input_ids != pad_id],
+                     dim=1)                                                   # [B, S+1]
+    last_row = torch.where(keep, 0.0, float("-inf"))[:, None, :]              # [B, 1, S+1]
+    is_cls_row = (torch.arange(s + 1, device=dev) == s)[None, :, None]        # [1, S+1, 1]
+    return torch.where(is_cls_row, last_row, 0.0)[:, None]                    # [B, 1, S+1, S+1]
 
 
 class TextTransformer(ParamTree):
@@ -81,7 +97,6 @@ class TextTransformer(ParamTree):
     ``weights.load_pytree``."""
 
     def __init__(self, cfg: TextCfgResolved, params: Mapping):
-        check_ported(cfg)
         super().__init__({k: v for k, v in params.items() if k != "blocks"})
         self.cfg = cfg
         self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
@@ -93,10 +108,23 @@ class TextTransformer(ParamTree):
         cfg = self.cfg
         ids = input_ids.long()
         x = self["token_embed"][ids]
+        if cfg.embed_cls:
+            cls = self["cls_emb"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
+            x = torch.cat([x, cls], dim=1)
         x = x + self["pos_embed"].to(x.dtype)[None, : x.shape[1]]
         mask = causal_mask(x.shape[1], device=x.device) if cfg.causal else None
+        if cfg.embed_cls:
+            cls_add = cls_mask(ids, cfg.pad_id)
+            mask = cls_add if mask is None else mask + cls_add
         for blk in self.blocks:
             x = blk(x, impl=attn_impl, mask=mask)
+
+        if cfg.embed_cls:  # the appended cls (last position), then ln_final on it alone
+            pooled = layer_norm(self["ln_final"], x[:, -1], eps=cfg.ln_eps)
+            if cfg.use_proj and "proj" in self:
+                pooled = linear(self["proj"], pooled)
+            return l2_normalize(pooled) if normalize else pooled
+
         x = layer_norm(self["ln_final"], x, eps=cfg.ln_eps)
 
         if cfg.pool == "argmax":

@@ -7,10 +7,13 @@ Counterpart of ``clip_embedder_tpu.models.vit``: one config-driven tower for
 * timm/SigLIP ViTs (no class token, tanh-gelu, the attention-pool "map"
   head with a learned probe, layer scale, register tokens, gap pooling);
 * PE-Core (class token, ln_pre, 2-D axial rope on q and k in every block,
-  ``rope_2d``, and the map head).
+  ``rope_2d``, and the map head);
+* CoCa (``pool="attn"``: open_clip's legacy attentional pooler, a bank of
+  learned queries in the embed space cross-attending over the tokens, then
+  ``ln_post`` and query 0).
 
-Not yet ported, and refused with ``ConfigError``: the CoCa attentional
-pooler (``pool="attn"``) and the ``timm_proj="mlp"`` head.
+Not yet ported, and refused with ``ConfigError``: the ``timm_proj="mlp"``
+head.
 
 Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
 (py, px, c) order, matching the weight layout of the JAX package).
@@ -84,7 +87,7 @@ class ViTCfg:
 
 
 def check_ported(cfg: ViTCfg) -> None:
-    if cfg.pool not in ("cls", "tok", "map", "gap"):
+    if cfg.pool not in ("cls", "tok", "map", "gap", "attn"):
         raise ConfigError(f"vision pool '{cfg.pool}' is not yet ported to the "
                           "torch package")
 
@@ -165,8 +168,21 @@ def init(cfg: ViTCfg, *, generator: torch.Generator | None = None,
             "mlp": {"fc": _init_linear(g, cfg.width, pool_hidden, device=dev, dtype=dt),
                     "proj": _init_linear(g, pool_hidden, cfg.width, device=dev, dtype=dt)},
         }
+    proj_in = cfg.width
+    if cfg.pool == "attn":
+        dm = proj_in = cfg.attn_pool_dim or cfg.width
+        params["ln_post"] = _init_ln(dm, device=dev, dtype=dt)  # over the pooler's d_model
+        params["attn_pool"] = {
+            "query": _normal((cfg.attn_pool_queries, dm), dm ** -0.5, g, dev, dt),
+            "ln_q": _init_ln(dm, device=dev, dtype=dt),
+            "ln_k": _init_ln(cfg.width, device=dev, dtype=dt),
+            "attn": {"q": _init_linear(g, dm, dm, device=dev, dtype=dt),
+                     "k": _init_linear(g, cfg.width, dm, device=dev, dtype=dt),
+                     "v": _init_linear(g, cfg.width, dm, device=dev, dtype=dt),
+                     "out": _init_linear(g, dm, dm, device=dev, dtype=dt)},
+        }
     if cfg.use_proj:
-        params["proj"] = _init_linear(g, cfg.width, cfg.embed_dim, bias=cfg.proj_bias,
+        params["proj"] = _init_linear(g, proj_in, cfg.embed_dim, bias=cfg.proj_bias,
                                       device=dev, dtype=dt)
     return params
 
@@ -261,6 +277,21 @@ class ViT(ParamTree):
                               activation=self.act)
         return pooled[:, 0]
 
+    def _attn_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """CoCa's legacy attentional pool (open_clip AttentionalPooler with
+        the VisionTransformer's boolean ``attentional_pool``): ``ln_k`` over
+        the tokens, ``ln_q`` over the learned queries, a cross-attention
+        whose k/v come in at the tower's width (plain attention, as in the
+        JAX package), ``ln_post`` over the pooled queries, then query 0."""
+        cfg, p = self.cfg, self["attn_pool"]
+        dm = cfg.attn_pool_dim or cfg.width
+        keys = layer_norm(p["ln_k"], x, eps=cfg.ln_eps)
+        q = layer_norm(p["ln_q"], p["query"].to(x.dtype), eps=cfg.ln_eps)
+        q = q[None].expand(x.shape[0], cfg.attn_pool_queries, dm)
+        pooled = multi_head_attention(p["attn"], q, kv=keys,
+                                      num_heads=cfg.pool_heads or cfg.heads)
+        return layer_norm(self["ln_post"], pooled, eps=cfg.ln_eps)[:, 0]
+
     def forward(self, pixels: torch.Tensor, *, attn_impl: str = "eager",
                 channels_first: bool = False, normalize: bool = True) -> torch.Tensor:
         """[B, H, W, 3] preprocessed pixels ([B, 3, H, W] with
@@ -287,7 +318,9 @@ class ViT(ParamTree):
         for blk in self.blocks:
             x = blk(x, impl=attn_impl, rope=rope)
 
-        if cfg.pool == "map":
+        if cfg.pool == "attn":
+            pooled = self._attn_pool(x)
+        elif cfg.pool == "map":
             pooled = self._map_pool(layer_norm(self["ln_post"], x, eps=cfg.ln_eps))
         elif cfg.pool == "gap":
             start = cfg.prefix_tokens

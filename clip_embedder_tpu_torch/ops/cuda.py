@@ -117,7 +117,7 @@ def kernel(stem: str, name: str, argtypes: tuple) -> ctypes._CFuncPtr:
     return fn
 
 
-VOID_P, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+VOID_P, INT, LONG, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -23,11 +23,15 @@ rounded to bf16) and ``rope=(sin, cos)``: [S, H·D] f32 tables (``ops.rope``)
 that rotate q and k in f32, rounded to the input dtype before q is scaled
 (on the card a pre-pass of the same launch rotates them once into scratch
 copies).
-Masks: None or one additive mask shared by every batch row and head ([S, S],
-[1, 1, S, S] or [1, 1, 1, S]); rope with a mask is refused, as in the JAX
-package. Per-batch masks ([B,1,1,S], [B,1,S,S]) are not yet ported to the
-packed kernel and raise; ``flash_attention`` hands them, and
-cross-attention, to ``attention_core``, as the JAX kernel does.
+Masks (additive, f32 in the kernel) on the packed kernel, the JAX kernel's
+forms in its order (``packed_mask``): a key row per batch element
+[B, 1, 1, S] (B > 1; the BERT text towers' padding mask), one mask shared by
+every batch row and head ([S, S], [1, 1, S, S] or [1, 1, 1, S]), a full
+[S, S] block per batch element [B, 1, S, S] (CoCa's causal + cls mask);
+anything else (a per-head mask) raises, and so does rope with a mask, as in
+the JAX package. The kernel reads every form through a batch stride and a
+row stride. ``flash_attention`` takes the shared forms; it hands per-batch
+masks, and cross-attention, to ``attention_core``, as the JAX kernel does.
 
 The wrappers launch the CUDA kernels for tensors on the card and run the
 ``*_plain`` versions for tensors on the CPU. On the card the head dim and
@@ -87,23 +91,45 @@ def fits_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return hd % num_heads == 0 and hd // num_heads <= MAX_HEAD_DIM
 
 
-def shared_mask(mask: torch.Tensor | None, batch: int, seq: int) -> torch.Tensor | None:
-    """The [S, S] f32 form of a mask shared by every batch row and head;
-    raise for the per-batch forms, which the packed kernel does not take
-    yet."""
+def packed_mask(mask: torch.Tensor | None, batch: int,
+                seq: int) -> tuple[torch.Tensor | None, int, int]:
+    """The mask as the packed kernel reads it: (the additive mask as a
+    contiguous f32 tensor, its batch stride, its row stride), in elements.
+    The forms, tested in the JAX kernel's order: [B, 1, 1, S] with B > 1, a
+    key row per batch element ([B, S]: strides S, 0); [S, S] and
+    [1, 1, S, S], shared ([S, S]: 0, S); [1, 1, 1, S], one shared key row
+    ([S]: 0, 0); [B, 1, S, S], a full block per batch element ([B, S, S]:
+    S², S). Any other shape (e.g. a per-head [B, H, S, S]) raises
+    ``ValueError`` naming it. No mask: (None, 0, 0)."""
     if mask is None:
+        return None, 0, 0
+    shape = tuple(mask.shape)
+    if batch > 1 and shape == (batch, 1, 1, seq):
+        return mask[:, 0, 0].to(torch.float32).contiguous(), seq, 0
+    if shape in ((seq, seq), (1, 1, seq, seq)):
+        return mask.reshape(seq, seq).to(torch.float32).contiguous(), 0, seq
+    if shape == (1, 1, 1, seq):
+        return mask.reshape(seq).to(torch.float32).contiguous(), 0, 0
+    if shape == (batch, 1, seq, seq):
+        return mask[:, 0].to(torch.float32).contiguous(), seq * seq, seq
+    raise ValueError(f"unsupported mask shape {shape}")
+
+
+def mask_form(batch_stride: int, row_stride: int) -> str:
+    """The form ``packed_mask``'s strides describe: "shared" for a mask every
+    batch row shares, else "key" (a key row per batch element) or "full"."""
+    if batch_stride == 0:
+        return "shared"
+    return "full" if row_stride else "key"
+
+
+def _plain_mask(m: torch.Tensor | None, batch_stride: int, row_stride: int,
+                seq: int) -> torch.Tensor | None:
+    """``packed_mask``'s tensor as a [B or 1, 1, S or 1, S] view that
+    broadcasts over the [B, H, S, S] logits."""
+    if m is None:
         return None
-    m = mask
-    if m.dim() == 2 and tuple(m.shape) == (seq, seq):
-        return m.to(torch.float32).contiguous()
-    if (m.dim() == 4 and m.shape[0] == 1 and m.shape[1] == 1
-            and m.shape[2] in (1, seq) and m.shape[3] == seq):
-        return m.to(torch.float32).expand(1, 1, seq, seq)[0, 0].contiguous()
-    if m.dim() == 4 and m.shape[0] == batch and m.shape[1] == 1:
-        raise ValueError(
-            f"per-batch mask {tuple(m.shape)} is not yet ported to the packed "
-            "attention kernel")
-    raise ValueError(f"unsupported mask shape {tuple(m.shape)}")
+    return m.reshape(-1 if batch_stride else 1, 1, seq if row_stride else 1, seq)
 
 
 def rope_tables(rope, mask, seq: int, width: int):
@@ -154,7 +180,7 @@ def flash_attention_packed_plain(q, k, v, *, num_heads: int, mask=None, rope=Non
     _check(q, k, v, num_heads)
     b, s, hd = q.shape
     d = hd // num_heads
-    m2 = shared_mask(mask, b, s)
+    m, sb, sr = packed_mask(mask, b, s)
     tables = rope_tables(rope, mask, s, hd)
     if tables is not None:
         q, k = (apply_rope(t, *tables) for t in (q, k))
@@ -162,7 +188,8 @@ def flash_attention_packed_plain(q, k, v, *, num_heads: int, mask=None, rope=Non
     def heads(t):
         return t.reshape(b, s, num_heads, d).transpose(1, 2)
 
-    out = _attend(heads(q), heads(k), heads(v), m2, fast_softmax, exp_bf16)
+    out = _attend(heads(q), heads(k), heads(v), _plain_mask(m, sb, sr, s), fast_softmax,
+                  exp_bf16)
     return out.transpose(1, 2).reshape(b, s, hd)
 
 
@@ -181,14 +208,14 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
     _check(q, k, v, num_heads)
     b, s, hd = q.shape
     d = hd // num_heads
-    m2 = shared_mask(mask, b, s)
+    m, sb, sr = packed_mask(mask, b, s)
     tables = rope_tables(rope, mask, s, hd)
     if tables is not None and d % 2:
         raise ValueError(f"flash_attention_packed: rope needs an even head dim, got {d}")
     sin = cos = None
     if tables is not None:  # the pre-pass reads the tables in 8-byte pairs
         sin, cos = (t if t.data_ptr() % 8 == 0 else t.clone() for t in tables)
-    for t in (q, k, v, m2, sin, cos):
+    for t in (q, k, v, m, sin, cos):
         if t is not None and (t.device != q.device or not t.is_contiguous()):
             raise ValueError("flash_attention_packed: operands must be "
                              f"contiguous on {q.device}")
@@ -198,18 +225,24 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
     q, k, v = _tma_operands(d, q.dtype, q, k, v)
     # rope: the kernel's pre-pass writes the rotated q and k here
     qr, kr = (torch.empty_like(q), torch.empty_like(k)) if tables is not None else (None, None)
-    fn = cuda.kernel("flash_packed", "flash_packed_launch", (cuda.VOID_P,) * 9 + (cuda.INT,) * 4
-                     + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(sin),
+    fn = cuda.kernel("flash_packed", "flash_packed_launch",
+                     (cuda.VOID_P,) * 4 + (cuda.LONG,) * 2 + (cuda.VOID_P,) * 5
+                     + (cuda.INT,) * 4 + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
+    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m), sb, sr, cuda.ptr(sin),
               cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d,
               float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), int(d % 128 != 0),
               cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
     cuda.check(code, "flash_attention_packed")
     flash_attention_packed.launches += 1
+    if m is not None:
+        flash_attention_packed.mask_launches[mask_form(sb, sr)] += 1
     return out
 
 
-flash_attention_packed.launches = 0  # kernel launches, for showing a run went through it
+# kernel launches, for showing a run went through it; the launches with a
+# mask also by its form
+flash_attention_packed.launches = 0
+flash_attention_packed.mask_launches = {"shared": 0, "key": 0, "full": 0}
 
 
 # -- kernel 3: the [B, H, S, D] layout ---------------------------------------

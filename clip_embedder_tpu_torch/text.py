@@ -5,13 +5,16 @@ same pad-id resolution (``model_config.pad_id``, else the tokenizer's
 ``<pad>`` entry — src/text.rs:70-73), same fixed pad/truncate to
 ``context_length`` (src/text.rs:76-85), same SigLIP pre-lowercasing
 (src/text.rs:115-121), batch padded to a power-of-two bucket. The tower is
-``models.text_transformer.TextTransformer``; devices as in ``vision``.
+``models.text_transformer.TextTransformer`` or, for ``hf_model_name`` configs,
+``models.hf_text.HFText``, which takes the tokenizer's attention mask;
+devices as in ``vision``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from .model_manager import (
     verify_model_dir,
 )
 from .models.build import TowerSpec, resolve_text
+from .models.hf_text import HFText
 from .models.text_transformer import TextTransformer
 from .ops.preprocess import bucket_batch
 from .tokenizer import Tokenizer
@@ -47,6 +51,22 @@ def configure_tokenizer(tokenizer: Tokenizer, model_config: ModelConfig,
     tokenizer.with_padding(length=context_length, pad_id=int(pad_id))
     tokenizer.with_truncation(max_length=context_length)
     return int(pad_id)
+
+
+def text_tower(spec: TowerSpec, params: Mapping) -> nn.Module:
+    """The text tower of ``spec``'s family over ``params``."""
+    if spec.family == "hf_bert":
+        return HFText(spec.cfg, params)
+    return TextTransformer(spec.cfg, params)
+
+
+def with_tokenizer_pad_id(spec: TowerSpec, pad_id: int) -> TowerSpec:
+    """CoCa's cls mask is built from the ids inside the forward, so it
+    takes the id the tokenizer pads with (``configure_tokenizer``'s chain),
+    not text_cfg's default 0, as the JAX package does."""
+    if getattr(spec.cfg, "embed_cls", False) and spec.cfg.pad_id != pad_id:
+        return TowerSpec(spec.family, dataclasses.replace(spec.cfg, pad_id=pad_id))
+    return spec
 
 
 def _load_text(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
@@ -107,12 +127,12 @@ class TextEmbedder:
         config = OpenClipConfig.from_file(model_dir / "open_clip_config.json")
         model_config = ModelConfig.from_file(model_dir / "model_config.json")
         tokenizer = Tokenizer.from_file(model_dir / "tokenizer.json")
-        configure_tokenizer(tokenizer, model_config,
-                            config.model_cfg.text_cfg.context_length)
-        spec = resolve_text(config.model_cfg)
+        pad_id = configure_tokenizer(tokenizer, model_config,
+                                     config.model_cfg.text_cfg.context_length)
+        spec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
         params = quantize_params(_load_text(model_dir, spec, dev, dtype), spec, quantize,
                                  dev, dtype)
-        return cls(tower=TextTransformer(spec.cfg, params), spec=spec, config=config,
+        return cls(tower=text_tower(spec, params), spec=spec, config=config,
                    model_config=model_config, tokenizer=tokenizer, model_dir=model_dir,
                    device=dev, dtype=dtype, attn_impl=attn_impl, quantize=quantize)
 
@@ -155,12 +175,16 @@ class TextEmbedder:
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         if len(texts) == 0:
             raise InferenceError("Empty batch")
-        ids, _ = self.tokenize(texts)
+        ids, mask = self.tokenize(texts)
         bb = bucket_batch(len(texts))
-        if bb != ids.shape[0]:
+        if bb != ids.shape[0]:  # the bucket's rows: pad ids, no key attended
             pad = np.full((bb - ids.shape[0], ids.shape[1]), self.pad_id, np.int32)
             ids = np.concatenate([ids, pad], axis=0)
+            mask = np.concatenate([mask, np.zeros_like(pad)], axis=0)
+        kw = {}
+        if self.spec.family == "hf_bert":  # the tokenizer's mask is authoritative
+            kw["attention_mask"] = torch.from_numpy(mask).to(self.device)
         with torch.inference_mode():
             embs = self.tower(torch.from_numpy(ids).to(self.device),
-                              attn_impl=self.attn_impl)
+                              attn_impl=self.attn_impl, **kw)
             return embs[: len(texts)].float().cpu().numpy()

@@ -18,6 +18,7 @@ scales (``w_scale``), which stay f32.
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Callable, Mapping
 
@@ -179,6 +180,9 @@ def _family_init(family: str):
     if family == "text_transformer":
         from .models import text_transformer
         return text_transformer.init
+    if family == "hf_bert":
+        from .models import hf_text
+        return hf_text.init
     return None
 
 
@@ -225,3 +229,52 @@ def validate_tower_pytree(params: Mapping, spec, *, source) -> None:
     raise WeightError(
         f"Weight tree from {source} does not match the '{spec.family}' "
         f"tower layout — {'; '.join(parts)}")
+
+
+# -- state-dict helpers (torch checkpoints → the layout above, numpy) --------
+
+def _t(w) -> np.ndarray:
+    """torch Linear [out, in] → [in, out]."""
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _get(sd: Mapping[str, Any], key: str) -> np.ndarray:
+    if key not in sd:
+        raise WeightError(f"Missing weight '{key}' in checkpoint")
+    return np.asarray(sd[key])
+
+
+def _ln(sd, prefix: str) -> dict:
+    return {"scale": _get(sd, f"{prefix}.weight"), "bias": _get(sd, f"{prefix}.bias")}
+
+
+def _linear(sd, prefix: str, *, bias: bool = True) -> dict:
+    p = {"w": _t(_get(sd, f"{prefix}.weight"))}
+    if bias and f"{prefix}.bias" in sd:
+        p["b"] = np.asarray(sd[f"{prefix}.bias"])
+    return p
+
+
+def _stack_blocks(blocks: list) -> Any:
+    """Per-layer trees → one tree with the leaves stacked on a new axis 0."""
+    if isinstance(blocks[0], Mapping):
+        return {k: _stack_blocks([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack([np.asarray(b) for b in blocks])
+
+
+def strip_prefix(sd: Mapping[str, Any], *prefixes: str) -> dict:
+    """Drop a leading module prefix (e.g. an export wrapper's ``model.``)
+    from every key that has it, where any key has it."""
+    out = dict(sd)
+    for prefix in prefixes:
+        if any(k.startswith(prefix) for k in out):
+            out = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in out.items()}
+    return out
+
+
+def _max_index(sd: Mapping[str, Any], pattern: str) -> int:
+    rx = re.compile(pattern)
+    idx = [int(m.group(1)) for k in sd if (m := rx.match(k))]
+    if not idx:
+        raise WeightError(f"No blocks matching '{pattern}' in checkpoint")
+    return max(idx) + 1

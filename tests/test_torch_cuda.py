@@ -170,11 +170,63 @@ def test_flash_mma_sync_kernel_takes_other_head_dims(dev, d):
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
-def test_flash_kernel_refuses_per_batch_mask(dev):
+def test_flash_kernel_refuses_per_head_mask(dev):
     q = torch.zeros(2, 8, 4 * 16, device=dev)
-    with pytest.raises(ValueError, match="per-batch"):
+    before = flash.flash_attention_packed.launches
+    with pytest.raises(ValueError, match=r"unsupported mask shape \(2, 4, 8, 8\)"):
         flash.flash_attention_packed(q, q, q, num_heads=4,
-                                     mask=torch.zeros(2, 1, 1, 8, device=dev))
+                                     mask=torch.zeros(2, 4, 8, 8, device=dev))
+    assert flash.flash_attention_packed.launches == before
+
+
+def _key_mask(b, s, dev):
+    """[B, 1, 1, S]: a different key length in every batch row, one row with
+    every key masked (bucket padding), -1e30 on the masked keys."""
+    lengths = [s, s // 2 + 3, 0, 1, s - 5][:b]
+    valid = torch.arange(s)[None, :] < torch.tensor(lengths)[:, None]
+    return torch.where(valid, 0.0, -1e30)[:, None, None, :].to(dev)
+
+
+def _full_mask(b, s, dev):
+    """CoCa text's [B, 1, S, S]: causal plus the cls mask of S - 1 ids whose
+    pad counts differ in every batch row (only the cls row, query S - 1,
+    differs between rows)."""
+    from clip_embedder_tpu_torch.models.text_transformer import cls_mask
+
+    ids = torch.full((b, s - 1), 7)
+    for i, n in enumerate([0, 3, s // 3, s - 2, 1][:b]):
+        if n:
+            ids[i, -n:] = 0
+    return (causal_mask(s) + cls_mask(ids, 0)).to(dev)
+
+
+@pytest.mark.parametrize("form", ["key", "full"])
+@pytest.mark.parametrize("s", [256, 77, 133])
+@pytest.mark.parametrize("h,d,dtype,mode", [
+    (12, 64, torch.bfloat16, "exact"), (12, 64, torch.bfloat16, "fast_bf16exp"),
+    (12, 64, torch.float32, "exact"), (12, 64, torch.float32, "fast"),
+    (4, 36, torch.bfloat16, "exact")], ids=["wgmma", "wgmma-fast", "f32", "f32-fast",
+                                           "mma_sync"])
+def test_flash_kernel_per_batch_masks(dev, form, s, h, d, dtype, mode):
+    """Kernel 2's per-batch masks (BERT's key rows, CoCa's full blocks) at
+    BERT-base's 256, CoCa text's 77 and a ragged 133 (a last key tile of 5):
+    masks that differ in every batch row, a row with every key masked, each
+    head layout's route (12 x 64 bf16 on TMA + wgmma, f32 on FMA, 4 x 36
+    bf16 on mma.sync); the cls query (the CoCa tower's pooled row) held on
+    its own."""
+    b = 4
+    mask = (_key_mask if form == "key" else _full_mask)(b, s, dev)
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=21)
+    kw = {"fast_softmax": mode != "exact", "exp_bf16": mode == "fast_bf16exp"}
+    before = dict(flash.flash_attention_packed.mask_launches)
+    got = flash.flash_attention_packed(q, k, v, num_heads=h, mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_packed.mask_launches[form] == before[form] + 1
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, mask=mask, **kw)
+    assert torch.isfinite(got).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got[:, -1].float(), ref[:, -1].float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("b,h,s,d", [(2, 4, 65, 32), (2, 16, 1025, 96)])

@@ -1,7 +1,9 @@
 """The torch port end to end on the committed golden fixtures, on the CPU:
 ``Clip.from_local_dir(fixture, device="cpu")`` reproduces the pinned
 embeddings and classify results (tests/test_golden.py's tolerances) and
-agrees with the JAX ``Clip`` on the same inputs."""
+agrees with the JAX ``Clip`` on the same inputs; and a CoCa dir the test
+writes (both CoCa towers, golden_siglip's tokenizer) agrees with the JAX
+``Clip`` on it."""
 
 import json
 from pathlib import Path
@@ -19,8 +21,52 @@ from clip_embedder_tpu_torch.errors import (ConfigError, InferenceError,
 from clip_embedder_tpu_torch.tokenizer import Tokenizer
 
 FIXTURES = Path(__file__).parent / "fixtures"
-PORTED = ["golden_siglip", "golden_model"]
+PORTED = ["golden_siglip", "golden_model", "golden_hf_bert"]
 TEXTS = ["a photo of a cat", "the dog!"]
+# a small CoCa (open_clip coca_* layout): width 128 with 4 heads x 32 (a
+# 128-lane head group: the packed kernel's full-mask form in the text
+# tower), embed 96 != width, 8 pooler queries
+COCA_CFG = {
+    "embed_dim": 96,
+    "vision_cfg": {"image_size": 32, "layers": 2, "width": 128, "patch_size": 8,
+                   "head_width": 32, "attentional_pool": True, "attn_pooler_queries": 8,
+                   "attn_pooler_heads": 8, "output_tokens": True},
+    "text_cfg": {"context_length": 12, "vocab_size": 64, "width": 128, "heads": 4,
+                 "layers": 2, "embed_cls": True, "output_tokens": True},
+}
+
+
+@pytest.fixture(scope="module")
+def coca_dir(tmp_path_factory):
+    """A CoCa model dir: the config above, golden_siglip's tokenizer and
+    scoring config (its pad id 1, so the cls mask must take the tokenizer's
+    pad id, not text_cfg's 0) and preprocess, seeded JAX-initialized weights
+    written with the JAX package's save_pytree."""
+    import jax
+
+    from clip_embedder_tpu import weights as jweights
+    from clip_embedder_tpu.config import ModelCfg as JModelCfg
+    from clip_embedder_tpu.models import build as jbuild
+    from clip_embedder_tpu.models import text_transformer as jtext
+    from clip_embedder_tpu.models import vit as jvit
+
+    d = tmp_path_factory.mktemp("coca")
+    src = FIXTURES / "golden_siglip"
+    pre = json.loads((src / "open_clip_config.json").read_text())["preprocess_cfg"]
+    (d / "open_clip_config.json").write_text(json.dumps(
+        {"model_cfg": COCA_CFG, "preprocess_cfg": pre}))
+    for f in ("model_config.json", "tokenizer.json", "golden_image.npy"):
+        (d / f).write_bytes((src / f).read_bytes())
+    mc = JModelCfg.from_dict(COCA_CFG)
+    vspec, tspec = jbuild.resolve_vision(mc), jbuild.resolve_text(mc)
+    assert vspec.cfg.pool == "attn" and tspec.cfg.embed_cls
+    jweights.save_pytree(d / "visual.npz", jvit.init(jax.random.key(0), vspec.cfg))
+    jweights.save_pytree(d / "text.npz", jtext.init(jax.random.key(1), tspec.cfg))
+    return d
+
+
+def model_dir(name, request):
+    return request.getfixturevalue("coca_dir") if name == "coca" else FIXTURES / name
 
 
 def cosines(a, b):
@@ -85,16 +131,46 @@ def test_agrees_with_jax_clip(clips, name):
     assert [i for i, _ in got] == [i for i, _ in ref]
 
 
-@pytest.mark.parametrize("name", PORTED)
+def test_coca_dir_agrees_with_jax_clip(coca_dir):
+    """Both CoCa towers through Clip.from_local_dir, f32, on every attn impl
+    (the kernel impls run the kernels' plain versions), against the JAX
+    Clip; the text embeddings include a row of pad ids alone. kernel_fast
+    takes the packed kernel's bf16 exp here (4 heads x 32, d < 96), which
+    rounds every softmax weight to 8 bits: it is held at cosine 1 - 1e-5
+    and atol 1e-3, the others at atol 1e-5."""
+    jclip = JaxClip.from_local_dir(coca_dir)
+    rng = np.random.default_rng(2)
+    images = [np.load(coca_dir / "golden_image.npy"),
+              rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)]
+    texts = TEXTS + ["", "an unusually long caption " * 8]
+    ref_img, ref_txt = jclip.vision.embed_images(images), jclip.text.embed_texts(texts)
+    labels = TEXTS + ["a red balloon"]
+    ref = jclip.classify(images[0], labels)
+    for impl in ("eager", "kernel", "kernel_fast"):
+        clip = Clip.from_local_dir(coca_dir, device="cpu", attn_impl=impl)
+        assert clip.text.tower.cfg.pad_id == clip.text.pad_id == 1
+        atol = 1e-3 if impl == "kernel_fast" else 1e-5
+        for got, want in ((clip.vision.embed_images(images), ref_img),
+                          (clip.text.embed_texts(texts), ref_txt)):
+            assert cosines(got, want).min() > 1 - 1e-5
+            np.testing.assert_allclose(got, want, atol=atol)
+        got = clip.classify(images[0], labels)
+        assert [r[0] for r in got] == [r[0] for r in ref]
+        np.testing.assert_allclose([r[1] for r in got], [r[1] for r in ref], atol=atol)
+        assert abs(clip.compare(images[1], TEXTS[1]) - jclip.compare(images[1], TEXTS[1])) \
+            < 100 * atol  # a raw logit: the similarity times logit_scale 100
+
+
+@pytest.mark.parametrize("name", PORTED + ["coca"])
 @pytest.mark.parametrize("quantize", [None, "int8", "int8_all"])
-def test_agrees_with_jax_clip_in_bf16(name, quantize):
+def test_agrees_with_jax_clip_in_bf16(name, quantize, request):
     """bf16 weights and activations in both packages, under each quantize
     mode: image and text embeddings at cosine >= 1 - 1e-3, the budget the
     JAX package grants its int8 modes against bf16
     (clip_embedder_tpu/ops/quant.py). The two frameworks round bf16 at other
     places, so this holds the algorithm, not the bits; a bias rounded twice
     or an activation taken in bf16 moves a 64-wide model past it."""
-    fixture = FIXTURES / name
+    fixture = model_dir(name, request)
     clip = Clip.from_local_dir(fixture, device="cpu", dtype=torch.bfloat16, quantize=quantize)
     jclip = JaxClip.from_local_dir(fixture, dtype=jnp.bfloat16, quantize=quantize)
     rng = np.random.default_rng(1)

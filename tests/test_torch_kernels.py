@@ -106,16 +106,114 @@ def test_flash_plain_lane_multiple_head_dim_sums_unrounded_p():
 
 
 def test_flash_mask_forms():
+    """The packed kernel's mask forms (``packed_mask``), as the JAX kernel
+    tests them: key rows per batch element and full blocks per batch
+    element beside the shared forms, each with its strides; a per-head mask
+    and a key mask of the wrong width raise with the shape in the message."""
     q = torch.zeros(2, 8, 32)
-    for m in (torch.zeros(8, 8), torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, 1, 8)):
-        assert flash.shared_mask(m, 2, 8).shape == (8, 8)
-    for m in (torch.zeros(2, 1, 1, 8), torch.zeros(2, 1, 8, 8)):
-        with pytest.raises(ValueError, match="per-batch"):
-            flash.flash_attention_packed(q, q, q, num_heads=4, mask=m)
-    with pytest.raises(ValueError, match="unsupported mask"):
+    forms = ((torch.zeros(8, 8), (0, 8), "shared"), (torch.zeros(1, 1, 8, 8), (0, 8), "shared"),
+             (torch.zeros(1, 1, 1, 8), (0, 0), "shared"),
+             (torch.zeros(2, 1, 1, 8), (8, 0), "key"), (torch.zeros(2, 1, 8, 8), (64, 8), "full"))
+    for m, strides, form in forms:
+        got, sb, sr = flash.packed_mask(m, 2, 8)
+        assert (sb, sr) == strides and flash.mask_form(sb, sr) == form
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert got.numel() == (2 if sb else 1) * (8 if sr else 1) * 8
+        assert flash.flash_attention_packed(q, q, q, num_heads=4, mask=m).shape == q.shape
+    # one batch row: a [1, 1, 1, S] mask is the shared key row, as in JAX
+    assert flash.packed_mask(torch.zeros(1, 1, 1, 8), 1, 8)[1:] == (0, 0)
+    with pytest.raises(ValueError, match=r"unsupported mask shape \(2, 4, 8, 8\)"):
         flash.flash_attention_packed(q, q, q, num_heads=4, mask=torch.zeros(2, 4, 8, 8))
+    with pytest.raises(ValueError, match=r"unsupported mask shape \(2, 1, 1, 16\)"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, mask=torch.zeros(2, 1, 1, 16))
+    with pytest.raises(ValueError, match="rope with a mask"):
+        flash.flash_attention_packed(q, q, q, num_heads=4, mask=torch.zeros(2, 1, 1, 8),
+                                     rope=(q[0], q[0]))
     with pytest.raises(ValueError, match="rope tables"):  # [S, H·D] tables, not q's shape
         flash.flash_attention_packed(q, q, q, num_heads=4, rope=(q, q))
+
+
+def key_mask(lengths, s):
+    """[B, 1, 1, S] additive key mask (-1e30 past each row's length; a
+    length of 0 masks every key of that row), as the BERT tower builds it."""
+    valid = np.arange(s)[None, :] < np.asarray(lengths)[:, None]
+    return np.where(valid, 0.0, -1e30).astype(np.float32)[:, None, None, :]
+
+
+def full_mask(pads, s, pad_id=0):
+    """CoCa text's [B, 1, S, S] mask over S - 1 ids and the appended cls:
+    causal plus the JAX ``_cls_mask`` of ids whose trailing pad counts are
+    ``pads`` (every batch row's cls row differs)."""
+    from clip_embedder_tpu.models.text_transformer import _cls_mask
+
+    ids = np.full((len(pads), s - 1), 7, np.int32)
+    for i, n in enumerate(pads):
+        if n:
+            ids[i, -n:] = pad_id
+    return np.array(jcausal(s) + _cls_mask(jnp.asarray(ids), pad_id), np.float32)
+
+
+MASK_CASES = {
+    # lengths that differ in every row, one row with every key masked
+    "key": (4, 40, lambda: key_mask([40, 17, 0, 5], 40)),
+    # 17 = 16 ids + cls: a ragged key tile on the card
+    "full": (3, 17, lambda: full_mask([0, 5, 11], 17)),
+}
+
+
+@pytest.mark.parametrize("form", sorted(MASK_CASES))
+@pytest.mark.parametrize("heads,d", [(2, 64), (4, 32)], ids=["2x64", "4x32"])
+@pytest.mark.parametrize("dtype,softmax", [("float32", "exact"), ("float32", "fast"),
+                                           ("bfloat16", "exact"), ("bfloat16", "fast")])
+def test_flash_plain_matches_jax_kernel_per_batch_masks(form, heads, d, dtype, softmax):
+    """Kernel 2's per-batch masks, plain version against the JAX kernel in
+    interpret mode: f32 at atol 2e-5 / rtol 1e-5, bf16 at 2e-2, exact and
+    fast softmax (bf16 fast with the bf16 exp), a fully masked row's output
+    finite (the uniform average of v, as JAX's guard gives)."""
+    b, s, make = MASK_CASES[form]
+    mask = make()
+    kw = {"fast_softmax": softmax == "fast",
+          "exp_bf16": softmax == "fast" and dtype == "bfloat16"}
+    got, ref = _run_both(_attn_case(b, s, heads, d, dtype, seed=12), dtype, heads,
+                         mask=jnp.asarray(mask), **kw)
+    assert np.isfinite(got).all()
+    tol = (2e-5, 1e-5) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(got, ref, atol=tol[0], rtol=tol[1])
+    if form == "full":  # the cls query, the tower's pooled output, on its own
+        np.testing.assert_allclose(got[:, -1], ref[:, -1], atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("form", sorted(MASK_CASES))
+@pytest.mark.parametrize("impl", ["kernel", "kernel_fast"])
+def test_mha_sends_per_batch_masks_to_the_packed_kernel(form, impl, monkeypatch):
+    """multi_head_attention on the kernel impls routes both per-batch forms
+    to flash_attention_packed (a 128-lane head group, no rope), and matches
+    the JAX package's multi_head_attention on the same weights."""
+    from clip_embedder_tpu.ops.attention import multi_head_attention as jmha
+
+    b, s, make = MASK_CASES[form]
+    mask = make()
+    width, heads = 128, 2
+    rng = np.random.default_rng(13)
+    p = {n: {"w": _arr(rng, width, width, scale=width ** -0.5), "b": _arr(rng, width, scale=0.1)}
+         for n in ("q", "k", "v", "out")}
+    x = _arr(rng, b, s, width)
+    seen = []
+    real = flash.flash_attention_packed
+
+    def spy(*a, **kw):
+        seen.append(tuple(kw["mask"].shape))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_packed", spy)
+    got = tattn.multi_head_attention(_tree(p, torch.from_numpy), torch.from_numpy(x),
+                                     num_heads=heads, mask=torch.from_numpy(mask), impl=impl)
+    ref = jmha(_tree(p, jnp.asarray), jnp.asarray(x), num_heads=heads, mask=jnp.asarray(mask))
+    assert seen == [mask.shape]
+    assert np.isfinite(got.numpy()).all()
+    # kernel_fast's clamp gives masked keys exp(-60) and its bf16 exp rounds p
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=1e-2 if impl == "kernel_fast" else 2e-5)
 
 
 def test_kernel_gates():

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from clip_embedder_tpu import Clip as JaxClip
+from clip_embedder_tpu.models import hf_text as jhf
 from clip_embedder_tpu.models import text_transformer as jtext
 from clip_embedder_tpu.models import vit as jvit
 from clip_embedder_tpu.ops import quant as jquant
@@ -38,6 +39,7 @@ from clip_embedder_tpu.ops.qkv import ln_qkv_int8 as jln_qkv_int8
 from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
 from clip_embedder_tpu_torch import weights as tweights
 from clip_embedder_tpu_torch.errors import ConfigError
+from clip_embedder_tpu_torch.models import hf_text as thf
 from clip_embedder_tpu_torch.models import text_transformer as ttext
 from clip_embedder_tpu_torch.models import vit as tvit
 from clip_embedder_tpu_torch.ops import attention as tattn
@@ -418,6 +420,79 @@ def test_vit_on_card_gates_launches_and_agrees(mode, card_gates, monkeypatch):
     monkeypatch.undo()
     with torch.inference_mode():
         ref = tower(pixels, attn_impl="eager").numpy()
+    assert _cos_min(got, ref) >= 1 - 1e-5
+
+
+BERT = jhf.BertCfg(context_length=40, vocab_size=120, width=128, heads=2, layers=2,
+                   mlp_hidden=256, embed_dim=96, pooler="mean", proj="mlp")
+
+
+def _bert_ids(batch):
+    ids = np.random.default_rng(5).integers(3, 120, (batch, 40)).astype(np.int32)
+    for i in range(batch):
+        ids[i, 40 - 7 * i:] = 0  # a key length per row
+    return ids
+
+
+def _quantized_bert(mode):
+    jp = jax.tree.map(np.asarray, jhf.init(jax.random.key(6), BERT))
+    tp = tweights.params_from_numpy(jp, device="cpu", dtype=torch.float32)
+    jq = jquant.quantize_tree_checked(jp, "hf_bert", mode=mode)
+    tq = quant.quantize_tree_checked(tp, "hf_bert", mode=mode)
+    assert "w_q" not in tq["proj"]["fc"]  # the root proj stays in full precision
+    return jq, thf.HFText(thf.BertCfg(**dataclasses.asdict(BERT)), tq)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_all"])
+def test_bert_quantized_matches_jax(mode):
+    jq, tower = _quantized_bert(mode)
+    ids = _bert_ids(3)
+    ref = np.asarray(jhf.apply(jax.tree.map(jnp.asarray, jq), jnp.asarray(ids), BERT))
+    for impl in ("eager", "kernel"):
+        with torch.inference_mode():
+            got = tower(torch.from_numpy(ids), attn_impl=impl).numpy()
+        assert _cos_min(got, ref) >= 1 - 1e-5, impl
+
+
+@pytest.mark.parametrize("batch", [4, 2], ids=["160rows", "80rows"])
+@pytest.mark.parametrize("mode", ["int8", "int8_all"])
+def test_bert_on_card_gates_routes_as_jax(mode, batch, card_gates, monkeypatch):
+    """BERT is post-LN, so with the card's gates: each block's MLP takes
+    kernel 4 (int8_mlp) with no LayerNorm and no residual; under int8_all
+    q, k, v and the out-projection go through ``linear``'s gate, as in the
+    JAX package's ``ops.layers.linear``: kernel 6 (int8_linear_fused) with no
+    residual at 128 rows or more, the unfused int8_linear below; neither
+    ln_qkv_int8 nor ln_qkv runs (no pre_ln). The kernel path agrees with the
+    unfused one."""
+    calls = []
+
+    def spy(module, name, keys=()):
+        real = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            calls.append((name,) + tuple(kw.get(k) is not None and kw.get(k) is not False
+                                         for k in keys))
+            return real(*a, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(layers, "int8_mlp", ("pre_ln", "add_residual"))
+    spy(layers, "int8_linear_fused", ("residual",))
+    spy(tattn, "int8_linear_fused", ("residual",))
+    spy(layers, "int8_linear")
+    spy(tattn, "ln_qkv_int8")
+    spy(tattn, "ln_qkv")
+    _, tower = _quantized_bert(mode)
+    ids = torch.from_numpy(_bert_ids(batch))
+    with torch.inference_mode():
+        got = tower(ids, attn_impl="kernel").numpy()
+    linears = ([("int8_linear_fused", False)] if batch * 40 >= 128
+               else [("int8_linear",)]) * 4 if mode == "int8_all" else []
+    per_block = linears + [("int8_mlp", False, False)]
+    # the pooled rows' MLP projection (B rows) stays unquantized: no call
+    assert calls == per_block * BERT.layers
+    monkeypatch.undo()
+    with torch.inference_mode():
+        ref = tower(ids, attn_impl="eager").numpy()
     assert _cos_min(got, ref) >= 1 - 1e-5
 
 

@@ -175,6 +175,14 @@ def _model_cfg(vision=None, text=None):
     {"timm_model_name": "vit_pe_core_large_patch14_336", "image_size": 336},
     {"timm_model_name": "vit_pe_core_bigG_patch14_448", "image_size": 448,
      "timm_proj": "linear"},
+    # BiomedCLIP's vision tower (timm vit_base_patch16_224)
+    {"timm_model_name": "vit_base_patch16_224", "image_size": 224},
+    # coca_ViT-B-32 and coca_ViT-L-14 (open_clip model_configs): the legacy
+    # boolean attentional pooler
+    {"image_size": 224, "layers": 12, "width": 768, "patch_size": 32,
+     "attentional_pool": True, "attn_pooler_heads": 8, "output_tokens": True},
+    {"image_size": 224, "layers": 24, "width": 1024, "patch_size": 14,
+     "attentional_pool": True, "attn_pooler_heads": 8, "output_tokens": True},
 ])
 def test_resolve_vision_matches_jax(vision):
     got = tbuild.resolve_vision(_model_cfg(vision=vision))
@@ -191,6 +199,21 @@ def test_resolve_vision_matches_jax(vision):
      "mlp_ratio": 3.7362, "no_causal_mask": True, "proj_bias": True, "pool_type": "last",
      "norm_kwargs": {"eps": 1e-6}, "act_kwargs": {"approximate": "tanh"}},
     {"width": 512, "heads": 8, "layers": 12},
+    # coca_ViT-B-32's text tower (open_clip model_configs): embed_cls
+    {"context_length": 76, "vocab_size": 49408, "width": 512, "heads": 8, "layers": 12,
+     "embed_cls": True, "output_tokens": True},
+    # BiomedCLIP's BERT text tower, its hf_config as conversion writes it
+    {"context_length": 256, "hf_model_name": "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract",
+     "proj": "mlp", "pooler_type": "cls_last_hidden_state_pooler",
+     "hf_config": {"model_type": "bert", "vocab_size": 30522, "hidden_size": 768,
+                   "num_hidden_layers": 12, "num_attention_heads": 12,
+                   "intermediate_size": 3072, "max_position_embeddings": 512,
+                   "type_vocab_size": 2, "pad_token_id": 0, "layer_norm_eps": 1e-12}},
+    # an XLM-RoBERTa tower: pad-id positions, the mean pooler, the default proj
+    {"context_length": 32, "hf_model_name": "xlm-roberta-base", "hf_pooler_type": "mean_pooler",
+     "hf_config": {"model_type": "xlm-roberta", "vocab_size": 250002, "hidden_size": 768,
+                   "num_hidden_layers": 12, "num_attention_heads": 12,
+                   "intermediate_size": 3072, "max_position_embeddings": 514}},
 ])
 def test_resolve_text_matches_jax(text):
     from clip_embedder_tpu.config import ModelCfg as JModelCfg
@@ -198,6 +221,7 @@ def test_resolve_text_matches_jax(text):
     got = tbuild.resolve_text(_model_cfg(text=text))
     ref = jbuild.resolve_text(JModelCfg.from_dict(
         {"embed_dim": 32, "vision_cfg": {}, "text_cfg": text}))
+    assert got.family == ref.family
     assert dataclasses.asdict(got.cfg) == dataclasses.asdict(ref.cfg)
     if "mlp_ratio" in text:
         assert got.cfg.mlp_hidden == 4304
@@ -209,16 +233,22 @@ def test_resolve_text_matches_jax(text):
     ({"timm_model_name": "convnext_base"}, "ConvNeXt"),
     ({"timm_model_name": "vit_base_patch16_224", "timm_proj": "mlp"}, "timm_proj"),
     ({"layers": [3, 4, 6, 3], "width": 64}, "ModifiedResNet"),
-    ({"layers": 12, "width": 768, "patch_size": 16, "attentional_pool": True}, "CoCa"),
 ])
 def test_unported_vision_families_raise(vision, match):
     with pytest.raises(ConfigError, match=f"{match}.*not yet ported"):
         tbuild.resolve_vision(_model_cfg(vision=vision))
 
 
+@pytest.mark.parametrize("form", ["parallel", "cascade"])
+def test_string_attentional_pool_forms_raise(form):
+    """CoCa's string pooler forms (WIP upstream, no released checkpoints)
+    are refused, as in the JAX package."""
+    vision = {"layers": 12, "width": 768, "patch_size": 16, "attentional_pool": form}
+    with pytest.raises(ConfigError, match=f"attentional_pool='{form}'"):
+        tbuild.resolve_vision(_model_cfg(vision=vision))
+
+
 @pytest.mark.parametrize("text,match", [
-    ({"hf_model_name": "microsoft/BiomedNLP"}, "HF"),
-    ({"embed_cls": True}, "CoCa"),
     ({"mct_cfg": {"x": 1}}, "MCT"),
 ])
 def test_unported_text_families_raise(text, match):
@@ -226,16 +256,25 @@ def test_unported_text_families_raise(text, match):
         tbuild.resolve_text(_model_cfg(text=text))
 
 
+def test_hf_text_without_hf_config_raises():
+    """An hf_model_name dir without text_cfg.hf_config: deriving it from
+    text.onnx waits for the ONNX path, and the error says so."""
+    with pytest.raises(ConfigError, match="hf_config.*ONNX path"):
+        tbuild.resolve_text(_model_cfg(text={"hf_model_name": "microsoft/BiomedNLP"}))
+
+
 def test_unported_tower_options_raise():
+    """rope_2d, pool="attn" and embed_cls (ported) build their trees; the
+    timm_proj="mlp" head is still refused."""
     rope = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), rope_2d=True)
     assert tvit.init(rope, device="meta")["blocks"]["attn"]["q"]["w"].shape == (2, 64, 64)
-    attn = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), pool="attn")
-    with pytest.raises(ConfigError, match="attn"):
-        tvit.init(attn, device="meta")
+    attn = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), pool="attn",
+                               attn_pool_queries=8, attn_pool_dim=32, pool_heads=4)
+    assert tvit.init(attn, device="meta")["attn_pool"]["attn"]["k"]["w"].shape == (64, 32)
     cls_text = dataclasses.replace(_port_cfg(ttext.TextCfgResolved, CLIP_TEXT),
                                    embed_cls=True)
-    with pytest.raises(ConfigError, match="embed_cls"):
-        ttext.init(cls_text, device="meta")
+    tree = ttext.init(cls_text, device="meta")
+    assert tree["cls_emb"].shape == (1, 1, 64) and tree["pos_embed"].shape == (13, 64)
     cfg = _port_cfg(tvit.ViTCfg, CLIP_VIT)
     params = tvit.init(cfg)
     params["proj"] = {"fc": params["proj"], "out": params["proj"]}
