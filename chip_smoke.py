@@ -52,7 +52,19 @@ card, in phases, and fail loudly if any phase fails.
    captions of distinct lengths and ``classify``, launch counts per call
    (the masked launches by form), both towers against the plain path,
    images/s, texts/s and device time by kernel group. Phase 3 holds and
-   times kernel 2 with those masks at their shapes.
+   times kernel 2 with those masks at their shapes;
+9. the deployment path — ViT-SO400M-16-SigLIP2-384 at full width and depth
+   as open_clip names it (``tests/torch_ref.py``'s timm trunk and SigLIP
+   text tower, seeded random f32 weights) saved with ``torch.save``, read
+   and converted by the port's ``pull_weights`` into a model dir, loaded
+   with ``Clip.from_local_dir(dtype=bfloat16)`` and held against its source
+   model in f32 on the card, then ``warmup`` and ``ClipServer``: one client
+   sends every endpoint (rows held against the direct call, launch counts
+   exact), then 64 concurrent clients one JPEG each, threads of a process
+   of their own (all served, in far
+   fewer micro-batches, images/s and p50/p95; in turns with the JAX
+   server's design, the JPEGs decoded in the micro-batcher's thread), and
+   one micro-batch under torch.profiler.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -61,6 +73,7 @@ repo beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1581,6 +1594,406 @@ def phase_masked_towers(device, dtype=torch.bfloat16, *, layers=None, vocab_size
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the deployment path: convert a checkpoint, load it, serve it
+# ---------------------------------------------------------------------------
+
+SO400M_REPO = "timm/ViT-SO400M-16-SigLIP2-384"
+SERVED_COSINE = 1 - 1e-6  # served rows against the direct call
+
+
+def so400m_source(device, *, layers=None, vocab_size=None, seed=0):
+    """ViT-SO400M-16-SigLIP2-384 as open_clip builds it, from the torch-only
+    reference modules of ``tests/torch_ref.py`` (timm naming for the vision
+    trunk, open_clip's for the SigLIP text tower), seeded random f32 weights
+    on ``device``, in eval mode: (vision, text). ``torch_ref``'s text tower
+    defaults to erf gelu and LayerNorm eps 1e-5; the config's tanh gelu and
+    eps 1e-6 are set on it here. ``layers``/``vocab_size`` cut it."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch import nn
+    from torch_ref import TextTransformer, TimmSiglipViT
+
+    depth = layers or 27
+    vocab = vocab_size or SO400M_SIGLIP2_384["text_cfg"]["vocab_size"]
+    torch.manual_seed(seed)
+    with torch.device(device):
+        vision = TimmSiglipViT(384, 16, 1152, depth, 16, 4304)
+        text = TextTransformer(64, vocab, 1152, 16, depth, 4304, 1152, causal=False,
+                               pool="last", proj_bias=True)
+    for block in text.transformer.resblocks:
+        block.mlp.gelu = nn.GELU(approximate="tanh")
+    for m in text.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.eps = 1e-6
+    return vision.eval(), text.eval()
+
+
+def jpeg_bytes(images) -> list[bytes]:
+    """``mixed_batch``'s images as JPEG files' bytes (the files as they are,
+    the resized copies encoded at quality 95), as clients send them."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for im in images:
+        if isinstance(im, str):
+            out.append(Path(im).read_bytes())
+        else:
+            buf = io.BytesIO()
+            Image.fromarray(im).save(buf, format="JPEG", quality=95)
+            out.append(buf.getvalue())
+    return out
+
+
+def http(server, path, payload=None, ctype="application/json"):
+    """One request to ``server`` (a GET without ``payload``); the decoded
+    JSON reply."""
+    import urllib.request
+
+    host, port = server.address
+    data = json.dumps(payload).encode() if isinstance(payload, dict) else payload
+    req = urllib.request.Request(f"http://{host}:{port}{path}", data=data,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def hold_rows(what, got, ref, bound) -> float:
+    """Served rows against the direct call's, at min cosine ``bound``."""
+    got = np.asarray(got, np.float32)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: served {got.shape}, direct {ref.shape}")
+    cos = float(cosines(got, ref).min())
+    if cos < bound:
+        raise AssertionError(f"{what}: served rows at cosine {cos:.7f} of the direct call "
+                             f"(need >= {bound})")
+    return cos
+
+
+def hold_order(what, got, ref) -> None:
+    """Served classify/rank results against the direct call's: the same
+    order, probabilities within 1e-4."""
+    if [r[0] for r in got] != [r[0] for r in ref]:
+        raise AssertionError(f"{what}: served order {got} against direct {ref}")
+    err = max(abs(g[1] - r[1]) for g, r in zip(got, ref))
+    if err > 1e-4:
+        raise AssertionError(f"{what}: probabilities {err:.2e} from the direct call")
+
+
+def convert_so400m(device, model_dir, *, layers=None, vocab_size=None) -> tuple:
+    """Steps 1-2: the source model's checkpoint written as a published one
+    (``torch.save`` of an f32 open_clip state dict, as
+    ``open_clip_pytorch_model.bin``), then read and converted into
+    ``model_dir`` by the port's ``pull_weights``. Returns the source
+    modules and the seconds of each step."""
+    from clip_embedder_tpu_torch import pull_weights
+
+    model_cfg = json.loads(json.dumps(SO400M_SIGLIP2_384))
+    if layers is not None:
+        model_cfg["vision_cfg"]["vit_cfg"] = {"layers": layers}
+        model_cfg["text_cfg"]["layers"] = layers
+    if vocab_size is not None:
+        model_cfg["text_cfg"]["vocab_size"] = vocab_size
+    occ = {"model_cfg": model_cfg, "preprocess_cfg": SIGLIP_PREPROCESS}
+    (model_dir / "open_clip_config.json").write_text(json.dumps(occ, indent=2))
+    (model_dir / "tokenizer.json").write_bytes(
+        (FIXTURES / "golden_siglip" / "tokenizer.json").read_bytes())
+    secs = {}
+    t = time.perf_counter()
+    vision, text = so400m_source(device, layers=layers, vocab_size=vocab_size)
+    secs["build"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ckpt = model_dir / "open_clip_pytorch_model.bin"
+    sd = {f"visual.trunk.{k}": v.detach().cpu() for k, v in vision.state_dict().items()}
+    sd.update({f"text.{k}": v.detach().cpu() for k, v in text.state_dict().items()})
+    sd["logit_scale"] = torch.tensor(np.log(10.0), dtype=torch.float32)
+    sd["logit_bias"] = torch.tensor(-10.0)
+    n_params = sum(v.numel() for v in sd.values())
+    torch.save(sd, ckpt)
+    del sd
+    secs["save"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sd = pull_weights.load_checkpoint(ckpt)
+    secs["load_checkpoint"] = time.perf_counter() - t
+    t = time.perf_counter()
+    (model_dir / "model_config.json").write_text(json.dumps(
+        pull_weights.derive_model_config(SO400M_REPO, occ, sd), indent=2))
+    secs["derive_model_config"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pull_weights.convert_checkpoint(model_dir, sd)
+    secs["convert_checkpoint"] = time.perf_counter() - t
+    del sd
+    ckpt.unlink()
+    say(f"  checkpoint: {n_params / 1e9:.3f} B f32 parameters; seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return vision, text, secs
+
+
+def phase_serving(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+                  clients=64, hold=8, warm=(1, 8, 32), timed=True) -> dict:
+    """Phase 9: ViT-SO400M-16-SigLIP2-384's checkpoint converted, loaded,
+    held against its source and served over HTTP (``layers``/``vocab_size``
+    and the counts cut it for a CPU rehearsal). Launch counts are exact in
+    the single-client part and only asserted to grow under concurrency
+    (the counters are plain ``+= 1``). Served rows are held against the
+    direct call at cosine 1 - 1e-6: the kernels compute each row on its
+    own, and an H100 80GB HBM3 gave 1.0000000 at every row."""
+    import base64
+    import shutil
+    import tempfile
+
+    from clip_embedder_tpu_torch import Clip
+    from clip_embedder_tpu_torch.serving import ClipServer, warmup
+
+    free_device_memory()  # the earlier phases' models
+    say(f"[9] deployment path: {SO400M_REPO} checkpoint → convert → Clip.from_local_dir "
+        f"({dtype}) → warmup → ClipServer")
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="clip_smoke_") as tmp:
+        model_dir = Path(tmp)
+        disk = shutil.disk_usage(tmp)
+        mem = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+        say(f"  temp dir {tmp}: {disk.free / 2**30:.1f} GiB free of {disk.total / 2**30:.1f}; "
+            f"host memory available {mem['MemAvailable'].strip()} of {mem['MemTotal'].strip()}")
+        vision_ref, text_ref, out["convert_s"] = convert_so400m(
+            device, model_dir, layers=layers, vocab_size=vocab_size)
+        t = time.perf_counter()
+        clip = Clip.from_local_dir(model_dir, device=device, dtype=dtype)
+        out["load_s"] = time.perf_counter() - t
+    v, tc = clip.vision.spec.cfg, clip.text.spec.cfg
+    say(f"  loaded vision {v.layers}x{v.width} ({v.seq_len} tokens, {v.heads}x{v.head_dim} "
+        f"heads), text {tc.layers}x{tc.width} (vocab {tc.vocab_size}) in {out['load_s']:.2f} s; "
+        f"attn_impl={clip.vision.attn_impl}")
+
+    # step 3: the converted model against its source, on the same inputs
+    images = mixed_batch(hold)
+    texts = (LABELS + captions(hold, 12))[:hold]
+    pixels = torch.from_numpy(clip.vision.preprocess_batch(images)).to(device)
+    ids = torch.from_numpy(clip.text.tokenize(texts)[0]).long().to(device)
+    with torch.inference_mode():
+        ref_v = vision_ref(pixels).float().cpu().numpy()
+        ref_t = text_ref(ids).float().cpu().numpy()
+    del vision_ref, text_ref, pixels, ids
+    free_device_memory()
+    cos_v = float(cosines(clip.vision.embed_images(images), ref_v).min())
+    cos_t = float(cosines(clip.text.embed_texts(texts), ref_t).min())
+    say(f"  converted {dtype} Clip against the source model in f32 (tests/torch_ref.py, same "
+        f"pixels and ids): min cosine images {cos_v:.6f}, texts {cos_t:.6f} (need >= 0.999)")
+    if min(cos_v, cos_t) < 0.999:
+        raise AssertionError("the converted model does not compute its source model")
+    out["source_cosine"] = {"images": cos_v, "texts": cos_t}
+
+    # step 4: warm up, serve, one client at a time
+    t = time.perf_counter()
+    warmup(clip, batch_sizes=warm)
+    out["warmup_s"] = time.perf_counter() - t
+    say(f"  warmup(batch_sizes={warm}) in {out['warmup_s']:.2f} s")
+    jpgs = jpeg_bytes(mixed_batch(max(batch, clients)))
+    b64 = [base64.b64encode(j).decode() for j in jpgs]
+    many = captions(batch, 12)
+    server = ClipServer(clip, max_batch=32)
+    try:
+        say(f"  serving on {server.address}")
+        reset_launch_counts()
+        served = {
+            "image": http(server, "/v1/embed/image", jpgs[0], "image/jpeg"),
+            "images": http(server, "/v1/embed/image", {"images_b64": b64[:batch]}),
+            "text": http(server, "/v1/embed/text", {"texts": [LABELS[0]]}),
+            "texts": http(server, "/v1/embed/text", {"texts": many}),
+            "classify": http(server, "/v1/classify", {"image_b64": b64[1], "labels": LABELS}),
+            "rank": http(server, "/v1/rank", {"images_b64": b64[:hold], "text": LABELS[1]}),
+        }
+        counts = launch_counts()
+        health = http(server, "/healthz")
+        metrics = http(server, "/v1/metrics")
+        # 4 vision forwards (image, images, classify's image, rank's images),
+        # 4 text (text, texts, classify's labels, rank's text)
+        forwards = 4 * v.layers + 4 * tc.layers
+        want = dict.fromkeys(_wrappers(), 0)
+        if device == "cuda":
+            want.update(ln_qkv=forwards, flash_attention_packed=forwards)
+        say(f"  single client: launches {counts} (want ln_qkv and flash_attention_packed "
+            f"{want['ln_qkv']}: 4 vision and 4 text forwards); healthz {health}")
+        if counts != want:
+            raise AssertionError(f"served launches {counts}, expected {want}")
+        cos = {
+            "image": hold_rows("image", served["image"]["embeddings"],
+                               clip.vision.embed_images([jpgs[0]]), SERVED_COSINE),
+            "images": hold_rows("images", served["images"]["embeddings"],
+                                clip.vision.embed_images(jpgs[:batch]), SERVED_COSINE),
+            "text": hold_rows("text", served["text"]["embeddings"],
+                              clip.text.embed_texts([LABELS[0]]), SERVED_COSINE),
+            "texts": hold_rows("texts", served["texts"]["embeddings"],
+                               clip.text.embed_texts(many), SERVED_COSINE),
+        }
+        hold_order("classify", served["classify"]["results"], clip.classify(jpgs[1], LABELS))
+        hold_order("rank", served["rank"]["results"], clip.rank_images(jpgs[:hold], LABELS[1]))
+        say("  served rows against the direct call, min cosine: "
+            + ", ".join(f"{k} {c:.7f}" for k, c in cos.items())
+            + f" (need >= {SERVED_COSINE}); classify and rank: same order, probabilities "
+            "within 1e-4")
+        if metrics["requests"].get("/v1/embed/image") != 2 or metrics["errors"]:
+            raise AssertionError(f"metrics after the single client: {metrics}")
+        out["single_client"] = {"launches": counts, "cosines": cos}
+
+        # step 5: concurrent clients, one image each: the port's server (each
+        # JPEG decoded in its handler thread) and, in turns, the JAX
+        # server's design (the raw bytes submitted, decoded in the collector)
+        direct = np.concatenate([clip.vision.embed_images(jpgs[i:i + 32])
+                                 for i in range(0, clients, 32)])
+        runs = []
+        with tempfile.TemporaryDirectory(prefix="clip_smoke_jpegs_") as jdir:
+            paths = [Path(jdir) / f"{i}.jpg" for i in range(clients)]
+            for path, data in zip(paths, jpgs):
+                path.write_bytes(data)
+            for variant in ("handlers", "collector", "collector", "handlers"):
+                with decode_in_collector() if variant == "collector" \
+                        else contextlib.nullcontext():
+                    runs.append(serve_concurrently(server, paths, direct[:clients],
+                                                   f"decode in the {variant}", device))
+        out["concurrent"] = runs[0]
+        out["concurrent_runs"] = runs
+        if timed:
+            from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+            decoded = [to_rgb_array(j) for j in jpgs[:32]]
+
+            def one_window():
+                futs = [server._vision_batcher.submit(a) for a in decoded]
+                for f in futs:
+                    f.result()
+
+            bd = device_breakdown(one_window)
+            groups = ", ".join(f"{k} {g_ms:.3f}" for k, g_ms in sorted(
+                bd["groups_ms"].items(), key=lambda kv: -kv[1]))
+            say(f"  one micro-batch of 32 decoded JPEGs through the vision batcher (staging, "
+                f"preprocess, tower) under torch.profiler: device ms by kernel group: "
+                f"{groups}; busy {bd['busy_ms']:.3f} of {bd['wall_ms']:.3f} ms wall, idle "
+                f"share {bd['idle_share']:.3f}")
+            out["breakdown"] = bd
+            # the host's share of a window, alone: the JPEG decode (in the
+            # handlers) and the staging of the padded u8 batch and its resize
+            # matrices (in the collector)
+            from clip_embedder_tpu_torch import native
+
+            t = time.perf_counter()
+            arrays = [to_rgb_array(j) for j in jpgs[:32]]
+            decode_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            staged = clip.vision.preprocessor.stage_host_batch_unique(arrays)
+            stage_ms = (time.perf_counter() - t) * 1e3
+            say(f"  host work of that micro-batch alone (host clock): decode of the 32 JPEGs "
+                f"{decode_ms:.2f} ms ({'libclippre' if native.available() else 'Pillow'}), "
+                f"staging {stage_ms:.2f} ms (u8 batch {list(staged[0].shape)}, "
+                f"{staged[0].nbytes / 2**20:.1f} MiB)")
+            out["host_ms"] = {"decode": decode_ms, "stage": stage_ms}
+    finally:
+        server.close()
+    return out
+
+
+def decode_in_collector():
+    """The JAX server's design on the port's server: single images reach the
+    micro-batcher as the request's raw bytes, so its collector thread
+    decodes them (inside ``embed_images``), one by one."""
+    from unittest import mock
+
+    from clip_embedder_tpu_torch import serving
+
+    return mock.patch.object(serving, "to_rgb_array", lambda image: image)
+
+
+# The concurrent clients, in a process of their own (as a deployment's
+# clients are): one thread a request, released together; prints one JSON
+# object with each row, each latency, the wall time and the failures. The
+# threads use http.client: 64 threads calling urllib's urlopen at once each
+# build an opener, each loading the CA store for its HTTPS handler, 2-3 s
+# of client time in all.
+CLIENTS = r"""
+import http.client, json, sys, threading, time
+host, port, paths = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+bodies = [open(p, "rb").read() for p in paths]
+gate = threading.Barrier(len(bodies) + 1)
+rows, lat, errors = [None] * len(bodies), [0.0] * len(bodies), []
+def client(i):
+    try:
+        gate.wait()
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        try:
+            conn.request("POST", "/v1/embed/image", body=bodies[i],
+                         headers={"Content-Type": "image/jpeg"})
+            resp = conn.getresponse()
+            body = resp.read()
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}: {body[:200]!r}")
+        rows[i] = json.loads(body)["embeddings"][0]
+        lat[i] = time.perf_counter() - t0
+    except Exception as e:
+        errors.append(f"client {i}: {e!r}")
+threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+for t in threads:
+    t.start()
+gate.wait()
+t0 = time.perf_counter()
+for t in threads:
+    t.join(timeout=600)
+wall = time.perf_counter() - t0
+print(json.dumps({"rows": rows, "lat": lat, "wall": wall, "errors": errors,
+                  "alive": sum(t.is_alive() for t in threads)}))
+"""
+
+
+def serve_concurrently(server, paths, direct, label, device) -> dict:
+    """One single-JPEG request for each file of ``paths``, each from its own
+    thread of a client process (``CLIENTS``), released together: all must
+    succeed, in few micro-batches, with the direct call's rows; images/s
+    served (the clients' clock, release to last reply), the server's
+    p50/p95 from ``/v1/metrics`` (its counters set anew for this run) and
+    the clients' own. Launch counts are only asserted to grow (plain
+    ``+= 1`` from several threads)."""
+    from clip_embedder_tpu_torch.serving import ServerMetrics
+
+    clients = len(paths)
+    server.metrics = ServerMetrics()  # /v1/metrics over this run alone
+    before = server._vision_batcher.batches
+    counts0 = launch_counts()
+    host, port = server.address
+    proc = subprocess.run([sys.executable, "-c", CLIENTS, host, str(port), *map(str, paths)],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: the client process failed: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["errors"] or res["alive"]:
+        raise AssertionError(f"{label}: concurrent clients failed: {res['errors'][:4]}")
+    wall = res["wall"]
+    windows = server._vision_batcher.batches - before
+    counts1 = launch_counts()
+    grew = {k: counts1[k] - counts0[k] for k in ("ln_qkv", "flash_attention_packed")}
+    cos = hold_rows(label, res["rows"], direct, SERVED_COSINE)
+    ep = http(server, "/v1/metrics")["latency"]["/v1/embed/image"]
+    ms = sorted(x * 1e3 for x in res["lat"])
+    run = {"label": label, "clients": clients, "wall_s": wall, "images_per_s": clients / wall,
+           "windows": windows, "p50_ms": ep["p50_ms"], "p95_ms": ep["p95_ms"],
+           "client_p50_ms": ms[len(ms) // 2], "client_p95_ms": ms[int(len(ms) * 0.95)],
+           "cosine": cos}
+    say(f"  {clients} concurrent clients, one JPEG each, {label}: all served in {wall:.3f} s "
+        f"({run['images_per_s']:.2f} images/s served) in {windows} micro-batches; rows "
+        f"against the direct call min cosine {cos:.7f}; /v1/metrics p50 {ep['p50_ms']} ms, "
+        f"p95 {ep['p95_ms']} ms over {ep['window']} requests; client p50 "
+        f"{run['client_p50_ms']:.2f} ms, p95 {run['client_p95_ms']:.2f} ms; launches grew "
+        f"{grew}")
+    if windows > max(clients // 4, 2):
+        raise AssertionError(f"{label}: {clients} concurrent requests took {windows} "
+                             "micro-batches")
+    if device == "cuda" and min(grew.values()) <= 0:
+        raise AssertionError(f"{label}: no kernel launched under concurrent traffic: {grew}")
+    return run
+
+
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 
@@ -1677,6 +2090,7 @@ def main(argv) -> int:
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
     pe_core = phase_pe_core("cuda")
     masked = phase_masked_towers("cuda")
+    serving = phase_serving("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
@@ -1701,6 +2115,15 @@ def main(argv) -> int:
         f"{pe_core['bfloat16']['launches']['flash_attention_packed']} on PE-Core bf16 (of them "
         f"{2 * pe_core['bfloat16']['vision_layers']} in the vision blocks, with rope: derived "
         f"from the depth, not counted)")
+    conc = serving["concurrent"]
+    say(f"phase 9: checkpoint → model dir in {sum(serving['convert_s'].values()):.2f} s "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in serving['convert_s'].items())}), loaded in "
+        f"{serving['load_s']:.2f} s, warmed up in {serving['warmup_s']:.2f} s; "
+        f"{conc['clients']} concurrent single-image requests: {conc['images_per_s']:.2f} "
+        f"images/s served, p50 {conc['p50_ms']} ms, p95 {conc['p95_ms']} ms (/v1/metrics), "
+        f"{conc['windows']} micro-batches; images/s by run ("
+        + ", ".join(f"{r['label']} {r['images_per_s']:.2f}" for r in serving["concurrent_runs"])
+        + f"); one micro-batch idle share {serving['breakdown']['idle_share']:.3f}; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

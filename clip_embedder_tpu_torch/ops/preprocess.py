@@ -21,6 +21,7 @@ matrices are zero beyond each image's true extent.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -223,26 +224,34 @@ class Preprocessor:
         self.out_dtype = out_dtype
         self.layout = layout  # "nhwc" | "nchw" (zero-transpose ViT handoff)
         self._weights_cache: dict[tuple, tuple[np.ndarray, np.ndarray]] = {}
+        self._weights_lock = threading.Lock()
 
     _WEIGHTS_CACHE_MAX = 128  # matrices are MBs each but µs to rebuild:
     # keep a small LRU so heterogeneous bulk workloads can't grow the host
     # cache unboundedly.
 
     def _weights(self, w: int, h: int, ph: int, pw: int):
+        """The resize matrices for one (source, padded) size, from an LRU
+        shared by every thread that embeds through this preprocessor (a
+        server's handler threads and its micro-batcher). The lock covers
+        only the cache's bookkeeping; a miss builds its matrices outside
+        it, so one slow miss does not hold up the hits (two threads that
+        miss on one key both build it, and the second insert wins)."""
         key = (w, h, ph, pw)
-        hit = self._weights_cache.get(key)
-        if hit is None:
-            hit = preprocess_weights_for(
-                w, h, self.image_size,
-                interpolation=self.interpolation, resize_mode=self.resize_mode,
-                padded_h=ph, padded_w=pw,
-            )
+        with self._weights_lock:
+            hit = self._weights_cache.pop(key, None)
+            if hit is not None:  # LRU touch: back to the end
+                self._weights_cache[key] = hit
+                return hit
+        hit = preprocess_weights_for(
+            w, h, self.image_size,
+            interpolation=self.interpolation, resize_mode=self.resize_mode,
+            padded_h=ph, padded_w=pw,
+        )
+        with self._weights_lock:
+            self._weights_cache.pop(key, None)
             while len(self._weights_cache) >= self._WEIGHTS_CACHE_MAX:
                 self._weights_cache.pop(next(iter(self._weights_cache)))
-            self._weights_cache[key] = hit
-        else:
-            # LRU touch: move to the back
-            self._weights_cache.pop(key)
             self._weights_cache[key] = hit
         return hit
 

@@ -1,16 +1,35 @@
 """Image input handling: any of {PIL image, numpy array, path, bytes} →
-an RGB uint8 [H, W, 3] array (reference: src/vision.rs:168-169). Decoding
-goes through Pillow."""
+an RGB uint8 [H, W, 3] array (reference: src/vision.rs:168-169). JPEG bytes
+take the native libjpeg decode (``native.decode_jpeg``) where
+``native/libclippre.so`` is built and ``CLIP_TPU_NO_NATIVE_DECODE`` is unset;
+everything else, and any native failure, goes through Pillow."""
 
 from __future__ import annotations
 
 import io
+import os
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 
 from ..errors import ImageError
+
+
+def _native_decode_jpeg(data: bytes):
+    """JPEG bytes → RGB array through the native library, or None to fall
+    back to Pillow (switched off, library not built, or malformed data:
+    Pillow then raises the canonical ImageError)."""
+    if os.environ.get("CLIP_TPU_NO_NATIVE_DECODE"):
+        return None
+    from .. import native
+
+    if not native.available():
+        return None
+    try:
+        return native.decode_jpeg(data)
+    except ImageError:
+        return None
 
 
 def to_rgb_array(image: Any) -> np.ndarray:
@@ -42,10 +61,18 @@ def to_rgb_array(image: Any) -> np.ndarray:
         return to_rgb_array(data)
 
     if isinstance(image, (bytes, bytearray)):
+        data = bytes(image)
+        if data[:2] == b"\xff\xd8":
+            # JPEG: the libjpeg decode gives Pillow's pixels (both wrap
+            # libjpeg-turbo) and releases the GIL, so server threads decode
+            # in parallel
+            decoded = _native_decode_jpeg(data)
+            if decoded is not None:
+                return decoded
         try:
             from PIL import Image
 
-            with Image.open(io.BytesIO(bytes(image))) as img:
+            with Image.open(io.BytesIO(data)) as img:
                 return np.asarray(img.convert("RGB"))
         except ImportError as e:
             raise ImageError("Pillow required to decode image bytes") from e

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import ModelConfig, OpenClipConfig
-from .errors import ConfigError, DeviceError, InferenceError
+from .config import ModelConfig, OpenClipConfig, update_config_json
+from .errors import ConfigError, DeviceError, InferenceError, WeightError
 from .model_manager import (
     NATIVE_VISUAL,
     get_default_base_folder,
@@ -79,6 +79,30 @@ def quantize_params(params: dict, spec: TowerSpec, quantize: str | None, device,
         return params
     return to_device_tree(quantize_tree_checked(params, spec.family, mode=quantize),
                           device=device, dtype=dtype)
+
+
+def derive_vision_dims_from_sd(model_dir: Path, config: OpenClipConfig,
+                               visual_sd: dict) -> None:
+    """At conversion (``pull_weights.convert_checkpoint``), for PE-Core,
+    whose per-size dims are a reconstructed table: derive the dims from the
+    checkpoint's shapes and persist them under ``vision_cfg.pe_cfg``, so the
+    table is used only when no checkpoint exists. Every other family is left
+    as it is (FastViT and EVA02, whose dims the JAX package also derives
+    here, are not ported: resolving them raises)."""
+    v = config.model_cfg.vision_cfg
+    if "pe_core" not in (v.timm_model_name or "").lower() or v.extra.get("pe_cfg"):
+        return
+    from .weights import derive_pe_cfg_from_sd
+
+    try:
+        derived = derive_pe_cfg_from_sd(visual_sd)
+    except WeightError:
+        return
+    v.extra["pe_cfg"] = derived
+    update_config_json(
+        model_dir / "open_clip_config.json",
+        lambda raw: raw.setdefault("model_cfg", {}).setdefault(
+            "vision_cfg", {}).__setitem__("pe_cfg", derived))
 
 
 def _load_visual(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:

@@ -1,5 +1,7 @@
-"""Parameters: the native npz weight format, numpy → torch conversion, and
-load-time validation of a tower's weight tree.
+"""Parameters: the native npz weight format, numpy → torch conversion,
+load-time validation of a tower's weight tree, and the state-dict mappers
+that turn an open_clip / timm / Meta PE / HF BERT checkpoint into that
+format (``map_state_dict``; numpy in, numpy out, as in the JAX package).
 
 Layout (the JAX package's, kept as it is so that the same ``visual.npz`` /
 ``text.npz`` files load in both and the kernels read the weights directly):
@@ -238,6 +240,14 @@ def _t(w) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(w).T)
 
 
+def _conv_to_patch(w) -> np.ndarray:
+    """torch Conv2d patch kernel [D, C, P, P] → [P·P·C, D], the (py, px, c)
+    flatten order of the ViT's patchify."""
+    w = np.asarray(w)
+    d = w.shape[0]
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0).reshape(-1, d))
+
+
 def _get(sd: Mapping[str, Any], key: str) -> np.ndarray:
     if key not in sd:
         raise WeightError(f"Missing weight '{key}' in checkpoint")
@@ -253,6 +263,18 @@ def _linear(sd, prefix: str, *, bias: bool = True) -> dict:
     if bias and f"{prefix}.bias" in sd:
         p["b"] = np.asarray(sd[f"{prefix}.bias"])
     return p
+
+
+def _split_qkv(w, b) -> dict:
+    """Packed [3D, D] qkv (+bias) → separate q/k/v linear trees."""
+    d = w.shape[0] // 3
+    out: dict = {}
+    for i, name in enumerate(("q", "k", "v")):
+        p = {"w": _t(w[i * d: (i + 1) * d])}
+        if b is not None:
+            p["b"] = np.asarray(b[i * d: (i + 1) * d])
+        out[name] = p
+    return out
 
 
 def _stack_blocks(blocks: list) -> Any:
@@ -278,3 +300,315 @@ def _max_index(sd: Mapping[str, Any], pattern: str) -> int:
     if not idx:
         raise WeightError(f"No blocks matching '{pattern}' in checkpoint")
     return max(idx) + 1
+
+
+def fold_bn_affine(gamma, beta, mean, var, *, eps: float = 1e-5):
+    """Inference BatchNorm fold → per-channel affine (f64 intermediate):
+    ``scale = γ/√(var+ε)``, ``bias = β − mean·scale`` (the FastViT and
+    ResNet mappers' fold)."""
+    gamma = np.asarray(gamma, np.float64)
+    beta = np.asarray(beta, np.float64)
+    scale = gamma / np.sqrt(np.asarray(var, np.float64) + eps)
+    bias = beta - np.asarray(mean, np.float64) * scale
+    return scale, bias
+
+
+def _select_prefix(sd: Mapping[str, Any], prefix: str) -> dict:
+    """Where ``prefix`` exists, keep only the prefixed keys (stripped). A
+    whole-model classic-CLIP dict has its text tower at top level
+    (``transformer.resblocks.*``): stripping ``visual.`` without dropping
+    the rest would let the text keys overwrite the visual ones."""
+    if any(k.startswith(prefix) for k in sd):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return dict(sd)
+
+
+# -- classic open_clip towers (CLIP ViT + text transformer) ------------------
+
+def _openclip_resblock(sd, prefix: str) -> dict:
+    attn = _split_qkv(_get(sd, f"{prefix}.attn.in_proj_weight"),
+                      sd.get(f"{prefix}.attn.in_proj_bias"))
+    attn["out"] = _linear(sd, f"{prefix}.attn.out_proj")
+    return {
+        "ln1": _ln(sd, f"{prefix}.ln_1"),
+        "attn": attn,
+        "ln2": _ln(sd, f"{prefix}.ln_2"),
+        "mlp": {"fc": _linear(sd, f"{prefix}.mlp.c_fc"),
+                "proj": _linear(sd, f"{prefix}.mlp.c_proj")},
+    }
+
+
+def map_clip_visual(sd: Mapping[str, Any]) -> dict:
+    """Classic open_clip VisionTransformer state dict (``visual.*``, or
+    already stripped to ``conv1`` etc.) → ViT tree, with CoCa's
+    attentional pooler where the dict has one."""
+    sd = _select_prefix(strip_prefix(sd, "model."), "visual.")
+    n_blocks = _max_index(sd, r"transformer\.resblocks\.(\d+)\.ln_1\.weight")
+    blocks = [_openclip_resblock(sd, f"transformer.resblocks.{i}") for i in range(n_blocks)]
+    params: dict = {
+        "patch_embed": {"w": _conv_to_patch(_get(sd, "conv1.weight"))},
+        "cls_token": np.asarray(_get(sd, "class_embedding")).reshape(1, 1, -1),
+        "pos_embed": np.asarray(_get(sd, "positional_embedding"))[None],
+        "ln_pre": _ln(sd, "ln_pre"),
+        "blocks": _stack_blocks(blocks),
+        "ln_post": _ln(sd, "ln_post"),
+    }
+    if "conv1.bias" in sd:
+        params["patch_embed"]["b"] = np.asarray(sd["conv1.bias"])
+    if "attn_pool.query" in sd:
+        # CoCa's AttentionalPooler: queries in embed-dim space, MHA with
+        # kdim = vdim = width, so torch keeps separate q/k/v_proj_weight and
+        # one [3·dm] in_proj_bias (it packs in_proj only when they match)
+        dm = np.asarray(sd["attn_pool.query"]).shape[-1]
+        if "attn_pool.attn.in_proj_weight" in sd:
+            pool_attn = _split_qkv(_get(sd, "attn_pool.attn.in_proj_weight"),
+                                   sd.get("attn_pool.attn.in_proj_bias"))
+        else:
+            b = sd.get("attn_pool.attn.in_proj_bias")
+            pool_attn = {}
+            for i, name in enumerate(("q", "k", "v")):
+                p = {"w": _t(_get(sd, f"attn_pool.attn.{name}_proj_weight"))}
+                if b is not None:
+                    p["b"] = np.asarray(b[i * dm:(i + 1) * dm])
+                pool_attn[name] = p
+        pool_attn["out"] = _linear(sd, "attn_pool.attn.out_proj")
+        params["attn_pool"] = {
+            "query": np.asarray(sd["attn_pool.query"]),
+            "ln_q": _ln(sd, "attn_pool.ln_q"),
+            "ln_k": _ln(sd, "attn_pool.ln_k"),
+            "attn": pool_attn,
+        }
+    if "proj" in sd:
+        params["proj"] = {"w": np.asarray(sd["proj"])}  # stored [width, embed]
+    return params
+
+
+def _pick(sd, *prefixes: str) -> str:
+    """The first prefix whose ``.weight`` is in ``sd``, else a WeightError."""
+    for p in prefixes:
+        if f"{p}.weight" in sd:
+            return p
+    raise WeightError(
+        f"None of {prefixes} found in checkpoint (keys near: "
+        f"{sorted(k for k in sd if k.startswith(prefixes[0].split('.')[0]))[:8]})")
+
+
+def map_pe_visual(sd: Mapping[str, Any]) -> dict:
+    """Meta Perception Encoder (PE-Core) vision state dict (CLIP-lineage
+    naming: ``conv1``, ``transformer.resblocks.N`` with optional
+    ``ls_1/ls_2.gamma``, ``attn_pool.{probe, attn, layernorm, mlp}``,
+    ``proj``) → ViT tree."""
+    sd = _select_prefix(strip_prefix(sd, "model."), "visual.")
+    n_blocks = _max_index(sd, r"transformer\.resblocks\.(\d+)\.ln_1\.weight")
+    blocks = []
+    for i in range(n_blocks):
+        prefix = f"transformer.resblocks.{i}"
+        block = _openclip_resblock(sd, prefix)
+        for ours, theirs in (("ls1", "ls_1"), ("ls2", "ls_2")):
+            if f"{prefix}.{theirs}.gamma" in sd:
+                block[ours] = np.asarray(sd[f"{prefix}.{theirs}.gamma"])
+        blocks.append(block)
+
+    pos = np.asarray(_get(sd, "positional_embedding"))
+    if pos.ndim == 2:
+        pos = pos[None]
+    params: dict = {
+        "patch_embed": {"w": _conv_to_patch(_get(sd, "conv1.weight"))},
+        "pos_embed": pos,
+        "blocks": _stack_blocks(blocks),
+        "ln_post": _ln(sd, "ln_post"),
+    }
+    if "conv1.bias" in sd:
+        params["patch_embed"]["b"] = np.asarray(sd["conv1.bias"])
+    if "class_embedding" in sd:
+        params["cls_token"] = np.asarray(sd["class_embedding"]).reshape(1, 1, -1)
+    if "ln_pre.weight" in sd:
+        params["ln_pre"] = _ln(sd, "ln_pre")
+    if "attn_pool.probe" in sd:
+        pool_attn = _split_qkv(_get(sd, "attn_pool.attn.in_proj_weight"),
+                               sd.get("attn_pool.attn.in_proj_bias"))
+        pool_attn["out"] = _linear(sd, "attn_pool.attn.out_proj")
+        params["attn_pool"] = {
+            "probe": np.asarray(sd["attn_pool.probe"]).reshape(1, 1, -1),
+            "attn": pool_attn,
+            "ln": _ln(sd, _pick(sd, "attn_pool.layernorm", "attn_pool.norm", "attn_pool.ln")),
+            "mlp": {
+                "fc": _linear(sd, _pick(sd, "attn_pool.mlp.c_fc", "attn_pool.mlp.fc1")),
+                "proj": _linear(sd, _pick(sd, "attn_pool.mlp.c_proj", "attn_pool.mlp.fc2")),
+            },
+        }
+    if "proj" in sd:
+        params["proj"] = {"w": np.asarray(sd["proj"])}  # stored [width, embed]
+    elif "proj.weight" in sd:
+        params["proj"] = _linear(sd, "proj")
+    return params
+
+
+def derive_pe_cfg_from_sd(sd: Mapping[str, Any]) -> dict:
+    """PE-Core dims from a checkpoint's shapes, so a conversion never leans
+    on the size table (``models.build._PE_CORE_SIZES``) for a field the
+    checkpoint fixes. ``heads`` is not shape-derivable (the packed in_proj
+    is [3w, w] for any head count) and stays table- or override-seeded.
+    Raises WeightError when the dict is not a PE-Core-shaped ViT."""
+    sd = _select_prefix(strip_prefix(sd, "model."), "visual.")
+    conv1 = sd.get("conv1.weight")
+    if conv1 is None or np.asarray(conv1).ndim != 4 or np.asarray(conv1).shape[1] != 3:
+        raise WeightError("state dict has no [width, 3, p, p] patch conv (conv1.weight)")
+    width = int(np.asarray(conv1).shape[0])
+    patch = int(np.asarray(conv1).shape[2])
+    layers = _max_index(sd, r"transformer\.resblocks\.(\d+)\.ln_1\.weight")
+    fc = sd.get("transformer.resblocks.0.mlp.c_fc.weight")
+    if fc is None:
+        raise WeightError("state dict has no mlp.c_fc weights")
+    cfg = {
+        "width": width,
+        "patch_size": patch,
+        "layers": layers,
+        "mlp_hidden": int(np.asarray(fc).shape[0]),
+        "use_class_token": "class_embedding" in sd,
+        "use_ln_pre": "ln_pre.weight" in sd,
+        "pool": "map" if "attn_pool.probe" in sd else "tok",
+    }
+    for key in ("attn_pool.mlp.c_fc.weight", "attn_pool.mlp.fc1.weight"):
+        if key in sd:
+            cfg["pool_mlp_hidden"] = int(np.asarray(sd[key]).shape[0])
+            break
+    return cfg
+
+
+def map_clip_text(sd: Mapping[str, Any]) -> dict:
+    """Classic open_clip text transformer state dict (whole-model naming,
+    ``token_embedding.weight``…, or custom-text ``text.*``) → tree, with
+    CoCa's ``cls_emb`` and either projection form."""
+    sd = strip_prefix(sd, "model.", "text.")
+    n_blocks = _max_index(sd, r"transformer\.resblocks\.(\d+)\.ln_1\.weight")
+    blocks = [_openclip_resblock(sd, f"transformer.resblocks.{i}") for i in range(n_blocks)]
+    params: dict = {
+        "token_embed": _get(sd, "token_embedding.weight"),
+        "pos_embed": _get(sd, "positional_embedding"),
+        "blocks": _stack_blocks(blocks),
+        "ln_final": _ln(sd, "ln_final"),
+    }
+    if "cls_emb" in sd:  # CoCa's embed_cls token (appended at the end)
+        params["cls_emb"] = np.asarray(sd["cls_emb"]).reshape(1, 1, -1)
+    if "text_projection.weight" in sd:  # nn.Linear projection (SigLIP)
+        params["proj"] = _linear(sd, "text_projection")
+    elif "text_projection" in sd:  # bare Parameter [width, embed]
+        params["proj"] = {"w": np.asarray(sd["text_projection"])}
+    return params
+
+
+# -- timm ViT towers (SigLIP / SigLIP2) ---------------------------------------
+
+def _timm_block(sd, prefix: str) -> dict:
+    qkv_bias = sd.get(f"{prefix}.attn.qkv.bias")
+    if qkv_bias is None and f"{prefix}.attn.q_bias" in sd:
+        # EVA attention: separate q/v biases, no k bias
+        q_b = np.asarray(sd[f"{prefix}.attn.q_bias"])
+        v_b = np.asarray(sd[f"{prefix}.attn.v_bias"])
+        qkv_bias = np.concatenate([q_b, np.zeros_like(q_b), v_b])
+    attn = _split_qkv(_get(sd, f"{prefix}.attn.qkv.weight"), qkv_bias)
+    attn["out"] = _linear(sd, f"{prefix}.attn.proj")
+    block = {
+        "ln1": _ln(sd, f"{prefix}.norm1"),
+        "attn": attn,
+        "ln2": _ln(sd, f"{prefix}.norm2"),
+        "mlp": {"fc": _linear(sd, f"{prefix}.mlp.fc1"),
+                "proj": _linear(sd, f"{prefix}.mlp.fc2")},
+    }
+    if f"{prefix}.ls1.gamma" in sd:
+        block["ls1"] = np.asarray(sd[f"{prefix}.ls1.gamma"])
+        block["ls2"] = np.asarray(sd[f"{prefix}.ls2.gamma"])
+    return block
+
+
+def map_timm_visual(sd: Mapping[str, Any]) -> dict:
+    """timm ViT state dict (open_clip TimmModel: ``visual.trunk.*``) → ViT
+    tree, with the SigLIP attention-pool (map) head and open_clip's
+    ``head.*`` projections."""
+    sd = strip_prefix(sd, "model.", "visual.", "trunk.")
+    n_blocks = _max_index(sd, r"blocks\.(\d+)\.norm1\.weight")
+    blocks = [_timm_block(sd, f"blocks.{i}") for i in range(n_blocks)]
+
+    pos = np.asarray(_get(sd, "pos_embed"))
+    if pos.ndim == 2:
+        pos = pos[None]
+    params: dict = {
+        "patch_embed": {"w": _conv_to_patch(_get(sd, "patch_embed.proj.weight")),
+                        "b": _get(sd, "patch_embed.proj.bias")},
+        "pos_embed": pos,
+        "blocks": _stack_blocks(blocks),
+        # global_pool='avg' checkpoints carry fc_norm (after the pool) in
+        # place of the trunk norm (models.build sets norm_after_pool)
+        "ln_post": _ln(sd, "norm" if "norm.weight" in sd else "fc_norm"),
+    }
+    if "cls_token" in sd:
+        params["cls_token"] = np.asarray(sd["cls_token"]).reshape(1, 1, -1)
+    if "reg_token" in sd:  # timm register tokens
+        reg = np.asarray(sd["reg_token"])
+        params["reg_tokens"] = reg.reshape(1, -1, reg.shape[-1])
+    if "attn_pool.latent" in sd:
+        kv = _get(sd, "attn_pool.kv.weight")
+        kvb = sd.get("attn_pool.kv.bias")
+        d = kv.shape[0] // 2
+        pool_attn = {"q": _linear(sd, "attn_pool.q"), "k": {"w": _t(kv[:d])},
+                     "v": {"w": _t(kv[d:])}, "out": _linear(sd, "attn_pool.proj")}
+        if kvb is not None:
+            pool_attn["k"]["b"] = np.asarray(kvb[:d])
+            pool_attn["v"]["b"] = np.asarray(kvb[d:])
+        params["attn_pool"] = {
+            "probe": np.asarray(sd["attn_pool.latent"]).reshape(1, 1, -1),
+            "attn": pool_attn,
+            "ln": _ln(sd, "attn_pool.norm"),
+            "mlp": {"fc": _linear(sd, "attn_pool.mlp.fc1"),
+                    "proj": _linear(sd, "attn_pool.mlp.fc2")},
+        }
+    # open_clip TimmModel heads: 'linear' → head.proj, 'mlp' → head.fc1/fc2;
+    # a bare head.weight is the trunk's own classifier-style head
+    if "head.proj.weight" in sd:
+        params["proj"] = _linear(sd, "head.proj")
+    elif "head.fc1.weight" in sd:
+        params["proj"] = {"fc": _linear(sd, "head.fc1"), "out": _linear(sd, "head.fc2")}
+    elif "head.weight" in sd:
+        params["proj"] = _linear(sd, "head")
+    return params
+
+
+# -- entry point ---------------------------------------------------------------
+
+# the families models.build resolves but the port does not build yet, by the
+# name its not-yet-ported error gives them
+_UNPORTED_VISUAL = {"fastvit": "The FastViT (MobileCLIP) vision tower",
+                    "resnet": "The ModifiedResNet vision tower",
+                    "convnext": "The ConvNeXt vision tower",
+                    "eva02": "The EVA02 vision tower"}
+
+
+def map_state_dict(sd: Mapping[str, Any], *, tower: str, family: str) -> dict:
+    """Map a torch state dict (arrays or CPU tensors) onto a tower tree of
+    numpy arrays. ``tower``: "visual" | "text"; ``family``: a
+    ``TowerSpec.family``. The families not yet ported raise ConfigError."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    if tower == "visual":
+        if family == "vit":
+            keys = set(sd)
+            if any(".trunk." in k or k.startswith("trunk.") or "blocks.0.norm1.weight" in k
+                   for k in keys):
+                return map_timm_visual(sd)
+            if any(k.endswith("attn_pool.probe") for k in keys):
+                return map_pe_visual(sd)  # Meta PE-Core naming
+            return map_clip_visual(sd)
+        if family in _UNPORTED_VISUAL:
+            from .models.build import _not_ported
+
+            raise _not_ported(_UNPORTED_VISUAL[family])
+        raise WeightError(f"Unknown visual family '{family}'")
+    if tower == "text":
+        if family == "text_transformer":
+            return map_clip_text(sd)
+        if family == "hf_bert":
+            from .models.hf_text import map_hf_text
+
+            return map_hf_text(sd)
+        raise WeightError(f"Unknown text family '{family}'")
+    raise WeightError(f"Unknown tower '{tower}'")

@@ -21,6 +21,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder\n"
         "from clip_embedder_tpu_torch.ops import cuda, flash, int8_mlp, qkv, preprocess, quant\n"
         "from clip_embedder_tpu_torch.ops import rope\n"
+        "from clip_embedder_tpu_torch import native, pull_weights, serving\n"
         "from clip_embedder_tpu_torch.utils import logging\n"
         "from clip_embedder_tpu_torch.models import build, text_transformer, vit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
