@@ -64,7 +64,15 @@ card, in phases, and fail loudly if any phase fails.
    of their own (all served, in far
    fewer micro-batches, images/s and p50/p95; in turns with the JAX
    server's design, the JPEGs decoded in the micro-batcher's thread), and
-   one micro-batch under torch.profiler.
+   one micro-batch under torch.profiler;
+10. the other vision families — MobileCLIP2-S4 (FastViT MCi4) in bf16 and
+   ``"int8"``, EVA02-L-14-336 in bf16 and ``"int8_all"``,
+   convnext_large_d_320 (the ``mlp`` head) in bf16 and ``"int8"``, and RN50
+   (ModifiedResNet) in bf16, at full width and depth with seeded random
+   weights through ``Clip``: ``embed_images``, ``embed_texts`` and
+   ``classify``, launch counts per call, both towers held against the plain
+   path, images/s, the p50 of one image, texts/s, and device time by kernel
+   group (cuDNN's convolutions as their own group).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -143,6 +151,52 @@ PE_PREPROCESS = SIGLIP_PREPROCESS
 LABELS = ["a photo of a city at night", "a desert", "a forest", "the ocean",
           "a red balloon"]
 
+# Phase 10's models. timm/MobileCLIP2-S4-OpenCLIP as the repo records it
+# (tests/test_reference_model_list.py; reference README.md:137): FastViT MCi4
+# at 256, text 16 x 768. MCi4 is the fastvit_mci4 table row of the JAX
+# package (4 stages, 44 blocks, 128-1024 channels, attention in the last
+# stage), whose dims no timm source or real checkpoint has confirmed: the
+# label names the config, not a published S4 shown to match.
+MOBILECLIP2_S4 = {
+    "embed_dim": 768,
+    "vision_cfg": {"image_size": 256, "timm_model_name": "fastvit_mci4", "timm_proj": "none"},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768, "heads": 12,
+                 "layers": 16},
+}
+# open_clip model_configs/EVA02-L-14-336.json: 24 x 1024, 16 x 64 heads, SwiGLU
+# 2730, patch 14 at 336 (577 tokens); the trunk's own head projects to 768.
+EVA02_L_14_336 = {
+    "embed_dim": 768,
+    "vision_cfg": {"image_size": 336, "timm_model_name": "eva02_large_patch14_clip_336",
+                   "timm_pool": "token", "timm_proj": None},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768, "heads": 12,
+                 "layers": 12},
+}
+# open_clip model_configs/convnext_large_d_320.json: convnext_large at 320, the
+# mlp head (1536 -> 1536 -> 768), text 16 x 768.
+CONVNEXT_LARGE_D_320 = {
+    "embed_dim": 768,
+    "vision_cfg": {"image_size": 320, "timm_model_name": "convnext_large", "timm_pool": "",
+                   "timm_proj": "mlp"},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768, "heads": 12,
+                 "layers": 16},
+}
+# open_clip model_configs/RN50.json: ModifiedResNet [3, 4, 6, 3] at width 64
+# and 224 (attention pool: 32 heads over 50 tokens), text 12 x 512.
+RN50 = {
+    "embed_dim": 1024,
+    "vision_cfg": {"image_size": 224, "layers": [3, 4, 6, 3], "width": 64},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 512, "heads": 8,
+                 "layers": 12},
+}
+# label, config, the modes run
+FAMILY_MODELS = (
+    ("MobileCLIP2-S4", MOBILECLIP2_S4, (None, "int8")),
+    ("EVA02-L-14-336", EVA02_L_14_336, (None, "int8_all")),
+    ("convnext_large_d_320", CONVNEXT_LARGE_D_320, (None, "int8")),
+    ("RN50", RN50, (None,)),
+)
+
 
 def say(*parts) -> None:
     print(*parts, flush=True)
@@ -179,12 +233,21 @@ def max_err(got, ref) -> float:
     return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
 
 
-def hold(name, got, ref, atol, rtol) -> float:
-    """Fail unless |got - ref| <= atol + rtol·|ref| everywhere."""
+def hold(name, got, ref, atol, rtol, cos_min=None) -> float:
+    """Fail unless |got - ref| <= atol + rtol·|ref| everywhere (and, with
+    ``cos_min``, every row along the last axis keeps that cosine to its
+    reference row)."""
     err = max_err(got, ref)
     ok = all(bool(((g.float() - r.float()).abs()
                    <= atol + rtol * r.float().abs()).all()) for g, r in zip(got, ref))
-    say(f"  {name}: max_abs_err={err:.3e} (tol atol={atol:g} rtol={rtol:g}) "
+    note = ""
+    if cos_min is not None:
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            g.float().reshape(-1, g.shape[-1]), r.float().reshape(-1, r.shape[-1]), dim=-1).min())
+            for g, r in zip(got, ref))
+        ok = ok and cos >= cos_min
+        note = f", min row cosine {cos:.8f} (need >= {cos_min:g})"
+    say(f"  {name}: max_abs_err={err:.3e} (tol atol={atol:g} rtol={rtol:g}){note} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
@@ -631,7 +694,7 @@ def int8_linear_library(p, w_cm, x, residual):
     column-major [K, N] operand."""
     xq, xs = _lib_row_quant(x.float())
     y = torch._int_mm(xq, w_cm).float() * (xs * p["w_scale"]) + p["b"].float()
-    return (y + residual.float()).to(x.dtype)
+    return (y if residual is None else y + residual.float()).to(x.dtype)
 
 
 def ln_qkv_int8_library(s_cat, b_cat, w_cm, pre_ln, x, eps):
@@ -731,11 +794,13 @@ def time_int8(label, peaks, kern, plain, lib, ops, nbytes, plain_iters=20) -> di
     library composition and its bound (``ops`` int8 operations, ``nbytes``:
     each input read once, each output written once), and its device time by
     launch; returns the record's timing keys."""
-    t_k, t_p, t_l = cuda_ms(kern), cuda_ms(plain, iters=plain_iters), cuda_ms(lib)
+    t_k, t_p = cuda_ms(kern), cuda_ms(plain, iters=plain_iters)
+    t_l = None if lib is None else cuda_ms(lib)
     t_ops, t_bytes = ops / peaks["int8"], nbytes / peaks["bytes"]
     bound = max(t_ops, t_bytes) * 1e3
     say(f"  {label}: {t_k:.4f} ms; plain {t_p:.4f} ms (median of {plain_iters}); library "
-        f"{t_l:.4f} ms; bound {bound:.4f} ms ({ops:.3e} int8 op, {nbytes:.3e} B); "
+        f"{'none' if t_l is None else f'{t_l:.4f} ms'}; bound {bound:.4f} ms ({ops:.3e} "
+        f"int8 op, {nbytes:.3e} B); "
         f"{ops / t_k * 1e-9:.1f} TOP/s")
     launch_breakdown(label, kern)
     return {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
@@ -868,6 +933,81 @@ def phase_streamed_mlp_kernel(dev, peaks) -> dict:
         "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": t_l}}
 
 
+def phase_family_kernels(dev, peaks) -> dict:
+    """Phase 10's new kernel shapes: kernel 2 with EVA02-L-14-336's rope
+    (q/k/v [32, 577, 16 x 64], the class token's identity row) and kernel 6
+    at the largest FastViT ConvFFN shape (MobileCLIP2-S4's first stage at
+    batch 32: 131072 rows, 128 -> 384) and the largest ConvNeXt fc1 shape
+    (convnext_large_d_320's first stage: 204800 rows, 192 -> 768), each held
+    against its plain version and timed beside it, its library yardstick and
+    its bound."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.models.eva02 import rope_embed
+    from clip_embedder_tpu_torch.ops import flash, int8_mlp
+    from clip_embedder_tpu_torch.ops.rope import head_tiled_tables
+
+    say("[3] phase 10's shapes: flash_attention_packed with EVA02-L's rope, "
+        "int8_linear_fused at FastViT's and ConvNeXt's widest rows (CUDA events, median of "
+        "20 back-to-back calls)")
+    b, heads, hdim, grid = 32, 16, 64, 24
+    seq = grid * grid + 1
+    sin, cos = (t.to(dev) for t in head_tiled_tables(
+        rope_embed(grid, hdim, ref_grid=16, prefix=1), heads))
+    rope = (sin, cos)
+    q, k, v = attn_inputs(b, heads, seq, hdim, torch.bfloat16, dev, seed=13)
+    # outputs of about 0.07 at S=577: 5e-3 is 2.5x the bf16 step seen (1.95e-3),
+    # and the row cosine catches a table shifted by a position
+    err = hold("flash_attention_packed+rope B=32 S=577 16x64 (EVA02-L) exact bf16",
+               [flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope)],
+               [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, rope=rope)],
+               5e-3, 5e-3, cos_min=0.9999)
+    hold("flash_attention_packed+rope B=32 S=577 16x64 (EVA02-L) fast_softmax bf16",
+         [flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope, fast_softmax=True)],
+         [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, rope=rope,
+                                             fast_softmax=True)], 5e-3, 5e-3, cos_min=0.9999)
+    t_k = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, rope=rope))
+    t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads,
+                                                             rope=rope))
+    t_l = cuda_ms(lambda: rope_library(q, k, v, heads, sin, cos))
+    qh, kh, vh = (t.view(b, seq, heads, hdim).transpose(1, 2) for t in (q, k, v))
+    t_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    bound, by, ops, nbytes = attn_bound(b, heads, seq, hdim, peaks,
+                                        extra_bytes=2 * seq * heads * hdim * 4)
+    say(f"  flash_attention_packed+rope (EVA02-L, S=577, 16x64): {t_k:.4f} ms; plain "
+        f"{t_p:.4f} ms; apply_rope + F.scaled_dot_product_attention {t_l:.4f} ms (SDPA alone "
+        f"{t_sdpa:.4f} ms); bound {bound:.4f} ms ({ops:.3e} FLOP, {nbytes:.3e} B, {by})")
+    out = {"flash_attention_packed[rope]": {
+        "name": "flash_attention_packed[rope]", "route": "cuda",
+        "source": "clip_embedder_tpu_torch/csrc/flash_packed.cu",
+        "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_l}}
+
+    es, vec = 2, 4 * 2  # bf16 activations; an f32 scale and bias per column
+    # EVA02-L's SwiGLU (1024 -> 2730 -> 1024 over 32 x 577 rows): widths that
+    # are no multiple of 16, which torch._int_mm does not take (no library time)
+    for label, rows, k_in, k_out in (("fastvit_fc1", 32 * 64 * 64, 128, 384),
+                                     ("convnext_fc1", 32 * 80 * 80, 192, 768),
+                                     ("eva02_fc1", 32 * 577, 1024, 2730),
+                                     ("eva02_fc2", 32 * 577, 2730, 1024)):
+        p, _, x = int8_inputs(rows, k_in, k_out, torch.bfloat16, dev, seed=14)
+        ragged = k_in % 16 or k_out % 16
+        err = hold_int8(f"int8_linear_fused {label} rows={rows} {k_in}->{k_out} bf16",
+                        [int8_mlp.int8_linear_fused(p, x)],
+                        [int8_mlp.int8_linear_fused_plain(p, x)], torch.bfloat16)
+        out[f"int8_linear_fused[{label}]"] = {
+            "name": f"int8_linear_fused[{label}]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/int8_linear.cu",
+            "replaces": "clip_embedder_tpu/ops/int8_mlp.py:511", "max_abs_err": err,
+            **time_int8(f"int8_linear_fused {label} rows={rows} {k_in}->{k_out}", peaks,
+                        lambda: int8_mlp.int8_linear_fused(p, x),
+                        lambda: int8_mlp.int8_linear_fused_plain(p, x),
+                        None if ragged else lambda: int8_linear_library(p, p["w_q"], x, None),
+                        2 * rows * k_in * k_out,
+                        rows * (k_in + k_out) * es + k_in * k_out + vec * k_out, 5)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: fixtures
 # ---------------------------------------------------------------------------
@@ -877,15 +1017,21 @@ def cosines(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
+# the fixtures with a vision tower of their own, one per family and pool
+GOLDEN_FIXTURES = ("golden_siglip", "golden_model", "golden_eva02", "golden_fastvit",
+                   "golden_convnext", "golden_resnet")
+
+
 def phase_fixtures(device) -> dict:
-    """Returns the launch counts of the two fixtures' run (counts set to 0
-    just before it): kernel 3's main path."""
+    """Returns the launch counts of the fixtures' run (counts set to 0 just
+    before it): kernel 3's main path. Every fixture's text tower (and
+    golden_eva02's vision tower) takes ln_qkv and flash_attention."""
     from clip_embedder_tpu_torch import Clip
     from clip_embedder_tpu_torch.ops import flash, qkv
 
     say("[4] golden fixtures, f32")
     reset_launch_counts()
-    for name in ("golden_siglip", "golden_model"):
+    for name in GOLDEN_FIXTURES:
         fixture = FIXTURES / name
         clip = Clip.from_local_dir(fixture, device=device)
         img = np.load(fixture / "golden_image.npy")
@@ -952,35 +1098,68 @@ def phase_fixtures_quantized(device) -> None:
 # phase 5: the full-width main path
 # ---------------------------------------------------------------------------
 
+def cut_vision_depth(vcfg: dict, layers: int) -> None:
+    """``layers`` blocks a stage (a transformer: in all) in the vision config
+    ``vcfg``, through the family's override (a CPU rehearsal's cut)."""
+    name = vcfg.get("timm_model_name") or ""
+    if "_pe_core_" in name:
+        vcfg["pe_cfg"] = {"layers": layers}
+    elif name.startswith("eva02_"):
+        vcfg["eva02_cfg"] = {"layers": layers}
+    elif name.startswith(("fastvit", "convnext")):
+        vcfg["fastvit_cfg" if name.startswith("fastvit") else "convnext_cfg"] = {
+            "depths": [layers] * 4}
+    elif name:
+        vcfg["vit_cfg"] = {"layers": layers}
+    elif isinstance(vcfg["layers"], list):  # ModifiedResNet
+        vcfg["layers"] = [layers] * 4
+    else:
+        vcfg["layers"] = layers
+
+
+def set_layer_scale(params, value: float) -> None:
+    """Every layer-scale leaf (FastViT's ``ls``, ConvNeXt's ``gamma``) of a
+    vision tree set to ``value`` in place: at ``init``'s 1e-5 and 1e-6 the
+    blocks add almost nothing to their residual, and the kernels they run
+    would be held at a scale that hides their errors."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            if k in ("ls", "gamma") and isinstance(v, torch.Tensor):
+                v.fill_(value)
+            else:
+                set_layer_scale(v, value)
+    elif isinstance(params, list):
+        for v in params:
+            set_layer_scale(v, value)
+
+
 def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None,
-               model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS, tokenizer="golden_siglip"):
+               model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS, tokenizer="golden_siglip",
+               layer_scale=None):
     """A ``Clip`` of ``model`` (ViT-SO400M-16-SigLIP2-384 unless given) with
     seeded random weights, resolved through the port's config → build
     (``layers``/``vocab_size`` cut it for a CPU rehearsal), with the
     tokenizer and scoring config of the fixture ``tokenizer`` (its ids are
     under 512); ``quantize`` converts those same weights on the device, as
-    ``from_local_dir(..., quantize=...)`` converts loaded ones."""
+    ``from_local_dir(..., quantize=...)`` converts loaded ones;
+    ``layer_scale`` sets the vision tower's layer scales (``set_layer_scale``)
+    first."""
     import copy
 
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
     from clip_embedder_tpu_torch.config import ModelConfig, OpenClipConfig
-    from clip_embedder_tpu_torch.models import vit
     from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
     from clip_embedder_tpu_torch.text import (configure_tokenizer, text_tower,
                                               with_tokenizer_pad_id)
     from clip_embedder_tpu_torch.tokenizer import Tokenizer
-    from clip_embedder_tpu_torch.vision import quantize_params
+    from clip_embedder_tpu_torch.vision import build_tower, quantize_params
     from clip_embedder_tpu_torch.weights import _family_init
 
     model_cfg = copy.deepcopy(model)
     vcfg, tcfg = model_cfg["vision_cfg"], model_cfg["text_cfg"]
     hf_cfg = tcfg.get("hf_config")
     if layers is not None:
-        name = vcfg.get("timm_model_name", "")
-        if name:
-            vcfg["pe_cfg" if "_pe_core_" in name else "vit_cfg"] = {"layers": layers}
-        else:
-            vcfg["layers"] = layers
+        cut_vision_depth(vcfg, layers)
         if hf_cfg:
             hf_cfg["num_hidden_layers"] = layers
         else:
@@ -995,9 +1174,11 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=
     vspec = resolve_vision(config.model_cfg)
     tspec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
     gen = torch.Generator(device=device).manual_seed(seed)
-    vparams = vit.init(vspec.cfg, generator=gen, device=device, dtype=dtype)
+    vparams = _family_init(vspec.family)(vspec.cfg, generator=gen, device=device, dtype=dtype)
     tparams = _family_init(tspec.family)(tspec.cfg, generator=gen, device=device, dtype=dtype)
-    vtower = vit.ViT(vspec.cfg, quantize_params(vparams, vspec, quantize, device, dtype))
+    if layer_scale is not None:
+        set_layer_scale(vparams, layer_scale)
+    vtower = build_tower(vspec, quantize_params(vparams, vspec, quantize, device, dtype))
     ttower = text_tower(tspec, quantize_params(tparams, tspec, quantize, device, dtype))
     common = {"config": config, "model_config": model_config, "model_dir": fixture,
               "device": device, "dtype": dtype, "quantize": quantize}
@@ -1034,6 +1215,8 @@ def kernel_group(name: str) -> str:
         return "ln_qkv"
     if "flash" in n:
         return "attention kernels (flash_attention_packed, flash_attention)"
+    if any(s in n for s in ("conv", "fprop", "cudnn", "winograd", "nhwc", "nchw")):
+        return "conv (cuDNN and PyTorch's convolution kernels, layout transforms)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     return "other"
@@ -1303,7 +1486,7 @@ def per_block_cosines(tower, run_kernel, run_plain) -> list[float]:
     slot = [0]
     hooks = [blk.register_forward_hook(
         lambda _m, _a, o: outs[slot[0]].append(o.float().flatten(0, -2)))
-        for blk in tower.blocks]
+        for blk in getattr(tower, "blocks", ())]
     try:
         run_kernel()
         slot[0] = 1
@@ -1994,6 +2177,115 @@ def serve_concurrently(server, paths, direct, label, device) -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the other vision families
+# ---------------------------------------------------------------------------
+
+def vision_launches(spec, mode, batch: int) -> dict:
+    """The kernel launches of one vision forward of a phase-10 tower over
+    ``batch`` images, by wrapper, from the gates. EVA02's heads form
+    128-lane groups: kernel 2 with rope once a block; its SwiGLU's three
+    linears (1024 -> 2730 -> 1024) take kernel 6 under both int8 modes, and
+    its q, k, v and out under int8_all. Under int8, FastViT's ConvFFN and
+    ConvNeXt's fc1 and fc2 take kernel 6 in every stage with at least 128
+    rows (batch x the stage's positions; the stem divides the side by 4,
+    each stage after the first by 2 more), and so do FastViT's attention
+    q, k, v and out under int8_all. FastViT's attention, the convolutions
+    and ResNet's attention pool launch no kernel."""
+    n = dict.fromkeys(_wrappers(), 0)
+    cfg = spec.cfg
+    if spec.family == "eva02":
+        n["flash_attention_packed"] = cfg.layers
+        n["int8_linear_fused"] = {None: 0, "int8": 3, "int8_all": 7}[mode] * cfg.layers
+    elif spec.family in ("fastvit", "convnext") and mode:
+        side = cfg.image_size // 4
+        for i, depth in enumerate(cfg.depths):
+            if batch * (side >> i) ** 2 >= 128:
+                attn = (spec.family == "fastvit" and mode == "int8_all"
+                        and cfg.mixers[i] == "attention")
+                n["int8_linear_fused"] += (6 if attn else 2) * depth
+    return n
+
+
+def phase_families(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+                   timed=True) -> dict:
+    """MobileCLIP2-S4, EVA02-L-14-336, convnext_large_d_320 and RN50 at full
+    width and depth (``layers``/``vocab_size`` cut them for a CPU
+    rehearsal), seeded random weights with the layer scales at 0.1
+    (``set_layer_scale``), through ``Clip`` in ``dtype`` and the modes of
+    ``FAMILY_MODELS``: ``embed_images``, ``embed_texts`` on captions of
+    distinct lengths and one ``classify``, launch counts asserted per call,
+    both towers held against the plain path, images/s, p50, texts/s and
+    device time by kernel group. Each model is freed before the next."""
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    free_device_memory()  # the earlier phases' models
+    images = mixed_batch(batch)
+    arrays = [to_rgb_array(im) for im in images]
+    texts = captions(batch, 70)
+    out = {}
+    for name, model, modes in FAMILY_MODELS:
+        for mode in modes:
+            label = f"{name} {mode or str(dtype).removeprefix('torch.')}"
+            say(f"[10] {label}, random weights (seed 0, layer scales 0.1)")
+            t0 = time.perf_counter()
+            clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                            quantize=mode, model=model,
+                                            preprocess=OPENAI_PREPROCESS,
+                                            tokenizer="golden_model", layer_scale=0.1)
+            t = tspec.cfg
+            say(f"  built vision {vspec.family} {vspec.cfg}, text {t.layers}x{t.width} "
+                f"({t.heads} heads, ctx {t.context_length}) in "
+                f"{time.perf_counter() - t0:.1f} s; attn_impl vision="
+                f"{clip.vision.attn_impl} text={clip.text.attn_impl}")
+            reset_launch_counts()
+            calls = {}
+            embs = clip.vision.embed_images(images)
+            calls["embed_images"] = launch_counts()
+            masked = mask_launch_counts()
+            reset_launch_counts()
+            temb = clip.text.embed_texts(texts)
+            calls["embed_texts"] = launch_counts()
+            results = clip.classify(images[0], LABELS)
+            n_cls = launch_counts()
+            calls["classify"] = {k: n_cls[k] - calls["embed_texts"][k] for k in n_cls}
+            masked = {f: masked[f] + n for f, n in mask_launch_counts().items()}
+            for what, e, dim in (("embed_images", embs, vspec.cfg.embed_dim),
+                                 ("embed_texts", temb, t.embed_dim)):
+                norms = np.linalg.norm(e, axis=-1)
+                say(f"  {what}: {e.shape}, norms in [{norms.min():.6f}, {norms.max():.6f}]")
+                if e.shape != (batch, dim) or not np.isfinite(e).all() \
+                        or np.abs(norms - 1).max() > 1e-2:
+                    raise AssertionError(f"{label}: {what} returned bad embeddings")
+            probs = [p for _, p in results]
+            say(f"  classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
+            if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
+                raise AssertionError(f"{label}: classify returned bad probabilities")
+            for what, n in calls.items():
+                say(f"  launches, {what}: {n}")
+            if device == "cuda":
+                txt = tower_launches(tspec.family, mode, t.layers)
+                one = vision_launches(vspec, mode, 1)
+                want = {"embed_images": vision_launches(vspec, mode, batch), "embed_texts": txt,
+                        "classify": {k: one[k] + txt[k] for k in one}}
+                for what, n in calls.items():
+                    if n != want[what]:
+                        raise AssertionError(f"{label}: {what} launched {n}, expected "
+                                             f"{want[what]}")
+            hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=texts)
+            # the three calls' launches; the packed kernel's without a mask are
+            # EVA02's, with rope (every text tower's attention is masked)
+            out[label] = {"launches": {k: calls["embed_images"][k] + n_cls[k] for k in n_cls},
+                          "mask_launches": masked, "family": vspec.family}
+            if timed:
+                out[label].update(time_embedder(clip.vision, arrays, label))
+                out[label].update(time_texts(clip.text, texts, label))
+                out[label]["breakdown"] = profile_embedder(clip.vision, arrays, label)
+            del clip
+            free_device_memory()
+    return out
+
+
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 
@@ -2085,12 +2377,14 @@ def main(argv) -> int:
     record["flash_attention"] = pe_attn["flash_attention"]
     record.update(phase_int8_kernels(dev, peaks))
     record.update(phase_streamed_mlp_kernel(dev, peaks))
+    record.update(phase_family_kernels(dev, peaks))
     fixtures = phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
     pe_core = phase_pe_core("cuda")
     masked = phase_masked_towers("cuda")
     serving = phase_serving("cuda")
+    families = phase_families("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
@@ -2107,6 +2401,20 @@ def main(argv) -> int:
         form = masked[run]["form"]
         record[f"flash_attention_packed[{form}_mask]"]["launches"] = \
             masked[run]["mask_launches"][form]
+    # phase 10's shapes from its own runs: EVA02-L's unmasked (rope) launches
+    # in bf16, kernel 6 in the MobileCLIP2-S4 and convnext_large_d_320 int8
+    # runs (every launch there a ConvFFN or block fc1/fc2) and, for EVA02-L's
+    # SwiGLU rows, the EVA02-L int8_all run's (its SwiGLU and attention
+    # linears: 7 a block)
+    eva = families["EVA02-L-14-336 bfloat16"]
+    record["flash_attention_packed[rope]"]["launches"] = \
+        eva["launches"]["flash_attention_packed"] - sum(eva["mask_launches"].values())
+    for row, run in (("fastvit_fc1", "MobileCLIP2-S4 int8"),
+                     ("convnext_fc1", "convnext_large_d_320 int8"),
+                     ("eva02_fc1", "EVA02-L-14-336 int8_all"),
+                     ("eva02_fc2", "EVA02-L-14-336 int8_all")):
+        record[f"int8_linear_fused[{row}]"]["launches"] = \
+            families[run]["launches"]["int8_linear_fused"]
     rope = pe_attn["rope"]
     say(f"flash_attention_packed with rope (PE-Core-bigG): {rope['ms']:.4f} ms, plain "
         f"{rope['plain_ms']:.4f} ms, library {rope['library_ms']:.4f} ms, bound "
@@ -2124,6 +2432,10 @@ def main(argv) -> int:
         f"{conc['windows']} micro-batches; images/s by run ("
         + ", ".join(f"{r['label']} {r['images_per_s']:.2f}" for r in serving["concurrent_runs"])
         + f"); one micro-batch idle share {serving['breakdown']['idle_share']:.3f}; {card}")
+    say("phase 10: " + "; ".join(
+        f"{label} {r['images_per_s']:.2f} images/s, p50 {r['p50_ms']:.2f} ms, "
+        f"{r['texts_per_s']:.2f} texts/s, idle share {r['breakdown']['idle_share']:.3f}"
+        for label, r in families.items()) + f"; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

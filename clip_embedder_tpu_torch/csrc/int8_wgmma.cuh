@@ -116,6 +116,8 @@ struct Args {
   int rows, K, N;      // N: each weight's output columns
   int chunk;  // kSlab: K per slab; kAct: output columns per amax slab
   int act;    // kAct: 0 gelu_tanh, 1 gelu, 2 quick_gelu, 3 relu
+  int lda, ldw;  // row strides in bytes of A and of the weights (0: K), multiples of 16
+  int ldo;       // row stride in elements of the outputs and the residual (0: N)
 };
 
 // kActFn: kAct's activation (i8::activate), -1 for the other modes. wmap0..2:
@@ -289,6 +291,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         xr[mi][h] = kMode != kSlab && row < rows ? args.xs[row] : 0.0f;
         am[mi][h] = 0.0f;
       }
+    // columns (col, col + 1) of a [N] scale or bias vector, col even: kOut
+    // may take an odd N, whose last pair has one column (the other is 0)
+    auto pair_of = [&](const float* v, int col) {
+      if constexpr (kMode == kOut)
+        return col + 1 < N ? *reinterpret_cast<const float2*>(v + col)
+                           : make_float2(v[col], 0.0f);
+      else
+        return *reinterpret_cast<const float2*>(v + col);
+    };
     // (v0, v1) = columns (col, col + 1) of accumulator row (mi, h), i = 4jj + 2h, before the residual
     auto dequant = [&](int mi, int h, int i, float2 sc, float2 bi, float& v0, float& v1) {
       if constexpr (kMode == kSlab) {
@@ -311,7 +322,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bf16* res = static_cast<const bf16*>(args.res);
       bf16* out = static_cast<bf16*>(o.out);
       const int c = lane % 16;
-      const bool col_in = col0 + 8 * c < N;  // N % 16 == 0: a chunk is all in or all out
+      // a chunk that starts before N is written whole: its columns past N
+      // (an N that is no multiple of 8) land in the row's padding up to ldo
+      const bool col_in = col0 + 8 * c < N;
+      const size_t ldo = args.ldo;
       // the residual of tile mi, all 8 loads in flight at once (a load after
       // a store to shared memory, which might alias it, would wait for it)
       uint4 rv[8];
@@ -321,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < 8; ++k) {
           const int row = wrow + 2 * k + lane / 16;
           rv[k] = row < rows && col_in
-                      ? *reinterpret_cast<const uint4*>(res + (size_t)row * N + col0 + 8 * c)
+                      ? *reinterpret_cast<const uint4*>(res + row * ldo + col0 + 8 * c)
                       : make_uint4(0, 0, 0, 0);
         }
       };
@@ -340,8 +354,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int jj = 0; jj < kBN / 8; ++jj) {
           const int col = col0 + 8 * jj + 2 * t;
           if (col >= N) continue;
-          const float2 sc = *reinterpret_cast<const float2*>(o.s + col);
-          const float2 bi = *reinterpret_cast<const float2*>(o.b + col);
+          const float2 sc = pair_of(o.s, col), bi = pair_of(o.b, col);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float v0, v1;
@@ -366,16 +379,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < 8; ++k) {
           const int row = wrow + 2 * k + lane / 16;
           if (row < rows && col_in)
-            *reinterpret_cast<uint4*>(out + (size_t)row * N + col0 + 8 * c) = ov[k];
+            *reinterpret_cast<uint4*>(out + row * ldo + col0 + 8 * c) = ov[k];
         }
       }
     } else {  // f32 out: pairs straight from the registers
 #pragma unroll
       for (int jj = 0; jj < kBN / 8; ++jj) {
         const int col = col0 + 8 * jj + 2 * t;
-        if (col >= N) continue;  // N % 16 == 0: both columns of the pair, or neither
-        const float2 sc = *reinterpret_cast<const float2*>(o.s + col);
-        const float2 bi = *reinterpret_cast<const float2*>(o.b + col);
+        if (col >= N) continue;  // an odd N's last pair writes its second column into the padding
+        const float2 sc = pair_of(o.s, col), bi = pair_of(o.b, col);
 #pragma unroll
         for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
@@ -384,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (row >= rows) continue;
             float v0, v1;
             dequant(mi, h, 4 * jj + 2 * h, sc, bi, v0, v1);
-            const size_t off = (size_t)row * N + col;
+            const size_t off = (size_t)row * args.ldo + col;
             if constexpr (kMode == kAct) {
               v0 = i8::activate<kActFn>(v0);
               v1 = i8::activate<kActFn>(v1);
@@ -417,30 +429,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// a: [rows, K] int8 codes; w[0 .. args.mats): [N, K] int8 (the K-major
-// storage); all 16-byte aligned, K % 16 == 0 (TMA's stride rule), N % 16 ==
-// 0. A tensor map that fails to encode, or a refused launch, returns its
-// error.
+// a: [rows, K] int8 codes, rows args.lda bytes apart; w[0 .. args.mats):
+// [N, K] int8 (the K-major storage), rows args.ldw bytes apart; all 16-byte
+// aligned, the strides multiples of 16 (TMA's rule; 0 takes K). K itself
+// may be any width: TMA zero-fills the boxes past it. N % 16 == 0, except
+// for kOut, which takes any N with outputs (and the residual) ldo elements
+// apart, ldo >= N and a multiple of 8 (0 takes N), so that their 16-byte
+// and pair stores stay aligned. A tensor map that fails to encode, or a
+// refused launch, returns its error.
 template <typename OutT, int kMode, int kActFn>
-cudaError_t launch_gemm_act(const void* a, const void* const* w, const Args& args,
+cudaError_t launch_gemm_act(const void* a, const void* const* w, const Args& args_in,
                             cudaStream_t stream) {
   using L = Tile<OutT, kMode>;
+  Args args = args_in;
+  if (args.lda == 0) args.lda = args.K;
+  if (args.ldw == 0) args.ldw = args.K;
+  if (args.ldo == 0) args.ldo = args.N;
   if (args.mats < 1 || args.mats > (kMode == kOut ? kMaxMats : 1) ||
-      (args.mats > 1 && args.res != nullptr))
+      (args.mats > 1 && args.res != nullptr) || args.K <= 0 || args.N <= 0 ||
+      args.lda < args.K || args.ldw < args.K || args.lda % 16 || args.ldw % 16 ||
+      args.ldo < args.N || args.ldo % 8 || (kMode != kOut && args.N % 16))
     return cudaErrorInvalidValue;
   if (args.rows <= 0) return cudaSuccess;
   CUtensorMap amap, wmap[kMaxMats];
   const cuuint64_t adims[2] = {(cuuint64_t)args.K, (cuuint64_t)args.rows};
   const cuuint64_t wdims[2] = {(cuuint64_t)args.K, (cuuint64_t)args.N};
-  const cuuint64_t stride[1] = {(cuuint64_t)args.K};
+  const cuuint64_t astride[1] = {(cuuint64_t)args.lda}, wstride[1] = {(cuuint64_t)args.ldw};
   const cuuint32_t abox[2] = {kBK, L::kBM}, wbox[2] = {kBK, kBN};
-  if (!hopper::tiled_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 2, adims, stride, abox, true))
+  if (!hopper::tiled_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 2, adims, astride, abox, true))
     return cudaErrorInvalidValue;
   for (int i = 0; i < kMaxMats; ++i) {
     if (i >= args.mats)
       wmap[i] = wmap[0];  // not read
     else if (!hopper::tiled_map(&wmap[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[i], 2, wdims,
-                                stride, wbox, true))
+                                wstride, wbox, true))
       return cudaErrorInvalidValue;
   }
   auto kern = gemm_kernel<OutT, kMode, kActFn>;

@@ -1,12 +1,16 @@
 """Config-driven architecture resolution: ``open_clip_config.json`` →
 ``TowerSpec``.
 
-Counterpart of ``clip_embedder_tpu.models.build`` for the families ported so
-far: timm ViTs (SigLIP/SigLIP2, gap/avg/tok pools, register tokens), PE-Core
-(``vit_pe_core_*``: 2-D axial rope, map pool), classic open_clip ViTs (with
-CoCa's boolean attentional pooler), open_clip text transformers (with
-CoCa's ``embed_cls``) and HF BERT/RoBERTa text towers (``hf_model_name``).
-Every other family raises ``ConfigError`` naming it as not yet ported.
+Counterpart of ``clip_embedder_tpu.models.build``: timm ViTs (SigLIP/SigLIP2,
+gap/avg/tok pools, register tokens, the linear or mlp ``timm_proj`` head),
+PE-Core (``vit_pe_core_*``: 2-D axial rope, map pool), EVA02
+(``eva02_*``), FastViT / MobileCLIP (``fastvit_*``, ``mci*``,
+``mobileclip*``), ConvNeXt (``convnext_*``), ModifiedResNet (list-valued
+``layers``), classic open_clip ViTs (with CoCa's boolean attentional
+pooler), open_clip text transformers (with CoCa's ``embed_cls``) and HF
+BERT/RoBERTa text towers (``hf_model_name``). The MCT hybrid text tower,
+whose config only an ONNX graph gives, raises ``ConfigError`` naming it as
+not yet ported.
 """
 
 from __future__ import annotations
@@ -18,7 +22,11 @@ from typing import Any
 from ..config import ModelCfg
 from ..errors import ConfigError
 from ..utils.logging import warn_once
+from .convnext import resolve_convnext
+from .eva02 import resolve_eva02
+from .fastvit import resolve_fastvit
 from .hf_text import resolve_hf_text
+from .resnet import ResNetCfg
 from .text_transformer import TextCfgResolved
 from .vit import ViTCfg
 
@@ -52,7 +60,8 @@ _TIMM_VIT_SIZES: dict[str, tuple[int, int, int, int]] = {
 class TowerSpec:
     """A resolved tower: family name + its config object."""
 
-    family: str  # "vit" | "text_transformer" | "hf_bert"
+    # "vit" | "eva02" | "fastvit" | "convnext" | "resnet" | "text_transformer" | "hf_bert"
+    family: str
     cfg: Any
 
 
@@ -97,9 +106,9 @@ def _parse_timm_vit(name: str, vcfg, embed_dim: int, timm_pool: str | None,
     if pool == "avg":
         pool = "gap"
         norm_after_pool = True
-    if timm_proj == "mlp":
-        raise _not_ported("The timm_proj='mlp' head")
 
+    # open_clip's TimmModel takes a linear projection when timm_proj is
+    # omitted; SigLIP configs set 'none'; 'mlp' loads as head.fc1/head.fc2
     use_proj = (timm_proj or "linear") not in ("none", "")
     return ViTCfg(
         image_size=vcfg.image_size,
@@ -178,19 +187,32 @@ def resolve_vision(model_cfg: ModelCfg) -> TowerSpec:
         name = v.timm_model_name
         if "_pe_core_" in name or name.startswith("pe_core"):
             return TowerSpec("vit", _parse_pe_core(name, v, embed_dim))
+        # EVA01 (eva_giant_*) is a timm ViT; EVA02 (eva02_*) has rope and SwiGLU
         if name.startswith("eva02_"):
-            raise _not_ported("The EVA02 vision tower")
+            return TowerSpec("eva02", resolve_eva02(name, v, embed_dim))
         if name.startswith(("vit_", "eva_")):
             return TowerSpec(
                 "vit", _parse_timm_vit(name, v, embed_dim, v.timm_pool, v.timm_proj))
         if name.startswith(("fastvit", "mci", "mobileclip")):
-            raise _not_ported("The FastViT (MobileCLIP) vision tower")
+            return TowerSpec("fastvit", resolve_fastvit(name, v, embed_dim, model_cfg))
         if name.startswith("convnext"):
-            raise _not_ported("The ConvNeXt vision tower")
+            return TowerSpec("convnext", resolve_convnext(name, v, embed_dim, model_cfg))
         raise ConfigError(f"Unsupported timm vision tower '{name}'")
 
+    # ModifiedResNet towers declare per-stage depths as a list (RN50 =
+    # [3, 4, 6, 3]); resnet_cfg carries overrides (an ONNX graph's attnpool
+    # head count, which the open_clip config implies only through head_width)
     if isinstance(v.layers, (list, tuple)):
-        raise _not_ported("The ModifiedResNet vision tower")
+        o = v.extra.get("resnet_cfg", {})
+        width = o.get("width", v.width or 64)
+        head_width = v.head_width or 64
+        return TowerSpec("resnet", ResNetCfg(
+            image_size=v.image_size,
+            embed_dim=o.get("embed_dim", embed_dim),
+            layers=tuple(o.get("layers", v.layers)),
+            width=width,
+            heads=o.get("heads", width * 32 // head_width),
+        ))
 
     # Classic open_clip ViT.
     if v.layers is None or v.width is None:

@@ -10,10 +10,9 @@ Counterpart of ``clip_embedder_tpu.models.vit``: one config-driven tower for
   ``rope_2d``, and the map head);
 * CoCa (``pool="attn"``: open_clip's legacy attentional pooler, a bank of
   learned queries in the embed space cross-attending over the tokens, then
-  ``ln_post`` and query 0).
-
-Not yet ported, and refused with ``ConfigError``: the ``timm_proj="mlp"``
-head.
+  ``ln_post`` and query 0);
+* open_clip's ``timm_proj="mlp"`` head: a ``proj`` of ``fc`` → gelu →
+  ``out`` (``weights.map_timm_visual`` maps ``head.fc1``/``head.fc2`` to it).
 
 Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
 (py, px, c) order, matching the weight layout of the JAX package).
@@ -29,7 +28,7 @@ from torch import nn
 
 from ..errors import ConfigError
 from ..ops.attention import multi_head_attention
-from ..ops.layers import ACTIVATIONS, layer_norm, linear, mlp
+from ..ops.layers import ACTIVATIONS, gelu, layer_norm, linear, mlp
 from ..ops.normalize import l2_normalize
 from ..ops.rope import axial_rope_table, head_tiled_tables
 from ..weights import ParamTree, unstack
@@ -105,6 +104,16 @@ def _init_linear(gen, d_in, d_out, *, bias=True, std=None, layers=None,
     if bias:
         p["b"] = torch.zeros(lead + (d_out,), device=device, dtype=dtype)
     return p
+
+
+def _conv_init(g, k, cin, cout, *, groups=1, layers=None, device="cpu", dtype=torch.float32):
+    """A conv in the stored layout: {"w": HWIO [k, k, cin/groups, cout], "b"}
+    (with a leading [layers] axis for stacked blocks): the convolutional
+    towers' init."""
+    lead = () if layers is None else (layers,)
+    fan_in = k * k * cin // groups
+    return {"w": _normal(lead + (k, k, cin // groups, cout), fan_in ** -0.5, g, device, dtype),
+            "b": torch.zeros(lead + (cout,), device=device, dtype=dtype)}
 
 
 def _init_ln(d, *, layers=None, device="cpu", dtype=torch.float32):
@@ -241,10 +250,6 @@ class ViT(ParamTree):
 
     def __init__(self, cfg: ViTCfg, params: Mapping):
         check_ported(cfg)
-        proj = params.get("proj")
-        if isinstance(proj, Mapping) and "fc" in proj:
-            raise ConfigError("the timm_proj='mlp' head is not yet ported to the "
-                              "torch package")
         super().__init__({k: v for k, v in params.items() if k != "blocks"})
         self.cfg = cfg
         self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
@@ -333,5 +338,9 @@ class ViT(ParamTree):
             pooled = layer_norm(self["ln_post"], x[:, 0], eps=cfg.ln_eps)
 
         if cfg.use_proj and "proj" in self:
-            pooled = linear(self["proj"], pooled)
+            proj = self["proj"]
+            if "fc" in proj:  # open_clip timm_proj='mlp': Linear → gelu → Linear
+                pooled = linear(proj["out"], gelu(linear(proj["fc"], pooled)))
+            else:
+                pooled = linear(proj, pooled)
         return l2_normalize(pooled) if normalize else pooled

@@ -166,8 +166,9 @@ def _qweight(p) -> torch.Tensor | None:
 
 
 def kernel_dims_ok(*dims: int) -> bool:
-    """The kernels move int8 rows and write outputs in 16-byte pieces:
-    every in/out width a multiple of 16."""
+    """The MLP and q/k/v kernels move int8 rows and write outputs in 16-byte
+    pieces: every in/out width a multiple of 16. (The fused linear takes
+    any width.)"""
     return all(d > 0 and d % 16 == 0 for d in dims)
 
 
@@ -179,10 +180,11 @@ def on_card(x: torch.Tensor) -> bool:
 
 def fits_fused_linear(params, x: torch.Tensor) -> bool:
     """The fused linear takes this: a 2-D quantized weight whose input
-    width is x's, widths the kernel takes, and x on the card."""
+    width is x's, and x on the card. Like the JAX gate, no rule on the
+    widths: the kernel takes any."""
     w = _qweight(params)
     return (w is not None and on_card(x) and w.shape[0] == x.shape[-1]
-            and kernel_dims_ok(*w.shape))
+            and min(w.shape) > 0)
 
 
 def _mlp_weights(params):
@@ -218,32 +220,40 @@ def fits_streamed_mlp(params, activation_name: str, rows: int, x: torch.Tensor) 
 
 def check_weight_layout(w: torch.Tensor, what: str) -> None:
     """The kernels read a quantized [in, out] weight in its K-major storage
-    (``quant.kmajor``, as ``quant.quantize_weight`` stores it): ``w.t()``
-    contiguous, the [out, in] rows 16-byte aligned. An N-contiguous weight
-    raises ``ValueError``: no wrapper copies or transposes a weight per
-    call."""
-    if not w.t().is_contiguous():
+    (``quant.kmajor``, as ``quant.quantize_weight`` stores it): the [out,
+    in] rows contiguous, 16-byte aligned and a multiple of 16 bytes apart
+    (an ``in`` that is no multiple of 16 is stored in padded rows on the
+    card). An N-contiguous weight raises ``ValueError``: no wrapper copies
+    or transposes a weight per call."""
+    if w.dim() != 2 or not (w.t().is_contiguous() or w.stride(0) == 1) \
+            or w.stride(1) < w.shape[0] or w.stride(1) % 16:
         raise ValueError(f"{what}: the kernel reads the int8 weight stored K-major "
-                         f"([out, in] contiguous, seen as [in, out]; ops.quant.kmajor), "
-                         f"got shape {tuple(w.shape)} with strides {w.stride()}")
+                         f"([out, in] rows a multiple of 16 bytes apart, seen as [in, out]; "
+                         f"ops.quant.kmajor on the card), got shape {tuple(w.shape)} with "
+                         f"strides {w.stride()}")
     if w.data_ptr() % 16:
         raise ValueError(f"{what}: the weight must be 16-byte aligned")
 
 
-def qlinear_operands(p, k_in: int, x: torch.Tensor, what: str):
+def qlinear_operands(p, k_in: int, x: torch.Tensor, what: str, *, any_width: bool = False):
     """(w_q, scale, bias) of one quantized linear, checked for the kernels:
     a [k_in, N] int8 weight on x's device, stored K-major and 16-byte
-    aligned (``check_weight_layout``) with N a multiple of 16, and f32 [N]
-    scale and bias. The kernels take ``w_q.data_ptr()`` as the [N, k_in]
-    storage."""
+    aligned (``check_weight_layout``) with k_in and N multiples of 16
+    (unless ``any_width``: the fused linear), and f32 [N] scale and bias.
+    The kernels take ``w_q.data_ptr()`` as the [N, k_in] storage, its rows
+    ``w_q.stride(1)`` bytes apart (k_in, but for ``any_width``)."""
     w = p["w_q"]
     if (w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != k_in
-            or not kernel_dims_ok(*w.shape)):
-        raise ValueError(f"{what}: the kernel takes a [{k_in}, N] int8 weight with "
-                         f"widths that are multiples of 16, got {tuple(w.shape)} {w.dtype}")
+            or not (min(w.shape) > 0 if any_width else kernel_dims_ok(*w.shape))):
+        raise ValueError(f"{what}: the kernel takes a [{k_in}, N] int8 weight"
+                         f"{'' if any_width else ' with widths that are multiples of 16'}, "
+                         f"got {tuple(w.shape)} {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"{what}: the weight must be on {x.device}, got {w.device}")
     check_weight_layout(w, what)
+    if not any_width and w.shape[1] > 1 and w.stride(1) != k_in:
+        raise ValueError(f"{what}: the kernel reads unpadded [N, {k_in}] weight rows, got "
+                         f"strides {w.stride()}")
     n = w.shape[1]
     return w, cuda.f32_vector(p["w_scale"], n, x, what), cuda.f32_vector(p.get("b"), n, x, what)
 
@@ -334,39 +344,56 @@ def int8_mlp_streamed(params, x: torch.Tensor, *, activation: str = "gelu_tanh",
 int8_mlp_streamed.launches = 0  # kernel launches, for showing a run went through it
 
 
+def _pad_to(n: int, m: int) -> int:
+    return n + (-n) % m
+
+
 def int8_linear_fused(params, x: torch.Tensor, *,
                       residual: torch.Tensor | None = None) -> torch.Tensor:
     """Fused W8A8 affine map: row quant → int8 product → ``acc·(xs·s) + b``
     [+ residual, same leading shape as the output]. Runs the CUDA kernel
-    for a CUDA tensor and ``int8_linear_fused_plain`` for a CPU tensor."""
+    for a CUDA tensor and ``int8_linear_fused_plain`` for a CPU tensor.
+
+    Any widths: the kernel writes an output whose width is no multiple of 8
+    into rows padded to one and returns the view of its columns (a residual
+    of such a width is copied into padded rows first); an input width that
+    is no multiple of 16 needs the weight in padded rows (``quant.kmajor``
+    on the card)."""
     if x.device.type == "cpu":
         return int8_linear_fused_plain(params, x, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"int8_linear_fused: unsupported device {x.device}")
     cuda.check_input(x, "int8_linear_fused")
     k_in = x.shape[-1]
-    w, s, b = qlinear_operands(params, k_in, x, "int8_linear_fused")
+    w, s, b = qlinear_operands(params, k_in, x, "int8_linear_fused", any_width=True)
     k_out = w.shape[1]
-    out = torch.empty(*x.shape[:-1], k_out, dtype=x.dtype, device=x.device)
+    shape = (*x.shape[:-1], k_out)
     if residual is not None:
-        if (residual.shape != out.shape or residual.dtype != x.dtype
+        if (tuple(residual.shape) != shape or residual.dtype != x.dtype
                 or residual.device != x.device):
-            raise ValueError(f"int8_linear_fused: residual must be {tuple(out.shape)} "
+            raise ValueError(f"int8_linear_fused: residual must be {shape} "
                              f"{x.dtype} on {x.device}")
         cuda.check_input(residual, "int8_linear_fused residual")
     rows = x.numel() // k_in
+    lda = _pad_to(k_in, 16)   # the codes' rows: TMA's 16-byte stride rule
+    ldo = _pad_to(k_out, 8)   # the output's rows: its 16-byte stores
+    out = torch.empty(rows, ldo, dtype=x.dtype, device=x.device)
     if rows == 0:
-        return out
-    xq = torch.empty(rows, k_in, dtype=torch.int8, device=x.device)
+        return out[:, :k_out].reshape(shape)
+    if residual is not None and ldo != k_out:
+        padded = torch.empty_like(out)
+        padded[:, :k_out] = residual.reshape(rows, k_out)
+        residual = padded
+    xq = torch.empty(rows, lda, dtype=torch.int8, device=x.device)
     xs = torch.empty(rows, dtype=torch.float32, device=x.device)
     fn = cuda.kernel("int8_linear", "int8_linear_fused_launch",
-                     (cuda.VOID_P,) * 8 + (cuda.INT,) * 4 + (cuda.VOID_P,))
+                     (cuda.VOID_P,) * 8 + (cuda.INT,) * 7 + (cuda.VOID_P,))
     code = fn(cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
-              cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out,
+              cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out, lda, w.stride(1), ldo,
               cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
     cuda.check(code, "int8_linear_fused")
     int8_linear_fused.launches += 1
-    return out
+    return out[:, :k_out].reshape(shape)
 
 
 int8_linear_fused.launches = 0  # kernel launches, for showing a run went through it

@@ -15,6 +15,11 @@ Parameters use the JAX package's layout (see ``weights.py``): a linear is
 ``{"w_q", "w_scale", "b"}``), a LayerNorm ``{"scale": [d], "bias": [d]}``.
 Any mapping with ``__getitem__``/``get``/``in`` works — nested dicts of
 tensors, or the ``weights.ParamTree`` modules the towers hold.
+
+The convolutional towers keep the JAX package's NHWC activations; ``conv2d``
+runs ``F.conv2d`` (cuDNN on the card) on them seen as channels-last NCHW
+tensors, with kernels turned from the stored HWIO into OIHW once, when a
+tower is built (``conv_weight``).
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ def linear(params, x: torch.Tensor) -> torch.Tensor:
     if "w_q" in params:
         rows = x.numel() // x.shape[-1]
         if rows >= 128 and fits_fused_linear(params, x):
-            return int8_linear_fused(params, x)
+            return int8_linear_fused(params, x.contiguous())
         return int8_linear(params, x)
     w = params["w"].to(x.dtype)
     b = params.get("b")
@@ -94,6 +99,31 @@ def linear(params, x: torch.Tensor) -> torch.Tensor:
     else:
         y = torch.addmm(b.to(x.dtype), x2, w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO conv kernel (the JAX package's layout, as the npz holds it)
+    → OIHW, the layout ``F.conv2d`` takes, stored channels-last."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def nhwc(pixels: torch.Tensor, channels_first: bool) -> torch.Tensor:
+    """Pixels as contiguous NHWC: every conv of a tower then reads and
+    writes channels-last memory."""
+    return (pixels.permute(0, 2, 3, 1) if channels_first else pixels).contiguous()
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+           stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """2-D convolution of NHWC activations with an OIHW kernel from
+    ``conv_weight``. The NHWC tensor goes in as a channels-last NCHW view and
+    the channels-last result comes back as an NHWC view: no copies when x is
+    contiguous. The product accumulates in f32; in bf16 it rounds once before
+    the bias and once after (the JAX package adds the bias in f32 before its
+    one rounding)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None if b is None else b.to(x.dtype),
+                 stride=stride, padding=padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
 
 
 def mlp(

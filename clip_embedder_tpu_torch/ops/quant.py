@@ -55,12 +55,29 @@ def true_div(a: torch.Tensor, c: float) -> torch.Tensor:
     return a / a.new_tensor(c)
 
 
-def kmajor(w: torch.Tensor) -> torch.Tensor:
+def kmajor(w: torch.Tensor, *, pad: bool | None = None) -> torch.Tensor:
     """``w`` ([..., in, out]) with the same values, stored K-major: its last
     two dims transposed in memory (a contiguous [..., out, in] tensor seen
-    through ``transpose(-1, -2)``). Returns ``w`` itself when it already is."""
+    through ``transpose(-1, -2)``). With ``pad`` (the default on the card)
+    an ``in`` that is no multiple of 16 is stored in rows padded with zeros
+    to the next one (a contiguous [..., out, in_padded] tensor, its first
+    ``in`` columns seen the same way): TMA, which loads the int8 products'
+    operands, takes only row strides that are multiples of 16 bytes.
+    Returns ``w`` itself when it already is so stored."""
+    k = w.shape[-2]
+    kp = k + (-k) % 16 if (w.is_cuda if pad is None else pad) else k
     t = w.transpose(-1, -2)
-    return w if t.is_contiguous() else t.contiguous().transpose(-1, -2)
+    if kp == k:
+        return w if t.is_contiguous() else t.contiguous().transpose(-1, -2)
+    want, step = [], 1
+    for n in (*t.shape[:-1], kp)[::-1]:
+        want.append(step)
+        step *= n
+    if t.stride() == tuple(want[::-1]):
+        return w
+    buf = w.new_zeros(*t.shape[:-1], kp)
+    buf[..., :k] = t
+    return buf[..., :k].transpose(-1, -2)
 
 
 def quantize_weight(w: torch.Tensor, *, clip: str = "mse") -> dict:

@@ -102,7 +102,7 @@ class TextEmbedder:
         ``quantize`` mode's form (``from_local_dir`` converts them)."""
         check_quantize_mode(quantize)
         self.device = resolve_device(device)
-        self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.attn_impl = resolve_attn_impl(attn_impl, self.device, spec.family)
         self.quantize = quantize
         self.tower = tower.to(self.device)
         self.spec = spec

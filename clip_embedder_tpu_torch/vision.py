@@ -3,7 +3,11 @@
 Counterpart of ``clip_embedder_tpu.vision`` (reference: src/vision.rs:20-140):
 ``from_local_dir`` / ``from_local_id`` / ``from_hf``, ``embed_image(s)``,
 ``preprocess_batch``, ``duplicate``. Preprocessing is the two-matmul resize
-of ``ops.preprocess`` on the device; the tower is ``models.vit.ViT``.
+of ``ops.preprocess`` on the device, NCHW out for every family; the tower is
+the family's module (``build_tower``): ``models.vit.ViT``,
+``models.eva02.Eva02``, ``models.fastvit.FastViT``,
+``models.convnext.ConvNeXt`` or ``models.resnet.ResNet``. The convolutional
+ones see the pixels as channels-last NHWC.
 
 The device is explicit: ``device=None`` means ``"cuda"``, which raises
 ``DeviceError`` when CUDA is missing — the embedders never drop to the CPU
@@ -32,6 +36,10 @@ from .model_manager import (
     verify_model_dir,
 )
 from .models.build import TowerSpec, resolve_vision
+from .models.convnext import ConvNeXt
+from .models.eva02 import Eva02
+from .models.fastvit import FastViT
+from .models.resnet import ResNet
 from .models.vit import ViT
 from .ops.attention import ATTN_IMPLS
 from .ops.preprocess import Preprocessor
@@ -57,16 +65,38 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return dev
 
 
-def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
-    """``"auto"`` → ``"kernel"`` on CUDA and ``"eager"`` on the CPU;
-    explicit names are validated and kept (on the CPU the kernel impls run
-    the kernels' plain PyTorch versions)."""
+# the families whose forward takes attn_impl; the others run their
+# attention on the plain core, as the JAX package runs it on XLA's
+ATTN_IMPL_FAMILIES = frozenset({"vit", "eva02", "text_transformer", "hf_bert"})
+
+
+def resolve_attn_impl(attn_impl: str, device: torch.device, family: str) -> str:
+    """``"auto"`` → ``"kernel"`` on CUDA for the families in
+    ``ATTN_IMPL_FAMILIES`` and ``"eager"`` otherwise; explicit names are
+    validated and kept (on the CPU the kernel impls run the kernels' plain
+    PyTorch versions). A kernel impl for a family outside
+    ``ATTN_IMPL_FAMILIES`` raises ``ConfigError``, as the JAX package's
+    ``check_attn_impl`` does: it would report a kernel that never runs."""
     if attn_impl == "auto":
-        return "kernel" if device.type == "cuda" else "eager"
+        return "kernel" if device.type == "cuda" and family in ATTN_IMPL_FAMILIES else "eager"
     if attn_impl not in ATTN_IMPLS:
         raise ConfigError(f"Unknown attn_impl '{attn_impl}' (choices: auto, "
                           f"{', '.join(ATTN_IMPLS)})")
+    if attn_impl != "eager" and family not in ATTN_IMPL_FAMILIES:
+        raise ConfigError(
+            f"attn_impl='{attn_impl}' is not supported for the '{family}' family "
+            f"(supported families: {sorted(ATTN_IMPL_FAMILIES)}); use attn_impl='eager'")
     return attn_impl
+
+
+# the vision tower module of each family
+TOWERS = {"vit": ViT, "eva02": Eva02, "fastvit": FastViT, "convnext": ConvNeXt,
+          "resnet": ResNet}
+
+
+def build_tower(spec: TowerSpec, params: dict) -> nn.Module:
+    """The vision tower of ``spec``'s family over ``params``."""
+    return TOWERS[spec.family](spec.cfg, params)
 
 
 def quantize_params(params: dict, spec: TowerSpec, quantize: str | None, device,
@@ -83,26 +113,36 @@ def quantize_params(params: dict, spec: TowerSpec, quantize: str | None, device,
 
 def derive_vision_dims_from_sd(model_dir: Path, config: OpenClipConfig,
                                visual_sd: dict) -> None:
-    """At conversion (``pull_weights.convert_checkpoint``), for PE-Core,
-    whose per-size dims are a reconstructed table: derive the dims from the
-    checkpoint's shapes and persist them under ``vision_cfg.pe_cfg``, so the
-    table is used only when no checkpoint exists. Every other family is left
-    as it is (FastViT and EVA02, whose dims the JAX package also derives
-    here, are not ported: resolving them raises)."""
+    """At conversion (``pull_weights.convert_checkpoint``), for the families
+    whose per-size dims are a reconstructed table (PE-Core, FastViT
+    MCi3/MCi4, EVA02): derive the dims from the checkpoint's shapes and
+    persist them under ``vision_cfg.{pe_cfg,fastvit_cfg,eva02_cfg}``, so the
+    table is used only when no checkpoint exists. A dict the derivation
+    does not recognize leaves the config as it is."""
     v = config.model_cfg.vision_cfg
-    if "pe_core" not in (v.timm_model_name or "").lower() or v.extra.get("pe_cfg"):
+    name = (v.timm_model_name or "").lower()
+    if "pe_core" in name:
+        from .weights import derive_pe_cfg_from_sd as derive
+        key = "pe_cfg"
+    elif "fastvit" in name or "mci" in name or "mobileclip" in name:
+        from .models.fastvit import derive_fastvit_cfg_from_sd as derive
+        key = "fastvit_cfg"
+    elif name.startswith("eva02_"):
+        from .models.eva02 import derive_eva02_cfg_from_sd as derive
+        key = "eva02_cfg"
+    else:
         return
-    from .weights import derive_pe_cfg_from_sd
-
+    if v.extra.get(key):
+        return
     try:
-        derived = derive_pe_cfg_from_sd(visual_sd)
+        derived = derive(visual_sd)
     except WeightError:
         return
-    v.extra["pe_cfg"] = derived
+    v.extra[key] = derived
     update_config_json(
         model_dir / "open_clip_config.json",
         lambda raw: raw.setdefault("model_cfg", {}).setdefault(
-            "vision_cfg", {}).__setitem__("pe_cfg", derived))
+            "vision_cfg", {}).__setitem__(key, derived))
 
 
 def _load_visual(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
@@ -136,7 +176,7 @@ class VisionEmbedder:
         (``from_local_dir`` converts them)."""
         check_quantize_mode(quantize)
         self.device = resolve_device(device)
-        self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.attn_impl = resolve_attn_impl(attn_impl, self.device, spec.family)
         self.quantize = quantize
         self.tower = tower.to(self.device)
         self.spec = spec
@@ -153,7 +193,7 @@ class VisionEmbedder:
             resize_mode=pp.resize_mode,
             device=self.device,
             out_dtype=dtype,
-            layout="nchw",  # the ViT's patchify reads channels-first
+            layout="nchw",  # every tower takes channels-first pixels
         )
 
     # -- construction (reference: src/vision.rs:31-84) ---------------------
@@ -172,7 +212,7 @@ class VisionEmbedder:
         spec = resolve_vision(config.model_cfg)
         params = quantize_params(_load_visual(model_dir, spec, dev, dtype), spec, quantize,
                                  dev, dtype)
-        return cls(tower=ViT(spec.cfg, params), spec=spec, config=config,
+        return cls(tower=build_tower(spec, params), spec=spec, config=config,
                    model_config=model_config, model_dir=model_dir, device=dev,
                    dtype=dtype, attn_impl=attn_impl, quantize=quantize)
 

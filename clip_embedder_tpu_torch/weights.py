@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from .errors import WeightError
+from .ops.layers import conv_weight
 from .ops.quant import kmajor
 
 
@@ -39,6 +40,17 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def conv_layout(tree: Mapping) -> dict:
+    """The tree with its 4-D leaves (HWIO conv kernels) as OIHW
+    (``ops.layers.conv_weight``): done once, when a tower is built."""
+    return tree_map(lambda t: conv_weight(t) if t.dim() == 4 else t, tree)
+
+
+def conv_tree(tree: Mapping) -> "ParamTree":
+    """A subtree as a module, in ``conv_layout``."""
+    return ParamTree(conv_layout(tree))
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -179,6 +191,18 @@ def _family_init(family: str):
     if family == "vit":
         from .models import vit
         return vit.init
+    if family == "fastvit":
+        from .models import fastvit
+        return fastvit.init
+    if family == "resnet":
+        from .models import resnet
+        return resnet.init
+    if family == "convnext":
+        from .models import convnext
+        return convnext.init
+    if family == "eva02":
+        from .models import eva02
+        return eva02.init
     if family == "text_transformer":
         from .models import text_transformer
         return text_transformer.init
@@ -188,27 +212,57 @@ def _family_init(family: str):
     return None
 
 
+def _accepted_layout(family: str, expected: dict, got: dict) -> dict:
+    """``expected`` as the forward takes it where the family's ``init``
+    makes one layout of several: a ConvNeXt tree may hold ``pre_norm``
+    (head_norm_first checkpoints: the LayerNorm before the pool) in place of
+    ``head_norm``, and a ViT tree open_clip's ``timm_proj="mlp"`` head
+    (``proj/fc`` → gelu → ``proj/out``, hidden width as the tree has it) in
+    place of the linear ``proj``. The JAX package's validator refuses both,
+    though its ``apply`` computes them. A ConvNeXt mlp head's hidden width,
+    too, is the tree's (open_clip makes it 2·embed_dim, the JAX init
+    dims[-1])."""
+    if family == "convnext" and "pre_norm/scale" in got:
+        expected = {k.replace("head_norm/", "pre_norm/", 1): v for k, v in expected.items()}
+    if family == "convnext" and "proj/fc1/w" in got and "proj/fc1/w" in expected:
+        hidden = got["proj/fc1/w"][-1]
+        d_in, d_out = expected["proj/fc1/w"][0], expected["proj/fc2/w"][-1]
+        expected.update({"proj/fc1/w": (d_in, hidden), "proj/fc1/b": (hidden,),
+                         "proj/fc2/w": (hidden, d_out)})
+    if family == "vit" and "proj/fc/w" in got and "proj/w" in expected:
+        d_in, d_out = expected.pop("proj/w")
+        expected.pop("proj/b", None)
+        hidden = got["proj/fc/w"][-1]
+        expected.update({"proj/fc/w": (d_in, hidden), "proj/fc/b": (hidden,),
+                         "proj/out/w": (hidden, d_out), "proj/out/b": (d_out,)})
+    return expected
+
+
 def validate_tower_pytree(params: Mapping, spec, *, source) -> None:
     """Check a loaded weight tree against the family's canonical layout —
     the shapes of its ``init`` on the meta device (no memory, no FLOPs) —
     so a mismatched file fails here as a typed ``WeightError`` naming the
     offending paths, not inside the forward. Shapes only; dtype is a
     load-time knob. A missing bias beside a correct weight is allowed
-    (biases are optional by the ops contract)."""
+    (biases are optional by the ops contract), and so is a ConvNeXt block
+    without layer scale ``gamma``; ``_accepted_layout`` names the other
+    layouts taken."""
     init = _family_init(spec.family)
     if init is None:
         return
-    expected = _flat_shapes(init(spec.cfg, device="meta"))
     got = _flat_shapes(params)
+    expected = _accepted_layout(spec.family, _flat_shapes(init(spec.cfg, device="meta")), got)
 
-    def optional_bias(k: str) -> bool:
+    def optional(k: str) -> bool:
         head, _, leaf = k.rpartition("/")
+        if spec.family == "convnext" and leaf == "gamma":
+            return True
         if leaf != "b":
             return False
         sib = f"{head}/w" if head else "w"
         return sib in got and got[sib] == expected.get(sib)
 
-    missing = sorted(k for k in set(expected) - set(got) if not optional_bias(k))
+    missing = sorted(k for k in set(expected) - set(got) if not optional(k))
     unexpected = sorted(set(got) - set(expected))
     wrong = sorted(k for k in set(got) & set(expected) if got[k] != expected[k])
     if not (missing or unexpected or wrong):
@@ -256,6 +310,21 @@ def _get(sd: Mapping[str, Any], key: str) -> np.ndarray:
 
 def _ln(sd, prefix: str) -> dict:
     return {"scale": _get(sd, f"{prefix}.weight"), "bias": _get(sd, f"{prefix}.bias")}
+
+
+def _conv_hwio(sd: Mapping[str, Any], prefix: str, *, zero_bias: bool = False) -> dict:
+    """A torch Conv2d's ``{prefix}.weight`` [O, I/g, K, K] → {"w": HWIO,
+    "b"}; a missing bias is None, or zeros with ``zero_bias`` (FastViT's
+    trees hold one on every conv)."""
+    w = sd.get(f"{prefix}.weight")
+    if w is None:
+        raise WeightError(f"Missing conv '{prefix}.weight'")
+    w = np.asarray(w)
+    b = sd.get(f"{prefix}.bias")
+    if b is None and zero_bias:
+        b = np.zeros(w.shape[0], w.dtype)
+    return {"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "b": None if b is None else np.asarray(b)}
 
 
 def _linear(sd, prefix: str, *, bias: bool = True) -> dict:
@@ -522,6 +591,18 @@ def _timm_block(sd, prefix: str) -> dict:
     return block
 
 
+def mlp_head_keys(sd: Mapping[str, Any]) -> tuple[str, str] | None:
+    """The two linears of open_clip's ``timm_proj="mlp"`` head in a state
+    dict stripped of ``visual.``/``trunk.``: TimmModel names them
+    ``head.mlp.fc1``/``head.mlp.fc2`` (a timm ``Mlp`` of hidden 2·embed_dim);
+    ``head.fc1``/``head.fc2``, the names the JAX package's mappers read, are
+    taken too."""
+    for p in ("head.mlp", "head"):
+        if f"{p}.fc1.weight" in sd:
+            return f"{p}.fc1", f"{p}.fc2"
+    return None
+
+
 def map_timm_visual(sd: Mapping[str, Any]) -> dict:
     """timm ViT state dict (open_clip TimmModel: ``visual.trunk.*``) → ViT
     tree, with the SigLIP attention-pool (map) head and open_clip's
@@ -567,8 +648,8 @@ def map_timm_visual(sd: Mapping[str, Any]) -> dict:
     # a bare head.weight is the trunk's own classifier-style head
     if "head.proj.weight" in sd:
         params["proj"] = _linear(sd, "head.proj")
-    elif "head.fc1.weight" in sd:
-        params["proj"] = {"fc": _linear(sd, "head.fc1"), "out": _linear(sd, "head.fc2")}
+    elif (mlp := mlp_head_keys(sd)) is not None:
+        params["proj"] = {"fc": _linear(sd, mlp[0]), "out": _linear(sd, mlp[1])}
     elif "head.weight" in sd:
         params["proj"] = _linear(sd, "head")
     return params
@@ -576,18 +657,11 @@ def map_timm_visual(sd: Mapping[str, Any]) -> dict:
 
 # -- entry point ---------------------------------------------------------------
 
-# the families models.build resolves but the port does not build yet, by the
-# name its not-yet-ported error gives them
-_UNPORTED_VISUAL = {"fastvit": "The FastViT (MobileCLIP) vision tower",
-                    "resnet": "The ModifiedResNet vision tower",
-                    "convnext": "The ConvNeXt vision tower",
-                    "eva02": "The EVA02 vision tower"}
-
-
 def map_state_dict(sd: Mapping[str, Any], *, tower: str, family: str) -> dict:
     """Map a torch state dict (arrays or CPU tensors) onto a tower tree of
     numpy arrays. ``tower``: "visual" | "text"; ``family``: a
-    ``TowerSpec.family``. The families not yet ported raise ConfigError."""
+    ``TowerSpec.family``. The family mappers live in the family modules, as
+    in the JAX package."""
     sd = {k: np.asarray(v) for k, v in sd.items()}
     if tower == "visual":
         if family == "vit":
@@ -598,10 +672,22 @@ def map_state_dict(sd: Mapping[str, Any], *, tower: str, family: str) -> dict:
             if any(k.endswith("attn_pool.probe") for k in keys):
                 return map_pe_visual(sd)  # Meta PE-Core naming
             return map_clip_visual(sd)
-        if family in _UNPORTED_VISUAL:
-            from .models.build import _not_ported
+        if family == "fastvit":
+            from .models.fastvit import map_fastvit_visual
 
-            raise _not_ported(_UNPORTED_VISUAL[family])
+            return map_fastvit_visual(sd)
+        if family == "resnet":
+            from .models.resnet import map_resnet_visual
+
+            return map_resnet_visual(sd)
+        if family == "convnext":
+            from .models.convnext import map_convnext_visual
+
+            return map_convnext_visual(sd)
+        if family == "eva02":
+            from .models.eva02 import map_eva02_visual
+
+            return map_eva02_visual(sd)
         raise WeightError(f"Unknown visual family '{family}'")
     if tower == "text":
         if family == "text_transformer":

@@ -21,7 +21,7 @@ from clip_embedder_tpu import Clip as JaxClip
 from clip_embedder_tpu import weights as jweights
 from clip_embedder_tpu_torch import Clip, pull_weights
 from clip_embedder_tpu_torch import weights as tweights
-from clip_embedder_tpu_torch.errors import ConfigError, WeightError
+from clip_embedder_tpu_torch.errors import WeightError
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -78,10 +78,88 @@ def _bert_sd():
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
 
 
+def _fastvit(embed_dim=48):
+    """timm-named reparameterized FastViT (tests/torch_ref_fastvit.py), its
+    BatchNorms' running statistics drawn so that the folds count."""
+    from torch_ref_fastvit import TorchFastViT
+
+    tm = TorchFastViT((1, 2, 1, 1), (16, 32, 64, 128), (3, 3, 3, 3),
+                      ("repmixer",) * 3 + ("attention",), (False, False, False, True),
+                      embed_dim=embed_dim)
+    for m in tm.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(0, 0.5)
+            m.running_var.uniform_(0.5, 2.0)
+    return tm
+
+
+def _resnet():
+    from test_resnet import ModifiedResNet
+
+    tm = ModifiedResNet(layers=(1, 2, 1, 1), output_dim=24, heads=8, image_size=64, width=16)
+    for m in tm.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(0, 0.3)
+            m.running_var.uniform_(0.5, 2.0)
+    return tm
+
+
+def _convnext():
+    from test_convnext import TorchConvNeXt
+
+    return TorchConvNeXt((1, 1, 2, 1), (16, 32, 64, 128), embed_dim=48)
+
+
+def _mlp_head(sd, width, embed_dim, seed):
+    """open_clip TimmModel's ``timm_proj="mlp"`` head as it names it:
+    ``visual.head.mlp.fc1``/``fc2``, a timm Mlp of hidden 2·embed_dim."""
+    rng = np.random.default_rng(seed)
+    for name, shape in (("fc1", (2 * embed_dim, width)), ("fc2", (embed_dim, 2 * embed_dim))):
+        sd[f"visual.head.mlp.{name}.weight"] = rng.standard_normal(shape).astype(np.float32)
+        sd[f"visual.head.mlp.{name}.bias"] = rng.standard_normal(shape[0]).astype(np.float32)
+    return sd
+
+
+def jax_head_names(sd):
+    """The mlp head's keys as the JAX package's mappers read them
+    (``head.fc1``/``head.fc2``; open_clip writes ``head.mlp.fc1``/``fc2``)."""
+    return {k.replace("head.mlp.", "head."): v for k, v in sd.items()}
+
+
+def _convnext_head_norm_first_mlp():
+    """A head_norm_first ConvNeXt (``norm_pre``), no layer scale, and
+    open_clip's mlp head."""
+    sd = numpy_sd(_convnext(), "visual.trunk.")
+    for k in [k for k in sd if k.endswith(".gamma")]:
+        del sd[k]
+    for leaf in ("weight", "bias"):
+        sd[f"visual.trunk.norm_pre.{leaf}"] = sd.pop(f"visual.trunk.head.norm.{leaf}")
+    del sd["visual.trunk.head.proj.weight"], sd["visual.trunk.head.proj.bias"]
+    return _mlp_head(sd, 128, 48, seed=3)
+
+
+def _eva02(dim=64, heads=4):
+    from test_eva02 import TorchEva02
+
+    return TorchEva02(32, 8, dim, 2, heads, 96, 48)
+
+
+def _eva02_sd(module):
+    return {k: v for k, v in numpy_sd(module, "visual.trunk.").items()
+            if not k.endswith((".sin", ".cos"))}
+
+
 # (tower, family, state dict) by case; every module is built from seed 0
 STATE_DICTS = {
+    "fastvit": ("visual", "fastvit", lambda: numpy_sd(_fastvit(), "visual.trunk.")),
+    "resnet": ("visual", "resnet", lambda: numpy_sd(_resnet(), "visual.")),
+    "convnext": ("visual", "convnext", lambda: numpy_sd(_convnext(), "visual.trunk.")),
+    "convnext_head_norm_first_mlp": ("visual", "convnext", _convnext_head_norm_first_mlp),
+    "eva02": ("visual", "eva02", lambda: _eva02_sd(_eva02())),
     "timm_siglip_map": ("visual", "vit", lambda: numpy_sd(
         TimmSiglipViT(32, 8, 64, 2, 4, 128), "visual.trunk.")),
+    "timm_siglip_mlp_head": ("visual", "vit", lambda: _mlp_head(numpy_sd(
+        TimmSiglipViT(32, 8, 64, 2, 4, 128), "visual.trunk."), 64, 48, seed=4)),
     "clip_visual": ("visual", "vit", lambda: numpy_sd(
         VisionTransformer(32, 8, 64, 2, 4, 256, 48), "visual.")),
     "pe_core": ("visual", "vit", lambda: numpy_sd(PECoreViT(32, 8, 64, 2, 4, 128, 48))),
@@ -102,14 +180,44 @@ STATE_DICTS = {
 
 @pytest.mark.parametrize("case", sorted(STATE_DICTS))
 def test_map_state_dict_matches_jax(case):
+    """The port's mapper against the JAX one, leaf for leaf. An mlp head is
+    handed to the JAX mapper under the names it reads (``jax_head_names``):
+    the port reads open_clip's own."""
     tower, family, make = STATE_DICTS[case]
     torch.manual_seed(0)
     sd = make()
-    ref = jweights.map_state_dict(sd, tower=tower, family=family)
+    ref = jweights.map_state_dict(jax_head_names(sd), tower=tower, family=family)
     assert_same_tree(tweights.map_state_dict(sd, tower=tower, family=family), ref)
     # torch tensors in (a state dict straight from a module) map the same
     tensors = {k: torch.from_numpy(v) for k, v in sd.items()}
     assert_same_tree(tweights.map_state_dict(tensors, tower=tower, family=family), ref)
+
+
+@pytest.mark.parametrize("case,family,proj", [
+    ("convnext_head_norm_first_mlp", "convnext", ("fc1", "fc2")),
+    ("timm_siglip_mlp_head", "vit", ("fc", "out"))])
+def test_mlp_head_maps_open_clip_names(case, family, proj):
+    """open_clip's ``head.mlp.fc1``/``fc2`` reach the port's tree, hidden
+    2·embed_dim; the JAX mappers read ``head.fc1`` only and drop them."""
+    torch.manual_seed(0)
+    sd = STATE_DICTS[case][2]()
+    got = tweights.map_state_dict(sd, tower="visual", family=family)["proj"]
+    np.testing.assert_array_equal(got[proj[0]]["w"], sd["visual.head.mlp.fc1.weight"].T)
+    np.testing.assert_array_equal(got[proj[1]]["b"], sd["visual.head.mlp.fc2.bias"])
+    assert got[proj[0]]["w"].shape[1] == 2 * 48
+    assert "proj" not in jweights.map_state_dict(sd, tower="visual", family=family)
+
+
+def test_fastvit_attention_norm_without_running_stats_is_refused():
+    """A FastViT attention block's norm is a BatchNorm: one without running
+    statistics is refused, where the JAX mapper takes it as a plain affine."""
+    torch.manual_seed(0)
+    sd = numpy_sd(_fastvit(), "visual.trunk.")
+    key = next(k for k in sd if k.endswith(".norm.running_mean"))
+    del sd[key], sd[key.replace("running_mean", "running_var")]
+    jweights.map_state_dict(sd, tower="visual", family="fastvit")
+    with pytest.raises(WeightError, match="running statistics"):
+        tweights.map_state_dict(sd, tower="visual", family="fastvit")
 
 
 @pytest.mark.parametrize("prefix", ["", "visual."])
@@ -136,13 +244,40 @@ def test_fold_bn_affine_matches_jax():
         np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("family", ["fastvit", "resnet", "convnext", "eva02"])
-def test_unported_families_raise_config_error(family):
-    with pytest.raises(ConfigError, match="not yet ported to the torch package"):
-        tweights.map_state_dict({"visual.trunk.stem.0.weight": np.zeros((2, 3, 3, 3))},
-                                tower="visual", family=family)
+def test_unknown_families_raise_weight_error():
     with pytest.raises(WeightError, match="Unknown visual family"):
         tweights.map_state_dict({}, tower="visual", family="nope")
+    with pytest.raises(WeightError, match="Unknown text family"):
+        tweights.map_state_dict({}, tower="text", family="eva02")
+
+
+def test_eva02_trunk_head_is_the_projection():
+    """open_clip builds an EVA02 trunk with ``num_classes=embed_dim`` where
+    its config leaves ``timm_proj`` unset, as its EVA02 configs do: the
+    projection is the trunk's ``head``. The port maps it to ``proj`` and the
+    tree validates; the JAX mapper reads ``head.proj`` alone, so its tree
+    lacks ``proj`` and its validator refuses it (a defect not copied)."""
+    from clip_embedder_tpu.models import eva02 as jeva02
+    from clip_embedder_tpu.models.build import TowerSpec as JTowerSpec
+
+    from clip_embedder_tpu_torch.models import eva02
+    from clip_embedder_tpu_torch.models.build import TowerSpec
+
+    torch.manual_seed(0)
+    sd = _eva02_sd(_eva02())
+    for leaf in ("weight", "bias"):
+        sd[f"visual.trunk.head.{leaf}"] = sd.pop(f"visual.trunk.head.proj.{leaf}")
+    got = tweights.map_state_dict(sd, tower="visual", family="eva02")
+    np.testing.assert_array_equal(got["proj"]["w"], sd["visual.trunk.head.weight"].T)
+    np.testing.assert_array_equal(got["proj"]["b"], sd["visual.trunk.head.bias"])
+    cfg = jeva02.Eva02Cfg(image_size=32, patch_size=8, width=64, layers=2, heads=4,
+                          mlp_hidden=96, embed_dim=48)
+    tweights.validate_tower_pytree(got, TowerSpec("eva02", eva02.Eva02Cfg(
+        **cfg.__dict__)), source="mem")
+    ref = jweights.map_state_dict(sd, tower="visual", family="eva02")
+    assert "proj" not in ref
+    with pytest.raises(Exception, match="missing: proj/b, proj/w"):
+        jweights.validate_tower_pytree(ref, JTowerSpec("eva02", cfg), source="mem")
 
 
 @pytest.mark.parametrize("repo_id", ["laion/CLIP-ViT-B-32-laion2B-s34B-b79K",
@@ -191,9 +326,39 @@ PE_OCC = {
 }
 
 
+# MobileCLIP2-S4's and EVA02-B's names with no dims in the config: the
+# conversion derives them from the checkpoint (EVA02-B's 12 heads, which no
+# shape fixes, from the size table: 96 = 12 x 8)
+FASTVIT_OCC = {
+    "model_cfg": {"embed_dim": 48,
+                  "vision_cfg": {"image_size": 64, "timm_model_name": "fastvit_mci4",
+                                 "timm_proj": "none"},
+                  "text_cfg": {"context_length": 12, "vocab_size": 512, "width": 64,
+                               "heads": 4, "layers": 2}},
+    "preprocess_cfg": {"mean": [0.5, 0.5, 0.5], "std": [0.3, 0.3, 0.3]},
+}
+EVA02_OCC = {
+    "model_cfg": {"embed_dim": 48,
+                  "vision_cfg": {"image_size": 32,
+                                 "timm_model_name": "eva02_base_patch8_clip_32",
+                                 "timm_proj": "linear"},
+                  "text_cfg": {"context_length": 12, "vocab_size": 512, "width": 64,
+                               "heads": 4, "layers": 2}},
+    "preprocess_cfg": {"mean": [0.5, 0.5, 0.5], "std": [0.3, 0.3, 0.3]},
+}
+
+
 def _checkpoint(kind):
     """(repo id, open_clip config, whole-model state dict) of a small model."""
     torch.manual_seed(0)
+    if kind in ("fastvit", "eva02"):
+        vision = (numpy_sd(_fastvit(), "visual.trunk.") if kind == "fastvit"
+                  else _eva02_sd(_eva02(dim=96, heads=12)))
+        sd = {**vision, **numpy_sd(TextTransformer(12, 512, 64, 4, 2, 256, 48))}
+        sd["logit_scale"] = np.asarray(np.log(10.0), np.float32)
+        if kind == "fastvit":
+            return "timm/MobileCLIP2-S4-OpenCLIP", FASTVIT_OCC, sd
+        return "timm/eva02_base_patch8_clip_32", EVA02_OCC, sd
     if kind == "siglip2":
         sd = numpy_sd(TimmSiglipViT(64, 16, 64, 2, 4, 128), "visual.trunk.")
         sd.update(numpy_sd(TextTransformer(12, 512, 64, 4, 2, 256, 64, causal=False,
@@ -225,7 +390,7 @@ def cosines(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-@pytest.mark.parametrize("kind", ["siglip2", "clip", "pe_core"])
+@pytest.mark.parametrize("kind", ["siglip2", "clip", "pe_core", "fastvit", "eva02"])
 def test_converted_dir_matches_jax(tmp_path, kind):
     """The same checkpoint through the JAX converter into dir A and the
     port's into dir B (``torch.save`` → ``load_checkpoint``, as from a
@@ -244,9 +409,14 @@ def test_converted_dir_matches_jax(tmp_path, kind):
     a, b = dirs["A"], dirs["B"]
     for f in ("open_clip_config.json", "model_config.json"):
         assert json.loads((a / f).read_text()) == json.loads((b / f).read_text()), f
+    vcfg = json.loads((b / "open_clip_config.json").read_text())["model_cfg"]["vision_cfg"]
     if kind == "pe_core":
-        pe = json.loads((b / "open_clip_config.json").read_text())
-        assert pe["model_cfg"]["vision_cfg"]["pe_cfg"]["width"] == 128
+        assert vcfg["pe_cfg"]["width"] == 128
+    if kind == "fastvit":  # the checkpoint's dims, not MCi4's table row
+        assert vcfg["fastvit_cfg"]["dims"] == [16, 32, 64, 128]
+        assert vcfg["fastvit_cfg"]["depths"] == [1, 2, 1, 1]
+    if kind == "eva02":
+        assert vcfg["eva02_cfg"] == {"width": 96, "layers": 2, "mlp_hidden": 96}
     for f in ("visual.npz", "text.npz"):
         with np.load(a / f) as za, np.load(b / f) as zb:
             assert sorted(za.files) == sorted(zb.files)
@@ -307,14 +477,6 @@ def test_checkpoint_with_the_wrong_config_fails_at_conversion(tmp_path):
     with pytest.raises(WeightError, match="does not match the 'vit' tower layout"):
         pull_weights.convert_checkpoint(d, sd)
     assert not (d / "visual.npz").exists() and not (d / "text.npz").exists()
-
-
-def test_unported_family_fails_at_conversion(tmp_path):
-    occ = json.loads(json.dumps(SIGLIP_OCC))
-    occ["model_cfg"]["vision_cfg"]["timm_model_name"] = "fastvit_mci2"
-    d = _model_dir(tmp_path / "m", occ)
-    with pytest.raises(ConfigError, match="not yet ported"):
-        pull_weights.convert_checkpoint(d, {"visual.trunk.stem.0.weight": np.zeros(3)})
 
 
 def test_write_model_readme(tmp_path):

@@ -418,6 +418,32 @@ def test_int8_linear_fused_wgmma_edges(dev, rows, k_in, k_out, dtype, with_resid
     assert_rows_close(got, int8_mlp.int8_linear_fused_plain(p, x, residual=r), dtype)
 
 
+@pytest.mark.parametrize("rows,k_in,k_out", [
+    pytest.param(3 * 61, 1024, 2730, id="eva02_fc1"),  # N no multiple of 16: an 8-column tail
+    pytest.param(3 * 61, 2730, 1024, id="eva02_fc2"),  # K no multiple of 16: padded rows
+    pytest.param(130, 100, 77, id="odd_n"),            # an odd N: a pair with one column
+    pytest.param(37, 17, 24, id="k_under_a_box"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_int8_linear_fused_any_width(dev, rows, k_in, k_out, dtype, with_residual):
+    """Widths that are no multiple of 16 (EVA02's SwiGLU): the weight in
+    rows padded to 16 bytes on the card, the codes likewise (the ragged row
+    pass), an output whose width is no multiple of 8 written into padded
+    rows and handed back as a view."""
+    rng = np.random.default_rng(70 + k_in)
+    p = _qlinear(rng, k_in, k_out, dtype, dev)
+    assert p["w_q"].stride() == (1, k_in + (-k_in) % 16)
+    x = torch.from_numpy(_arr(rng, rows, k_in)).to(dev, dtype)
+    r = torch.from_numpy(_arr(rng, rows, k_out)).to(dev, dtype) if with_residual else None
+    before = int8_mlp.int8_linear_fused.launches
+    got = int8_mlp.int8_linear_fused(p, x, residual=r)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_linear_fused.launches == before + 1
+    assert got.shape == (rows, k_out)
+    assert_rows_close(got, int8_mlp.int8_linear_fused_plain(p, x, residual=r), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_qkv_and_linear_all_zero_row(dev, dtype):
     """A row of zeros (for ln_qkv_int8 under a LayerNorm without bias, so
@@ -505,10 +531,11 @@ def test_int8_mlp_streamed_kernel_matches_plain(dev, rows, k_in, hidden, chunk, 
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
     rng = np.random.default_rng(8)
-    p = _qlinear(rng, 64, 24, torch.float32, dev)    # 24: not a multiple of 16
+    # 24: not a multiple of 16, which the MLP kernels need (the fused linear takes it)
     x = torch.zeros(4, 64, device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
-        int8_mlp.int8_linear_fused(p, x)
+        int8_mlp.int8_mlp({"fc": _qlinear(rng, 64, 24, torch.float32, dev),
+                           "proj": _qlinear(rng, 24, 64, torch.float32, dev)}, x)
     p = _qlinear(rng, 64, 32, torch.float32, dev)
     with pytest.raises(ValueError, match="f32 or bf16"):
         int8_mlp.int8_linear_fused(p, x.half())

@@ -21,7 +21,10 @@ from clip_embedder_tpu_torch.errors import (ConfigError, InferenceError,
 from clip_embedder_tpu_torch.tokenizer import Tokenizer
 
 FIXTURES = Path(__file__).parent / "fixtures"
-PORTED = ["golden_siglip", "golden_model", "golden_hf_bert"]
+PORTED = ["golden_siglip", "golden_model", "golden_hf_bert", "golden_eva02", "golden_fastvit",
+          "golden_convnext", "golden_resnet"]
+# vision families with no attention kernel (the JAX package's check_attn_impl)
+EAGER_ONLY = {"golden_fastvit", "golden_convnext", "golden_resnet"}
 TEXTS = ["a photo of a cat", "the dog!"]
 # a small CoCa (open_clip coca_* layout): width 128 with 4 heads x 32 (a
 # 128-lane head group: the packed kernel's full-mask form in the text
@@ -97,9 +100,21 @@ def test_golden_embeddings(clips, name):
 @pytest.mark.parametrize("impl", ["eager", "kernel", "kernel_fast"])
 def test_golden_classify(name, impl):
     """Every attn impl (the kernel impls run the kernels' plain versions on
-    the CPU) keeps the golden label order and probabilities."""
+    the CPU) keeps the golden label order and probabilities. The
+    convolutional families refuse a kernel impl, as the JAX package does;
+    there the text tower takes it beside the eager vision tower."""
     fixture = FIXTURES / name
-    clip = Clip.from_local_dir(fixture, device="cpu", attn_impl=impl)
+    if name in EAGER_ONLY and impl != "eager":
+        from clip_embedder_tpu_torch import TextEmbedder, VisionEmbedder
+
+        with pytest.raises(ConfigError, match="not supported for the"):
+            Clip.from_local_dir(fixture, device="cpu", attn_impl=impl)
+        clip = Clip(vision=VisionEmbedder.from_local_dir(fixture, device="cpu"),
+                    text=TextEmbedder.from_local_dir(fixture, device="cpu", attn_impl=impl),
+                    model_dir=fixture)
+        assert clip.text.attn_impl == impl
+    else:
+        clip = Clip.from_local_dir(fixture, device="cpu", attn_impl=impl)
     img = np.load(fixture / "golden_image.npy")
     golden = json.loads((fixture / "golden_classify.json").read_text())
     results = clip.classify(img, [label for label, _ in golden])
@@ -169,8 +184,15 @@ def test_agrees_with_jax_clip_in_bf16(name, quantize, request):
     JAX package grants its int8 modes against bf16
     (clip_embedder_tpu/ops/quant.py). The two frameworks round bf16 at other
     places, so this holds the algorithm, not the bits; a bias rounded twice
-    or an activation taken in bf16 moves a 64-wide model past it."""
+    or an activation taken in bf16 moves a 64-wide model past it. ResNet has
+    nothing to quantize: both packages refuse the int8 modes."""
     fixture = model_dir(name, request)
+    if name == "golden_resnet" and quantize:
+        with pytest.raises(ConfigError, match="no quantizable"):
+            Clip.from_local_dir(fixture, device="cpu", quantize=quantize)
+        with pytest.raises(Exception, match="no quantizable"):
+            JaxClip.from_local_dir(fixture, quantize=quantize)
+        return
     clip = Clip.from_local_dir(fixture, device="cpu", dtype=torch.bfloat16, quantize=quantize)
     jclip = JaxClip.from_local_dir(fixture, dtype=jnp.bfloat16, quantize=quantize)
     rng = np.random.default_rng(1)

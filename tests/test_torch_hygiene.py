@@ -89,11 +89,22 @@ def test_resolve_device_and_attn_impl(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(DeviceError, match="Unsupported device"):
         resolve_device("meta")
-    assert resolve_attn_impl("auto", torch.device("cpu")) == "eager"
-    assert resolve_attn_impl("auto", torch.device("cuda")) == "kernel"
-    assert resolve_attn_impl("kernel_fast", torch.device("cpu")) == "kernel_fast"
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for family in ("vit", "eva02", "text_transformer", "hf_bert"):
+        assert resolve_attn_impl("auto", cpu, family) == "eager"
+        assert resolve_attn_impl("auto", cuda, family) == "kernel"
+        assert resolve_attn_impl("kernel_fast", cpu, family) == "kernel_fast"
     with pytest.raises(ConfigError, match="Unknown attn_impl"):
-        resolve_attn_impl("xla", torch.device("cpu"))
+        resolve_attn_impl("xla", cpu, "vit")
+    # the convolutional families have no attention kernel (the JAX
+    # package's check_attn_impl): "auto" is eager on the card too, and a
+    # kernel impl asked for by name is refused
+    for family in ("fastvit", "convnext", "resnet"):
+        assert resolve_attn_impl("auto", cuda, family) == "eager"
+        assert resolve_attn_impl("eager", cpu, family) == "eager"
+        for impl in ("kernel", "kernel_fast"):
+            with pytest.raises(ConfigError, match=f"not supported for the '{family}'"):
+                resolve_attn_impl(impl, cpu, family)
 
 
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu():

@@ -100,6 +100,33 @@ def test_kmajor_keeps_a_kmajor_tensor_and_its_values():
     assert quant.kmajor(k) is k
 
 
+@pytest.mark.parametrize("shape", [(2730, 48), (3, 100, 24), (64, 32)],
+                         ids=["2d", "stacked", "no_pad_needed"])
+def test_kmajor_pads_rows_to_16_bytes_for_the_card(shape):
+    """``kmajor(pad=True)`` (the default for a CUDA tensor) stores an
+    ``in`` that is no multiple of 16 in zero-padded rows a multiple of 16
+    bytes apart, the stride TMA takes; the values stay, a second call keeps
+    the tensor, and the fused linear's layout check takes it."""
+    w = torch.from_numpy(np.random.default_rng(8).integers(-127, 128, shape).astype(np.int8))
+    k = shape[-2]
+    got = quant.kmajor(w, pad=True)
+    assert torch.equal(got, w) and got.stride(-2) == 1
+    assert got.stride(-1) == k + (-k) % 16
+    assert quant.kmajor(got, pad=True) is got
+    if k % 16:
+        base = got.transpose(-1, -2)
+        assert not base.is_contiguous()
+        assert quant.kmajor(w) is not got and _is_kmajor(quant.kmajor(w))  # the CPU default
+    layer = got if got.dim() == 2 else tweights.unstack({"w_q": got}, 1)["w_q"]
+    int8_mlp.check_weight_layout(layer, "w")
+    p = {"w_q": layer, "w_scale": torch.ones(shape[-1])}
+    x = torch.zeros(3, k)
+    assert int8_mlp.qlinear_operands(p, k, x, "w", any_width=True)[0] is layer
+    if k % 16:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            int8_mlp.qlinear_operands(p, k, x, "w")
+
+
 def test_weight_layout_check_refuses_an_n_contiguous_weight():
     w = torch.zeros(64, 32, dtype=torch.int8)  # [in, out], N-contiguous
     with pytest.raises(ValueError, match="K-major"):

@@ -304,8 +304,10 @@ def test_card_gates_on_kernel_shapes(card_gates):
     x = torch.zeros(2, 3, 64)
     q = {"w_q": torch.zeros(64, 32, dtype=torch.int8), "w_scale": torch.ones(32)}
     assert int8_mlp.fits_fused_linear(q, x)
-    assert not int8_mlp.fits_fused_linear({**q, "w_q": torch.zeros(64, 24, dtype=torch.int8)},
-                                          x)  # not a multiple of 16
+    # any width, as the JAX gate: the kernel pads what is no multiple of 16
+    assert int8_mlp.fits_fused_linear({**q, "w_q": torch.zeros(64, 24, dtype=torch.int8)}, x)
+    assert not int8_mlp.fits_fused_linear({**q, "w_q": torch.zeros(48, 32, dtype=torch.int8)},
+                                          x)  # another input width
     assert not int8_mlp.fits_fused_linear({"w": torch.zeros(64, 32)}, x)
     mlp = {"fc": {"w_q": torch.zeros(64, 272, dtype=torch.int8)},
            "proj": {"w_q": torch.zeros(272, 64, dtype=torch.int8)}}

@@ -9,6 +9,7 @@ at cosine > 1 - 1e-6.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -227,16 +228,23 @@ def test_resolve_text_matches_jax(text):
         assert got.cfg.mlp_hidden == 4304
 
 
-@pytest.mark.parametrize("vision,match", [
-    ({"timm_model_name": "eva02_base_patch16_clip_224"}, "EVA02"),
-    ({"timm_model_name": "fastvit_mci2"}, "FastViT"),
-    ({"timm_model_name": "convnext_base"}, "ConvNeXt"),
-    ({"timm_model_name": "vit_base_patch16_224", "timm_proj": "mlp"}, "timm_proj"),
-    ({"layers": [3, 4, 6, 3], "width": 64}, "ModifiedResNet"),
+@pytest.mark.parametrize("vision", [
+    {"timm_model_name": "eva02_base_patch16_clip_224"},
+    {"timm_model_name": "fastvit_mci2"},
+    {"timm_model_name": "convnext_base"},
+    {"timm_model_name": "vit_base_patch16_224", "timm_proj": "mlp"},
+    {"layers": [3, 4, 6, 3], "width": 64},
 ])
-def test_unported_vision_families_raise(vision, match):
-    with pytest.raises(ConfigError, match=f"{match}.*not yet ported"):
-        tbuild.resolve_vision(_model_cfg(vision=vision))
+def test_vision_families_resolve_as_jax(vision):
+    """EVA02, FastViT, ConvNeXt, the timm_proj="mlp" ViT head and
+    ModifiedResNet resolve to the JAX package's family and config."""
+    from clip_embedder_tpu.config import ModelCfg as JModelCfg
+
+    got = tbuild.resolve_vision(_model_cfg(vision=vision))
+    ref = jbuild.resolve_vision(JModelCfg.from_dict(
+        {"embed_dim": 32, "vision_cfg": vision, "text_cfg": {}}))
+    assert got.family == ref.family
+    assert dataclasses.asdict(got.cfg) == dataclasses.asdict(ref.cfg)
 
 
 @pytest.mark.parametrize("form", ["parallel", "cascade"])
@@ -264,8 +272,8 @@ def test_hf_text_without_hf_config_raises():
 
 
 def test_unported_tower_options_raise():
-    """rope_2d, pool="attn" and embed_cls (ported) build their trees; the
-    timm_proj="mlp" head is still refused."""
+    """rope_2d, pool="attn" and embed_cls (ported) build their trees, and the
+    timm_proj="mlp" head (ported) computes what the JAX ViT computes."""
     rope = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), rope_2d=True)
     assert tvit.init(rope, device="meta")["blocks"]["attn"]["q"]["w"].shape == (2, 64, 64)
     attn = dataclasses.replace(_port_cfg(tvit.ViTCfg, CLIP_VIT), pool="attn",
@@ -275,8 +283,23 @@ def test_unported_tower_options_raise():
                                    embed_cls=True)
     tree = ttext.init(cls_text, device="meta")
     assert tree["cls_emb"].shape == (1, 1, 64) and tree["pos_embed"].shape == (13, 64)
-    cfg = _port_cfg(tvit.ViTCfg, CLIP_VIT)
-    params = tvit.init(cfg)
-    params["proj"] = {"fc": params["proj"], "out": params["proj"]}
-    with pytest.raises(ConfigError, match="timm_proj"):
-        tvit.ViT(cfg, params)
+    params = _jax_params(jvit.init, CLIP_VIT, 3)
+    rng = np.random.default_rng(3)
+    params["proj"] = {"fc": {"w": rng.standard_normal((64, 80)).astype(np.float32) * 0.1,
+                             "b": rng.standard_normal(80).astype(np.float32)},
+                      "out": {"w": rng.standard_normal((80, 32)).astype(np.float32) * 0.1,
+                              "b": rng.standard_normal(32).astype(np.float32)}}
+    pixels = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    ref = np.asarray(jvit.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(pixels),
+                                CLIP_VIT))
+    tree = tweights.params_from_numpy(params, device="cpu", dtype=torch.float32)
+    tower = tvit.ViT(_port_cfg(tvit.ViTCfg, CLIP_VIT), tree)
+    with torch.inference_mode():
+        got = tower(torch.from_numpy(pixels)).numpy()
+    assert cos_min(got, ref) > 1 - 1e-6
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    # the port's validator takes the mlp head; the JAX one refuses it
+    tweights.validate_tower_pytree(
+        tree, tbuild.TowerSpec("vit", _port_cfg(tvit.ViTCfg, CLIP_VIT)), source="mem")
+    with pytest.raises(Exception, match="unexpected: proj/fc/b"):
+        jweights.validate_tower_pytree(params, jbuild.TowerSpec("vit", CLIP_VIT), source="mem")
