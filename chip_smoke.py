@@ -73,6 +73,20 @@ card, in phases, and fail loudly if any phase fails.
    ``classify``, launch counts per call, both towers held against the plain
    path, images/s, the p50 of one image, texts/s, and device time by kernel
    group (cuDNN's convolutions as their own group).
+11. the ONNX path — CLIP-ViT-B-32 (as open_clip names it) and the
+   MobileCLIP-S0 scale (FastViT fastvit_mci0 at 256, the MCT hybrid text
+   tower) at full width and depth, exported from the torch mirrors of
+   ``tests/`` to reference-format ONNX dirs (f32, seeded random weights)
+   and converted on the card by ``Clip.from_local_dir``: the route each
+   tower took (vit + text_transformer, fastvit + mct; no executor fallback,
+   no unverified conversion), both towers against the mirrors in f32
+   (cosine 0.999, classify's order), launch counts per call, kernel path
+   against plain, ViT-B-32 under ``int8_all`` and the MCT tower under
+   ``int8``, the graph executor (``onnx_exec``) on each graph against the
+   mirror (1 - 1e-5, f32), images/s, p50 and texts/s of the converted
+   towers and of the executor, the converted ViT-B-32's device time by
+   kernel group. Phase 3 holds and times kernels 1, 2 and 4-6 at its
+   shapes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -707,14 +721,14 @@ def ln_qkv_int8_library(s_cat, b_cat, w_cm, pre_ln, x, eps):
     return o.to(x.dtype).split(w, dim=-1)
 
 
-def int8_mlp_library(p, w1_cm, w2_cm, pre_ln, x, eps):
+def int8_mlp_library(p, w1_cm, w2_cm, pre_ln, x, eps, approximate="tanh"):
     import torch.nn.functional as F
 
     w = x.shape[-1]
     y = F.layer_norm(x.float(), (w,), pre_ln["scale"].float(), pre_ln["bias"].float(), eps)
     xq, xs = _lib_row_quant(y)
     h = torch._int_mm(xq, w1_cm).float() * (xs * p["fc"]["w_scale"]) + p["fc"]["b"].float()
-    hq, hs = _lib_row_quant(F.gelu(h, approximate="tanh"))
+    hq, hs = _lib_row_quant(F.gelu(h, approximate=approximate))
     out = torch._int_mm(hq, w2_cm).float() * (hs * p["proj"]["w_scale"]) \
         + p["proj"]["b"].float() + x.float()
     return out.to(x.dtype)
@@ -2286,6 +2300,491 @@ def phase_families(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the ONNX path
+# ---------------------------------------------------------------------------
+
+# laion/CLIP-ViT-B-32-laion2B-s34B-b79K as open_clip names it (the reference's
+# tested list, README.md:142; tests/test_reference_model_list.py:98-106):
+# vision 12 x 768, 12 x 64 heads, patch 32 at 224 (50 tokens), MLP 3072; text
+# 12 x 512, 8 x 64 heads, context 77, vocab 49408, causal; embed 512.
+VIT_B32 = {
+    "embed_dim": 512,
+    "vision_cfg": {"image_size": 224, "layers": 12, "width": 768, "patch_size": 32},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 512, "heads": 8,
+                 "layers": 12},
+}
+# MobileCLIP-S0's scale as the repo gives it (benches/bench_onnx_fallback.py:62-71):
+# the MCT hybrid text tower at context 77, vocab 49408, width 512, 8 heads, 4
+# transformer layers (MLP 2048), embed 512, after two conv blocks (kernel 11)
+# with a ConvFFN (hidden 2048); the vision tower fastvit_mci0's depths
+# (2, 6, 10, 2) and dims 64-512 (clip_embedder_tpu/models/fastvit.py:91-94) at
+# 256. The scale of S0, not a replica of Apple's S0: what the port converts to
+# is whatever the graph holds. Its config names a generic text tower: the
+# hybrid structure is in the graph alone.
+S0_SCALE = {
+    "embed_dim": 512,
+    "vision_cfg": {"image_size": 256, "timm_model_name": "fastvit_mci0", "timm_proj": "none"},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 512, "heads": 8,
+                 "layers": 4},
+}
+S0_TEXT = {"width": 512, "heads": 8, "layers": 4, "mlp": 2048,
+           "conv_blocks": ((11, 2048), (11, 2048))}
+S0_VISION = {"depths": (2, 6, 10, 2), "dims": (64, 128, 256, 512), "mlp_ratios": (3, 3, 3, 3),
+             "mixers": ("repmixer",) * 3 + ("attention",), "pos_embs": (False,) * 3 + (True,)}
+# MobileCLIP's own preprocess: pixels in [0, 1], no mean or std
+S0_PREPROCESS = {"mean": [0.0, 0.0, 0.0], "std": [1.0, 1.0, 1.0]}
+# warnings that say a load did not take the native route it was meant to
+FALLBACK_WARNINGS = ("vision_fallback:", "text_fallback:", "probe_verify:", "mct_pads:")
+
+
+def has_torchscript_exporter() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("torch.onnx._internal.torchscript_exporter") is not None
+
+
+def onnx_export(model, dummy, path, input_name, output_name) -> None:
+    """torch's TorchScript exporter at opset 18 with constant folding, as the
+    reference's exporter runs it (reference: pull_onnx.py:159-181). The
+    exporter re-serializes the proto through the ``onnx`` package, which is
+    not installed, for onnxscript functions these models do not have: that
+    step is skipped (the bytes are the same)."""
+    from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+    onnx_proto_utils._add_onnxscript_fn = lambda model_bytes, custom_opsets: model_bytes
+    torch.onnx.export(model, dummy, str(path), input_names=[input_name],
+                      output_names=[output_name],
+                      dynamic_axes={input_name: {0: "batch"}, output_name: {0: "batch"}},
+                      opset_version=18, do_constant_folding=True, dynamo=False)
+
+
+def value_distinct(model, *, layer_scale=None) -> None:
+    """torch.onnx merges identical initializers (fresh LayerNorm weights are
+    all ones, attention biases all zeros), which no trained checkpoint has:
+    every constant parameter gets a little noise, and BatchNorm statistics
+    their own values (tests/test_onnx_dir_e2e.py:70-80). ``layer_scale``
+    draws FastViT's layer scales at that scale."""
+    from torch import nn
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if layer_scale is not None and name.endswith("layer_scale.gamma"):
+                p.normal_(0, layer_scale)
+            elif (p == p.flatten()[0]).all():
+                p.add_(0.02 * torch.randn_like(p))
+        for m in model.modules():
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                m.running_mean.normal_(0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+
+
+class _NormalizedVisual(torch.nn.Module):
+    """The reference exporter's wrappers (pull_onnx.py:53-68): the tower under
+    open_clip's attribute name, its L2 normalize in the graph."""
+
+    def __init__(self, tower):
+        super().__init__()
+        self.visual = tower
+
+    def forward(self, x):
+        return torch.nn.functional.normalize(self.visual(x), dim=-1)
+
+
+class _NormalizedText(torch.nn.Module):
+    def __init__(self, tower):
+        super().__init__()
+        self.text = tower
+
+    def forward(self, x):
+        return torch.nn.functional.normalize(self.text(x), dim=-1)
+
+
+def onnx_mirrors(name, *, layers=None, vocab_size=None, seed=0):
+    """The torch mirrors of a phase-11 model, seeded random f32 weights on
+    the CPU, in eval mode: (config, vision, text). ``layers``/``vocab_size``
+    cut them for a CPU rehearsal."""
+    import copy
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_ref import TextTransformer, VisionTransformer
+    from torch_ref_fastvit import TorchFastViT
+    from torch_ref_mct import TorchMctText
+
+    cfg = copy.deepcopy(VIT_B32 if name == "CLIP-ViT-B-32" else S0_SCALE)
+    t = cfg["text_cfg"]
+    if vocab_size is not None:
+        t["vocab_size"] = vocab_size
+    torch.manual_seed(seed)
+    if name == "CLIP-ViT-B-32":
+        v = cfg["vision_cfg"]
+        if layers is not None:
+            v["layers"] = t["layers"] = layers
+        vision = VisionTransformer(224, 32, 768, v["layers"], 12, 3072, 512)
+        text = TextTransformer(77, t["vocab_size"], 512, 8, t["layers"], 2048, 512)
+        value_distinct(vision)
+    else:
+        depths = S0_VISION["depths"] if layers is None else (layers,) * 4
+        vision = TorchFastViT(depths, S0_VISION["dims"], S0_VISION["mlp_ratios"],
+                              S0_VISION["mixers"], S0_VISION["pos_embs"], embed_dim=512)
+        text = TorchMctText(77, t["vocab_size"], 512, 8, layers or S0_TEXT["layers"], 2048, 512,
+                            conv_blocks=S0_TEXT["conv_blocks"])
+        value_distinct(vision, layer_scale=0.1)
+    value_distinct(text)
+    return cfg, vision.eval(), text.eval()
+
+
+def write_onnx_dir(d: Path, cfg, vision, text, preprocess) -> dict:
+    """A reference-format model dir: visual.onnx and text.onnx (the mirrors
+    with the normalize baked in), open_clip_config.json, and
+    golden_model's tokenizer and scoring config. Returns the seconds each
+    export took and the graphs' sizes."""
+    d.mkdir(parents=True)
+    size = cfg["vision_cfg"]["image_size"]
+    out = {}
+    for tower, model, dummy, names in (
+            ("visual", vision, torch.randn(2, 3, size, size), ("pixel_values", "image_embeds")),
+            ("text", text, torch.randint(4, 500, (2, 77)), ("input_ids", "text_embeds"))):
+        t = time.perf_counter()
+        wrapped = (_NormalizedVisual if tower == "visual" else _NormalizedText)(model).eval()
+        onnx_export(wrapped, dummy, d / f"{tower}.onnx", *names)
+        out[f"{tower}_export_s"] = time.perf_counter() - t
+        out[f"{tower}_mb"] = (d / f"{tower}.onnx").stat().st_size / 2 ** 20
+    (d / "open_clip_config.json").write_text(json.dumps(
+        {"model_cfg": cfg, "preprocess_cfg": preprocess}))
+    for f in ("model_config.json", "tokenizer.json"):
+        (d / f).write_bytes((FIXTURES / "golden_model" / f).read_bytes())
+    return out
+
+
+def onnx_launches(spec, mode, rows: int) -> dict:
+    """The kernel launches of one forward of a phase-11 tower over ``rows``
+    rows (batch x tokens), by wrapper, from the gates: the transformer
+    blocks' self-attention takes the packed kernel (12 x 64 and 8 x 64 heads
+    form 128-lane groups; the text towers' causal mask in its shared form),
+    their LayerNorm + q/k/v ln_qkv, or ln_qkv_int8 under int8_all with the
+    out-projection and its residual on int8_linear_fused at 128 rows or
+    more; the quantized MLPs (and MCT's ConvFFNs, under both modes) take
+    int8_mlp. FastViT's attention, the convolutions and the output
+    projections launch nothing."""
+    n = dict.fromkeys(_wrappers(), 0)
+    if spec.family == "fastvit":
+        return n
+    depth = spec.cfg.layers
+    n["flash_attention_packed"] = depth
+    if mode == "int8_all":
+        n["ln_qkv_int8"] = depth
+        n["int8_linear_fused"] = depth if rows >= 128 else 0
+    else:
+        n["ln_qkv"] = depth
+    if mode:
+        ffns = sum(1 for _, h in getattr(spec.cfg, "conv_blocks", ()) if h)
+        n["int8_mlp"] = depth + ffns
+    return n
+
+
+def fallback_keys() -> set:
+    from clip_embedder_tpu_torch.utils.logging import _warned_once
+
+    return {k for k in _warned_once if k.startswith(FALLBACK_WARNINGS)}
+
+
+def mirror_embeddings(vision, text, pixels, ids, device) -> tuple:
+    """The mirrors in f32 on ``device`` (their masks made there too)."""
+    vision.to(device)
+    text.to(device)
+    with torch.inference_mode(), torch.device(device):
+        out = (vision(torch.from_numpy(pixels).to(device).float()).cpu().numpy(),
+               text(torch.from_numpy(ids).long().to(device)).cpu().numpy())
+    vision.cpu()
+    text.cpu()
+    return out
+
+
+def hold_label_order(what, got, ref_logits, labels, gap) -> None:
+    """``got`` (classify's (label, prob) list) in the order of the reference
+    logits, swaps allowed only between labels whose reference logits lie
+    within ``gap``."""
+    order = [label for label, _ in got]
+    ref = dict(zip(labels, ref_logits))
+    bad = [(a, b) for a, b in zip(order, order[1:]) if ref[a] < ref[b] - gap]
+    say(f"  {what}: classify order {order}; the mirror's logits "
+        f"{[round(float(ref[l]), 4) for l in order]}")
+    if bad:
+        raise AssertionError(f"{what}: classify order differs from the mirror's: {bad}")
+
+
+def executor_embedders(clip, d: Path, device, dtype):
+    """A vision and a text embedder over ``d``'s graphs run by the executor
+    (``onnx_exec``), with ``clip``'s configs: the path a dir takes when no
+    native family fits."""
+    from clip_embedder_tpu_torch import TextEmbedder, VisionEmbedder
+    from clip_embedder_tpu_torch.models.build import TowerSpec
+    from clip_embedder_tpu_torch.onnx_exec import fallback_cfg, load_tower
+    from clip_embedder_tpu_torch.text import OnnxText
+    from clip_embedder_tpu_torch.vision import OnnxVisual
+
+    common = {"config": clip.vision.config, "model_config": clip.vision.model_config,
+              "model_dir": d, "device": device, "dtype": dtype}
+    vcfg, tcfg = (fallback_cfg(d / f"{t}.onnx", dtype=dtype) for t in ("visual", "text"))
+    vision = VisionEmbedder(tower=OnnxVisual(load_tower(vcfg, device)),
+                            spec=TowerSpec("onnx", vcfg), **common)
+    text = TextEmbedder(tower=OnnxText(load_tower(tcfg, device)), spec=TowerSpec("onnx", tcfg),
+                        tokenizer=clip.text.tokenizer, **common)
+    return vision, text
+
+
+def phase_onnx_kernels(dev, peaks) -> dict:
+    """Phase 11's kernel shapes at batch 32 in bf16, each held against its
+    plain version and timed beside it, its library yardstick and its bound:
+    kernel 1 over ViT-B-32's vision rows (32 x 50, W = 768) and the 512-wide
+    text rows (32 x 77: ViT-B-32's text, MCT's blocks); kernel 2 over
+    [32, 50, 12 x 64] without a mask and [32, 77, 8 x 64] with the shared
+    causal mask; kernel 4 over ViT-B-32's MLP (768 -> 3072, exact gelu) and
+    the 512-wide one (512 -> 2048: ViT-B-32's text, MCT's ConvFFN and MLP);
+    kernels 5 and 6 at both widths."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
+    from clip_embedder_tpu_torch.ops.attention import causal_mask
+
+    say("[3] phase 11's shapes: CLIP-ViT-B-32 and the 512-wide text towers (CUDA events, "
+        "median of 20 back-to-back calls)")
+    out, es, eps = {}, 2, 1e-5
+    for tag, rows, width in (("vit_b32", 32 * 50, 768), ("text512", 32 * 77, 512)):
+        params, pre_ln, x = qkv_inputs(rows, width, torch.bfloat16, dev)
+        err = hold(f"ln_qkv {tag} rows={rows} W={width} bf16", qkv.ln_qkv(params, pre_ln, x,
+                                                                          eps=eps),
+                   qkv.ln_qkv_plain(params, pre_ln, x, eps=eps), 1e-2, 2 ** -7)
+        t_k = cuda_ms(lambda: qkv.ln_qkv(params, pre_ln, x, eps=eps))
+        t_p = cuda_ms(lambda: qkv.ln_qkv_plain(params, pre_ln, x, eps=eps))
+        t_l = cuda_ms(lambda: ln_qkv_library(params, pre_ln, x, eps))
+        nbytes = (4 * rows * width + 3 * width * width) * es + 5 * width * 4
+        ops = 6 * rows * width * width
+        t_ops, t_bytes = ops / peaks["bf16"], nbytes / peaks["bytes"]
+        say(f"  ln_qkv {tag}: {t_k:.4f} ms; plain {t_p:.4f} ms; F.layer_norm+3 addmm "
+            f"{t_l:.4f} ms; bound {max(t_ops, t_bytes) * 1e3:.4f} ms")
+        out[f"ln_qkv[{tag}]"] = {
+            "name": f"ln_qkv[{tag}]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/ln_qkv.cu",
+            "replaces": "clip_embedder_tpu/ops/qkv.py:216", "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": t_l}
+    for tag, heads, s, causal in (("vit_b32", 12, 50, False), ("text512_causal", 8, 77, True)):
+        b, hdim = 32, 64
+        q, k, v = attn_inputs(b, heads, s, hdim, torch.bfloat16, dev, seed=15)
+        mask = causal_mask(s, device=dev) if causal else None
+        err = hold(f"flash_attention_packed {tag} B=32 S={s} {heads}x64 exact bf16",
+                   [flash.flash_attention_packed(q, k, v, num_heads=heads, mask=mask)],
+                   [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, mask=mask)],
+                   2e-2, 2e-2)
+        t_k = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, mask=mask))
+        t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads,
+                                                                 mask=mask))
+        qh, kh, vh = (t.view(b, s, heads, hdim).transpose(1, 2) for t in (q, k, v))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
+        bound, by, ops, nbytes = attn_bound(b, heads, s, hdim, peaks,
+                                            extra_bytes=s * s * 4 if causal else 0)
+        say(f"  flash_attention_packed {tag}: {t_k:.4f} ms; plain {t_p:.4f} ms; "
+            f"F.scaled_dot_product_attention {t_l:.4f} ms; bound {bound:.4f} ms ({by})")
+        out[f"flash_attention_packed[{tag}]"] = {
+            "name": f"flash_attention_packed[{tag}]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/flash_packed.cu",
+            "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": bound, "bound_by": by, "library_ms": t_l}
+    for tag, rows, width, hidden in (("vit_b32", 32 * 50, 768, 3072),
+                                     ("text512", 32 * 77, 512, 2048)):
+        p, ln, x = int8_inputs(rows, width, width, torch.bfloat16, dev, hidden=hidden, seed=16)
+        kw = {"activation": "gelu", "pre_ln": ln, "ln_eps": eps, "add_residual": True}
+        err = hold_int8(f"int8_mlp {tag} rows={rows} {width}->{hidden}->{width} gelu+LN+res bf16",
+                        [int8_mlp.int8_mlp(p, x, **kw)], [int8_mlp.int8_mlp_plain(p, x, **kw)],
+                        torch.bfloat16)
+        w1_cm, w2_cm = p["fc"]["w_q"], p["proj"]["w_q"]
+        out[f"int8_mlp[{tag}]"] = {
+            "name": f"int8_mlp[{tag}]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/int8_mlp.cu",
+            "replaces": "clip_embedder_tpu/ops/int8_mlp.py:181", "max_abs_err": err,
+            **time_int8(f"int8_mlp {tag}", peaks, lambda: int8_mlp.int8_mlp(p, x, **kw),
+                        lambda: int8_mlp.int8_mlp_plain(p, x, **kw),
+                        lambda: int8_mlp_library(p, w1_cm, w2_cm, ln, x, eps, "none"),
+                        4 * rows * width * hidden,
+                        2 * rows * width * es + 2 * width * hidden
+                        + 4 * 2 * (hidden + width) + 4 * 2 * width)}
+        for name, rec in time_qkv_linear(f"{tag} rows={rows} W={width}", rows, width, dev,
+                                         peaks, eps).items():
+            out[f"{name}[{tag}]"] = {**rec, "name": f"{name}[{tag}]"}
+    return out
+
+
+def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+               timed=True) -> dict:
+    """CLIP-ViT-B-32 and the MobileCLIP-S0 scale as reference-format ONNX
+    dirs exported from the torch mirrors (full width and depth unless
+    ``layers``/``vocab_size`` cut them for a CPU rehearsal), converted by
+    ``Clip.from_local_dir`` on ``device`` (the route each tower took
+    asserted, no executor fallback or unverified conversion), held against
+    the mirrors in f32 (min cosine 0.999; classify's order), launch counts
+    per call, the kernel path against the plain path; ViT-B-32 under
+    int8_all and the MCT tower under int8; each graph through the executor
+    on ``device`` against its mirror in f32 (1 - 1e-5); images/s, p50 and
+    texts/s of the converted towers and of the executor, and the converted
+    ViT-B-32's device time by kernel group."""
+    import shutil
+    import tempfile
+
+    from clip_embedder_tpu_torch import Clip, TextEmbedder
+    from clip_embedder_tpu_torch.onnx_exec import OnnxTower
+    from clip_embedder_tpu_torch.ops.normalize import l2_normalize
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    free_device_memory()
+    images = mixed_batch(batch)
+    arrays = [to_rgb_array(im) for im in images]
+    texts = captions(batch, 70)
+    out = {}
+    routes = {"CLIP-ViT-B-32": ("vit", "text_transformer", OPENAI_PREPROCESS, "int8_all"),
+              "MobileCLIP-S0 scale": ("fastvit", "mct", S0_PREPROCESS, "int8")}
+    with tempfile.TemporaryDirectory(prefix="onnx_dirs_") as tmp:
+        for name, (want_v, want_t, preprocess, qmode) in routes.items():
+            rec = out[name] = {}
+            cfg, vision_ref, text_ref = onnx_mirrors(name, layers=layers, vocab_size=vocab_size)
+            src = Path(tmp) / name.replace(" ", "_")
+            rec.update(write_onnx_dir(src, cfg, vision_ref, text_ref, preprocess))
+            d = Path(tmp) / f"{src.name}_converted"
+            shutil.copytree(src, d)
+            say(f"[11] {name}: exported visual.onnx {rec['visual_mb']:.1f} MiB in "
+                f"{rec['visual_export_s']:.1f} s, text.onnx {rec['text_mb']:.1f} MiB in "
+                f"{rec['text_export_s']:.1f} s (f32, opset 18, TorchScript exporter)")
+
+            warned = fallback_keys()
+            t = time.perf_counter()
+            clip = Clip.from_local_dir(d, device=device, dtype=dtype)
+            rec["convert_s"] = time.perf_counter() - t
+            fired = fallback_keys() - warned
+            vspec, tspec = clip.vision.spec, clip.text.spec
+            say(f"  converted in place on {device} in {rec['convert_s']:.2f} s: vision "
+                f"{vspec.family}, text {tspec.family} ({tspec.cfg})")
+            if (vspec.family, tspec.family) != (want_v, want_t) or fired:
+                raise AssertionError(f"{name}: converted to ({vspec.family}, {tspec.family}), "
+                                     f"want ({want_v}, {want_t}); fallback warnings {fired}")
+            t = time.perf_counter()
+            clip = Clip.from_local_dir(d, device=device, dtype=dtype)
+            rec["reload_s"] = time.perf_counter() - t
+            say(f"  second load (from the npz) in {rec['reload_s']:.2f} s")
+
+            # against the mirrors in f32, on the same pixels and ids
+            reset_launch_counts()
+            embs = clip.vision.embed_images(images)
+            n_img = launch_counts()
+            reset_launch_counts()
+            temb = clip.text.embed_texts(texts)
+            n_txt = launch_counts()
+            pixels = clip.vision.preprocess_batch(images)
+            ids = clip.text.tokenize(texts)[0]
+            ref_v, ref_t = mirror_embeddings(vision_ref, text_ref, pixels, ids, device)
+            cos_v, cos_t = cosines(embs, ref_v).min(), cosines(temb, ref_t).min()
+            say(f"  against the mirrors in f32 (same pixels and ids): min cosine images "
+                f"{cos_v:.6f}, texts {cos_t:.6f} (need >= 0.999)")
+            if min(cos_v, cos_t) < 0.999:
+                raise AssertionError(f"{name}: the converted towers disagree with the mirrors")
+            reset_launch_counts()
+            results = clip.classify(images[0], LABELS)
+            n_cls = launch_counts()
+            scale, bias = clip._scale_bias()
+            lpix = clip.vision.preprocess_batch(images[:1])
+            lids = clip.text.tokenize(LABELS)[0]
+            lv, lt = mirror_embeddings(vision_ref, text_ref, lpix, lids, device)
+            hold_label_order(f"{name} classify", results, lt @ lv[0] * scale + bias, LABELS,
+                       gap=2 * 2e-3 * scale)
+            # launches per call, from the gates
+            rows_v = (vspec.cfg.seq_len if vspec.family == "vit" else 0)
+            want = {"embed_images": onnx_launches(vspec, None, batch * rows_v),
+                    "embed_texts": onnx_launches(tspec, None, batch * 77)}
+            one_v = onnx_launches(vspec, None, rows_v)
+            lab_t = onnx_launches(tspec, None, len(LABELS) * 77)
+            want["classify"] = {k: one_v[k] + lab_t[k] for k in one_v}
+            got = {"embed_images": n_img, "embed_texts": n_txt, "classify": n_cls}
+            for what, n in got.items():
+                say(f"  launches, {what}: {n}")
+            if device == "cuda" and got != want:
+                raise AssertionError(f"{name}: launched {got}, expected {want}")
+            rec["launches"] = got
+            hold_towers(clip, vspec, tspec, embs, images, None, name, texts=texts)
+
+            # the quantized mode: ViT-B-32's whole Clip, S0's MCT text tower
+            if name == "CLIP-ViT-B-32":
+                qclip = Clip.from_local_dir(d, device=device, dtype=dtype, quantize=qmode)
+                qtext = qclip.text
+            else:
+                qclip, qtext = None, TextEmbedder.from_local_dir(d, device=device, dtype=dtype,
+                                                                 quantize=qmode)
+            reset_launch_counts()
+            qn = {}
+            if qclip is not None:
+                qe = qclip.vision.embed_images(images)
+                qn["embed_images"] = launch_counts()
+                reset_launch_counts()
+                say(f"  {qmode}: images against bf16 min cosine {cosines(qe, embs).min():.6f}")
+            qt = qtext.embed_texts(texts)
+            qn["embed_texts"] = launch_counts()
+            say(f"  {qmode}: texts against bf16 min cosine {cosines(qt, temb).min():.6f}; "
+                f"launches {qn}")
+            qwant = {"embed_images": onnx_launches(vspec, qmode, batch * rows_v),
+                     "embed_texts": onnx_launches(tspec, qmode, batch * 77)}
+            if device == "cuda" and any(qn[k] != qwant[k] for k in qn):
+                raise AssertionError(f"{name} {qmode}: launched {qn}, expected {qwant}")
+            rec["int8_launches"] = qn
+            if qclip is not None:
+                hold_towers(qclip, vspec, tspec, qe, images, qmode, f"{name} {qmode}",
+                            texts=texts)
+            else:
+                with plain_int8_wrappers():
+                    qp = qtext.embed_texts(texts)
+                c = cosines(qt, qp).min()
+                say(f"  text: kernel path vs the plain int8 wrappers (same weights): min "
+                    f"cosine {c:.6f} (need >= 0.999)")
+                if c < 0.999:
+                    raise AssertionError(f"{name} {qmode}: the text tower's kernel path "
+                                         "disagrees with the plain int8 wrappers")
+            if timed:
+                rec["int8"] = {**time_embedder(qclip.vision, arrays, f"{name} {qmode}")} \
+                    if qclip is not None else {}
+                rec["int8"].update(time_texts(qtext, texts, f"{name} {qmode}"))
+            del qclip, qtext
+            free_device_memory()
+
+            # the executor on the same graphs, f32, against the mirrors
+            for tower, ref, feed in (("visual", ref_v, ("pixel_values", pixels)),
+                                     ("text", ref_t, ("input_ids", ids))):
+                graph = OnnxTower(d / f"{tower}.onnx", device=device)
+                x = torch.from_numpy(feed[1]).to(device)
+                with torch.inference_mode():
+                    e = l2_normalize(graph({feed[0]: x.float() if tower == "visual" else x})
+                                     ).float().cpu().numpy()
+                c = cosines(e, ref).min()
+                say(f"  executor (onnx_exec) on {tower}.onnx, f32 on {device}: min cosine to "
+                    f"the mirror {c:.8f} (need >= {1 - 1e-5})")
+                if c < 1 - 1e-5:
+                    raise AssertionError(f"{name}: the executor disagrees with the mirror")
+                del graph
+            if timed:
+                rec.update(time_embedder(clip.vision, arrays, f"{name} converted"))
+                rec.update(time_texts(clip.text, texts, f"{name} converted"))
+                ev, et = executor_embedders(clip, d, device, dtype)
+                rec["executor"] = {**time_embedder(ev, arrays, f"{name} executor"),
+                                   **time_texts(et, texts, f"{name} executor")}
+                del ev, et
+                if name == "CLIP-ViT-B-32":
+                    rec["breakdown"] = profile_embedder(clip.vision, arrays,
+                                                        f"{name} converted vision")
+                    rec["text_breakdown"] = device_breakdown(lambda: clip.text.embed_texts(texts))
+                    say("  text device ms by kernel group: " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in rec["text_breakdown"]["groups_ms"].items()))
+            del clip, vision_ref, text_ref
+            free_device_memory()
+    return out
+
+
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 
@@ -2336,6 +2835,8 @@ def main(argv) -> int:
     card = nvidia_smi()
     cap = torch.cuda.get_device_capability(0)
     say(f"  {card}")
+    say(f"  torch's TorchScript ONNX exporter (phase 11): "
+        f"{'present' if has_torchscript_exporter() else 'MISSING'}")
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, capability {cap[0]}.{cap[1]}, "
         f"count {torch.cuda.device_count()}")
@@ -2378,6 +2879,7 @@ def main(argv) -> int:
     record.update(phase_int8_kernels(dev, peaks))
     record.update(phase_streamed_mlp_kernel(dev, peaks))
     record.update(phase_family_kernels(dev, peaks))
+    record.update(phase_onnx_kernels(dev, peaks))
     fixtures = phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
@@ -2385,6 +2887,7 @@ def main(argv) -> int:
     masked = phase_masked_towers("cuda")
     serving = phase_serving("cuda")
     families = phase_families("cuda")
+    onnx = phase_onnx("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
@@ -2415,6 +2918,30 @@ def main(argv) -> int:
                      ("eva02_fc2", "EVA02-L-14-336 int8_all")):
         record[f"int8_linear_fused[{row}]"]["launches"] = \
             families[run]["launches"]["int8_linear_fused"]
+    # phase 11's shapes from its own runs, per call: ViT-B-32's embed_images
+    # for the vision rows, the embed_texts of ViT-B-32 and of the MCT tower
+    # for the 512-wide rows (int8: ViT-B-32 under int8_all, MCT under int8)
+    vit, s0 = onnx["CLIP-ViT-B-32"], onnx["MobileCLIP-S0 scale"]
+    for row, runs in (("ln_qkv[vit_b32]", [(vit["launches"], "embed_images", "ln_qkv")]),
+                      ("ln_qkv[text512]", [(r["launches"], "embed_texts", "ln_qkv")
+                                           for r in (vit, s0)]),
+                      ("flash_attention_packed[vit_b32]",
+                       [(vit["launches"], "embed_images", "flash_attention_packed")]),
+                      ("flash_attention_packed[text512_causal]",
+                       [(r["launches"], "embed_texts", "flash_attention_packed")
+                        for r in (vit, s0)]),
+                      ("int8_mlp[vit_b32]", [(vit["int8_launches"], "embed_images", "int8_mlp")]),
+                      ("int8_mlp[text512]", [(r["int8_launches"], "embed_texts", "int8_mlp")
+                                             for r in (vit, s0)]),
+                      ("ln_qkv_int8[vit_b32]",
+                       [(vit["int8_launches"], "embed_images", "ln_qkv_int8")]),
+                      ("ln_qkv_int8[text512]",
+                       [(vit["int8_launches"], "embed_texts", "ln_qkv_int8")]),
+                      ("int8_linear_fused[vit_b32]",
+                       [(vit["int8_launches"], "embed_images", "int8_linear_fused")]),
+                      ("int8_linear_fused[text512]",
+                       [(vit["int8_launches"], "embed_texts", "int8_linear_fused")])):
+        record[row]["launches"] = sum(counts[call][name] for counts, call, name in runs)
     rope = pe_attn["rope"]
     say(f"flash_attention_packed with rope (PE-Core-bigG): {rope['ms']:.4f} ms, plain "
         f"{rope['plain_ms']:.4f} ms, library {rope['library_ms']:.4f} ms, bound "
@@ -2436,6 +2963,12 @@ def main(argv) -> int:
         f"{label} {r['images_per_s']:.2f} images/s, p50 {r['p50_ms']:.2f} ms, "
         f"{r['texts_per_s']:.2f} texts/s, idle share {r['breakdown']['idle_share']:.3f}"
         for label, r in families.items()) + f"; {card}")
+    say("phase 11: " + "; ".join(
+        f"{label}: converted in {r['convert_s']:.2f} s (second load {r['reload_s']:.2f} s), "
+        f"{r['images_per_s']:.2f} images/s, p50 {r['p50_ms']:.2f} ms, {r['texts_per_s']:.2f} "
+        f"texts/s; executor {r['executor']['images_per_s']:.2f} images/s, p50 "
+        f"{r['executor']['p50_ms']:.2f} ms, {r['executor']['texts_per_s']:.2f} texts/s"
+        for label, r in onnx.items()) + f"; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

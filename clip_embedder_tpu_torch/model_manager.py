@@ -6,12 +6,12 @@ cache location ``~/.cache/open_clip_rs`` (so dirs exported for the reference
 work here unchanged), HF-hub download of all contract files, and strict
 directory validation with typed errors.
 
-Extension over the reference: this framework does not execute ONNX graphs —
-the towers load native weights (``visual.npz`` / ``text.npz``, written by
-the JAX package's converters or ``pull_weights.py``), and a dir that
-carries *only* the native weights (no ONNX) is also accepted. The contract
-check therefore requires the config/tokenizer files plus, per tower, either
-the ONNX file or the converted native file.
+Extension over the reference: the towers run native weights (``visual.npz``
+/ ``text.npz``, written by the converters, or converted from the ONNX graphs
+on first load; a graph no native family fits runs on ``onnx_exec``), and a
+dir that carries *only* the native weights (no ONNX) is also accepted. The
+contract check therefore requires the config/tokenizer files plus, per
+tower, either the ONNX file or the converted native file.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ PE-Core (``vit_pe_core_*``: 2-D axial rope, map pool), EVA02
 ``mobileclip*``), ConvNeXt (``convnext_*``), ModifiedResNet (list-valued
 ``layers``), classic open_clip ViTs (with CoCa's boolean attentional
 pooler), open_clip text transformers (with CoCa's ``embed_cls``) and HF
-BERT/RoBERTa text towers (``hf_model_name``). The MCT hybrid text tower,
-whose config only an ONNX graph gives, raises ``ConfigError`` naming it as
-not yet ported.
+BERT/RoBERTa text towers (``hf_model_name``) and the MCT hybrid text tower
+(``text_cfg.mct_cfg``, which only a conversion from an ONNX graph writes:
+``onnx_reader.derive_mct_cfg``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from .convnext import resolve_convnext
 from .eva02 import resolve_eva02
 from .fastvit import resolve_fastvit
 from .hf_text import resolve_hf_text
+from .mct import MctCfg
 from .resnet import ResNetCfg
 from .text_transformer import TextCfgResolved
 from .vit import ViTCfg
@@ -61,12 +62,9 @@ class TowerSpec:
     """A resolved tower: family name + its config object."""
 
     # "vit" | "eva02" | "fastvit" | "convnext" | "resnet" | "text_transformer" | "hf_bert"
+    # | "mct" | "onnx" (the graph executor: cfg is an ``onnx_exec.OnnxCfg``)
     family: str
     cfg: Any
-
-
-def _not_ported(what: str) -> ConfigError:
-    return ConfigError(f"{what} is not yet ported to the torch package")
 
 
 def _parse_timm_vit(name: str, vcfg, embed_dim: int, timm_pool: str | None,
@@ -257,8 +255,14 @@ def resolve_text(model_cfg: ModelCfg) -> TowerSpec:
     t = model_cfg.text_cfg
     if t.hf_model_name or t.extra.get("hf_model_name"):
         return TowerSpec("hf_bert", resolve_hf_text(model_cfg))
-    if t.extra.get("mct_cfg"):
-        raise _not_ported("The MCT hybrid text tower")
+    mct_raw = t.extra.get("mct_cfg")
+    if mct_raw:
+        # the cfg dict was derived from the exported graph and persisted by
+        # text.py after a conversion passed its self-check; JSON turned the
+        # conv-block tuples into lists
+        mc = dict(mct_raw)
+        mc["conv_blocks"] = tuple(tuple(b) for b in mc["conv_blocks"])
+        return TowerSpec("mct", MctCfg(**mc))
 
     width = t.width or 512
     heads = t.heads or width // 64

@@ -64,9 +64,8 @@ def resolve_hf_text(model_cfg) -> BertCfg:
     hf_cfg = t.extra.get("hf_config")
     if not hf_cfg:
         raise ConfigError(
-            "hf_model_name text towers need text_cfg.hf_config (written at conversion "
-            "time; deriving it from a text.onnx graph waits for the ONNX path, not yet "
-            "ported to the torch package)")
+            "hf_model_name text towers need text_cfg.hf_config "
+            "(written by pull_weights.py at conversion time)")
     # open_clip pooler types: cls_pooler (BERT pooler_output), the raw CLS
     # (cls_last_hidden_state_pooler), mean_pooler, max_pooler; the keys are
     # spelled per open_clip era ("pooler_type"/"proj" in BiomedCLIP-class

@@ -19,12 +19,19 @@ checkpoint itself::
     convert_checkpoint(model_dir, sd)          # visual.npz + text.npz
     write_model_readme(model_dir, repo_id)
 
-Fetching a repo from the hub, fetching an HF text tower's ``config.json``
-and converting ONNX dirs are not part of the port yet.
+A reference-format ONNX dir (``visual.onnx`` / ``text.onnx`` with its
+configs) converts in place, through the same derivations and self-checks
+as ``Clip.from_local_dir``::
+
+    python -m clip_embedder_tpu_torch.pull_weights --dir MODEL_DIR [--device cpu]
+
+Fetching a repo from the hub and an HF text tower's ``config.json`` are not
+part of the port (each needs the network).
 """
 
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +132,54 @@ def convert_checkpoint(model_dir: Path, sd: dict[str, np.ndarray]) -> None:
     save_pytree(model_dir / "text.npz", tparams)
 
 
+def convert_onnx_dir(model_dir: Path, *, device="cuda") -> None:
+    """Convert a reference-style ONNX model dir's weights in place into
+    ``visual.npz`` / ``text.npz``, taking the derivations
+    ``Clip.from_local_dir`` takes (graph-derived vision dims, a BERT
+    ``hf_config``, the MCT hybrid text tower; each persisted into
+    open_clip_config.json), so both routes write the same dir. Each tower
+    is self-checked against the graph executor on ``device``; a graph that
+    no native family fits raises ``WeightError`` (``from_local_dir`` would
+    serve it through the executor instead)."""
+    from .config import OpenClipConfig
+    from .errors import ConfigError, WeightError
+    from .models.build import resolve_text, resolve_vision
+    from .onnx_reader import extract_tower_params
+    from .text import maybe_derive_hf_config, maybe_native_hybrid
+    from .vision import maybe_derive_vision_dims, resolve_device
+    from .weights import save_pytree
+
+    model_dir = Path(model_dir)
+    dev = resolve_device(device)
+    cfg = OpenClipConfig.from_file(model_dir / "open_clip_config.json")
+    maybe_derive_hf_config(model_dir, cfg)
+    maybe_derive_vision_dims(model_dir, cfg)
+    vparams = extract_tower_params(model_dir / "visual.onnx", resolve_vision(cfg.model_cfg),
+                                   tower="visual", device=dev)
+    try:
+        tparams = extract_tower_params(model_dir / "text.onnx", resolve_text(cfg.model_cfg),
+                                       tower="text", device=dev)
+    except (ConfigError, WeightError):
+        hybrid = maybe_native_hybrid(model_dir, model_dir / "text.onnx", dev)
+        if hybrid is None:
+            raise
+        tparams = hybrid[1]
+    save_pytree(model_dir / "visual.npz", vparams)
+    save_pytree(model_dir / "text.npz", tparams)
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(
+        description="Convert a reference-format ONNX model dir in place to native weights.")
+    parser.add_argument("--dir", type=Path, required=True,
+                        help="existing ONNX model dir to convert in place")
+    parser.add_argument("--device", default="cuda",
+                        help="where the conversion's self-check runs (default: cuda)")
+    args = parser.parse_args(argv)
+    convert_onnx_dir(args.dir, device=args.device)
+    print(f"Converted ONNX weights in {args.dir}")
+
+
 def _usage_header(model_dir: Path, repo_id: str) -> str:
     name = repo_id.split("/", 1)[-1]
     return f"""# {name} — clip_embedder_tpu model dir
@@ -177,3 +232,7 @@ def write_model_readme(model_dir: Path, repo_id: str) -> None:
             readme.write_text(f"---\n{frontmatter}\n---\n\n{header}\n{parts[2].lstrip()}")
             return
     readme.write_text(header + "\n" + content)
+
+
+if __name__ == "__main__":
+    main()

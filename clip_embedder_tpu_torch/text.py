@@ -5,9 +5,17 @@ same pad-id resolution (``model_config.pad_id``, else the tokenizer's
 ``<pad>`` entry — src/text.rs:70-73), same fixed pad/truncate to
 ``context_length`` (src/text.rs:76-85), same SigLIP pre-lowercasing
 (src/text.rs:115-121), batch padded to a power-of-two bucket. The tower is
-``models.text_transformer.TextTransformer`` or, for ``hf_model_name`` configs,
-``models.hf_text.HFText``, which takes the tokenizer's attention mask;
-devices as in ``vision``.
+``models.text_transformer.TextTransformer``, for ``hf_model_name`` configs
+``models.hf_text.HFText`` (which takes the tokenizer's attention mask), or
+``models.mct.Mct``; devices as in ``vision``.
+
+A reference-format dir (``text.onnx``, no ``text.npz``) is converted in place
+as the vision tower is (``vision.load_or_convert``). Two derivations come
+first, each persisted into open_clip_config.json: a BERT/RoBERTa dir without
+``text_cfg.hf_config`` gets it from the graph, and a graph that no configured
+family fits but that lifts to the MCT hybrid tower (MobileCLIP-S0) gets
+``text_cfg.mct_cfg``. Otherwise the graph itself is the tower
+(``OnnxText``), with a warning.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 from torch import nn
 
 from .config import ModelConfig, OpenClipConfig
-from .errors import ConfigError, InferenceError
+from .errors import ConfigError, InferenceError, WeightError
 from .model_manager import (
     NATIVE_TEXT,
     get_default_base_folder,
@@ -30,12 +38,15 @@ from .model_manager import (
 )
 from .models.build import TowerSpec, resolve_text
 from .models.hf_text import HFText
+from .models.mct import Mct, MctCfg
 from .models.text_transformer import TextTransformer
+from .onnx_exec import OnnxTower, load_tower
+from .ops.normalize import l2_normalize
 from .ops.preprocess import bucket_batch
-from .tokenizer import Tokenizer
 from .ops.quant import check_quantize_mode
-from .vision import quantize_params, resolve_attn_impl, resolve_device
-from .weights import load_pytree, validate_tower_pytree
+from .tokenizer import Tokenizer
+from .vision import (cache_converted, executor_fallback, load_or_convert, persist_cfg,
+                     quantize_params, resolve_attn_impl, resolve_device)
 
 
 def configure_tokenizer(tokenizer: Tokenizer, model_config: ModelConfig,
@@ -57,7 +68,75 @@ def text_tower(spec: TowerSpec, params: Mapping) -> nn.Module:
     """The text tower of ``spec``'s family over ``params``."""
     if spec.family == "hf_bert":
         return HFText(spec.cfg, params)
+    if spec.family == "mct":
+        return Mct(spec.cfg, params)
     return TextTransformer(spec.cfg, params)
+
+
+class OnnxText(nn.Module):
+    """The executor family's text tower: the graph (``onnx_exec``) on the
+    token ids, and the attention mask where the graph declares one
+    (reference: src/text.rs:90,156-161); its output L2-normalized."""
+
+    def __init__(self, graph: OnnxTower):
+        super().__init__()
+        self.graph = graph
+        self.input_name = next((n for n in ("input_ids", "input") if n in graph.input_names),
+                               graph.input_names[0])
+
+    def forward(self, input_ids: torch.Tensor, *, attn_impl: str = "eager",
+                attention_mask: torch.Tensor | None = None) -> torch.Tensor:
+        feeds = {self.input_name: input_ids}
+        if attention_mask is not None and "attention_mask" in self.graph.input_names:
+            feeds["attention_mask"] = attention_mask
+        return l2_normalize(self.graph(feeds))
+
+
+def maybe_derive_hf_config(model_dir: Path, config: OpenClipConfig) -> None:
+    """For ``hf_model_name`` (BERT/RoBERTa) dirs that arrived as reference
+    ONNX exports (the dir contract carries no HF config.json): recover the
+    architecture from ``text.onnx`` and persist it as ``text_cfg.hf_config``,
+    so the BiomedCLIP class (reference README.md:143) takes the native
+    tower. A graph the derivation does not recognize leaves the config as
+    it is (then the executor serves it)."""
+    from .onnx_reader import derive_bert_hf_config
+
+    tcfg = config.model_cfg.text_cfg
+    if not (tcfg.hf_model_name or tcfg.extra.get("hf_model_name")) \
+            or tcfg.extra.get("hf_config"):
+        return
+    onnx_path = model_dir / "text.onnx"
+    if not onnx_path.is_file():
+        return
+    try:
+        hf_cfg = derive_bert_hf_config(onnx_path)
+    except WeightError:
+        return
+    tcfg.extra["hf_config"] = hf_cfg
+    persist_cfg(model_dir, "text_cfg", "hf_config", hf_cfg)
+
+
+def maybe_native_hybrid(model_dir: Path, onnx_path: Path,
+                        device) -> tuple[TowerSpec, dict] | None:
+    """MCT-class hybrid text (MobileCLIP-S0), tried when the configured
+    family fails: derive the architecture from the graph
+    (``onnx_reader.derive_mct_cfg``), recover the weights and check the
+    tower against the graph executor (``extract_tower_params``). On success
+    the derived cfg is persisted as ``text_cfg.mct_cfg`` (later loads
+    resolve natively) and the spec and numpy tree are returned; a misread
+    gives None (the executor then serves the graph), never wrong
+    embeddings."""
+    from .onnx_reader import derive_mct_cfg, extract_tower_params
+
+    try:
+        raw = derive_mct_cfg(onnx_path)
+        spec = TowerSpec("mct", MctCfg(**raw))
+        params = extract_tower_params(onnx_path, spec, tower="text", device=device)
+    except WeightError:
+        return None
+    persist_cfg(model_dir, "text_cfg", "mct_cfg",
+                dict(raw, conv_blocks=[list(b) for b in raw["conv_blocks"]]))
+    return spec, params
 
 
 def with_tokenizer_pad_id(spec: TowerSpec, pad_id: int) -> TowerSpec:
@@ -67,17 +146,6 @@ def with_tokenizer_pad_id(spec: TowerSpec, pad_id: int) -> TowerSpec:
     if getattr(spec.cfg, "embed_cls", False) and spec.cfg.pad_id != pad_id:
         return TowerSpec(spec.family, dataclasses.replace(spec.cfg, pad_id=pad_id))
     return spec
-
-
-def _load_text(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
-    native = model_dir / NATIVE_TEXT
-    if not native.is_file():
-        # the ONNX conversion / executor fallback is not yet ported
-        raise ConfigError(f"No native text weights ({NATIVE_TEXT}) in "
-                          f"{model_dir}; the ONNX path is not yet ported")
-    params = load_pytree(native, device=device, dtype=dtype)
-    validate_tower_pytree(params, spec, source=native)
-    return params
 
 
 class TextEmbedder:
@@ -129,12 +197,27 @@ class TextEmbedder:
         tokenizer = Tokenizer.from_file(model_dir / "tokenizer.json")
         pad_id = configure_tokenizer(tokenizer, model_config,
                                      config.model_cfg.text_cfg.context_length)
-        spec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
-        params = quantize_params(_load_text(model_dir, spec, dev, dtype), spec, quantize,
-                                 dev, dtype)
-        return cls(tower=text_tower(spec, params), spec=spec, config=config,
-                   model_config=model_config, tokenizer=tokenizer, model_dir=model_dir,
-                   device=dev, dtype=dtype, attn_impl=attn_impl, quantize=quantize)
+        check_quantize_mode(quantize)
+        maybe_derive_hf_config(model_dir, config)
+        try:
+            spec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
+            params = load_or_convert(model_dir, spec, "text", dev, dtype)
+        except (ConfigError, WeightError) as err:
+            onnx_path = model_dir / "text.onnx"
+            hybrid = (None if (model_dir / NATIVE_TEXT).is_file() or not onnx_path.is_file()
+                      else maybe_native_hybrid(model_dir, onnx_path, dev))
+            if hybrid is None:
+                spec = executor_fallback(model_dir, "text", err, dev, dtype, quantize)
+            else:
+                spec, tree = hybrid
+                params = cache_converted(model_dir, "text", tree, dev, dtype)
+        if spec.family == "onnx":  # the executor quantizes at load
+            tower = OnnxText(load_tower(spec.cfg, dev))
+        else:
+            tower = text_tower(spec, quantize_params(params, spec, quantize, dev, dtype))
+        return cls(tower=tower, spec=spec, config=config, model_config=model_config,
+                   tokenizer=tokenizer, model_dir=model_dir, device=dev, dtype=dtype,
+                   attn_impl=attn_impl, quantize=quantize)
 
     @classmethod
     def from_local_id(
@@ -182,7 +265,7 @@ class TextEmbedder:
             ids = np.concatenate([ids, pad], axis=0)
             mask = np.concatenate([mask, np.zeros_like(pad)], axis=0)
         kw = {}
-        if self.spec.family == "hf_bert":  # the tokenizer's mask is authoritative
+        if self.spec.family in ("hf_bert", "onnx"):  # the tokenizer's mask is authoritative
             kw["attention_mask"] = torch.from_numpy(mask).to(self.device)
         with torch.inference_mode():
             embs = self.tower(torch.from_numpy(ids).to(self.device),

@@ -9,6 +9,13 @@ the family's module (``build_tower``): ``models.vit.ViT``,
 ``models.convnext.ConvNeXt`` or ``models.resnet.ResNet``. The convolutional
 ones see the pixels as channels-last NHWC.
 
+A reference-format dir (``visual.onnx``, no ``visual.npz``) is converted in
+place on first load (``onnx_reader.extract_tower_params``, self-checked
+against the graph) and the tree cached as ``visual.npz`` (skipped on a
+read-only dir). Where no native family fits the graph, the tower is the
+graph itself, run by ``onnx_exec`` (``OnnxVisual``), with a warning; a
+present ``visual.npz`` that fails to load raises instead.
+
 The device is explicit: ``device=None`` means ``"cuda"``, which raises
 ``DeviceError`` when CUDA is missing — the embedders never drop to the CPU
 on their own; ask for ``device="cpu"`` to run there.
@@ -29,7 +36,9 @@ from torch import nn
 
 from .config import ModelConfig, OpenClipConfig, update_config_json
 from .errors import ConfigError, DeviceError, InferenceError, WeightError
+from .onnx_exec import OnnxTower, fallback_cfg, load_tower
 from .model_manager import (
+    NATIVE_TEXT,
     NATIVE_VISUAL,
     get_default_base_folder,
     get_hf_model,
@@ -42,10 +51,13 @@ from .models.fastvit import FastViT
 from .models.resnet import ResNet
 from .models.vit import ViT
 from .ops.attention import ATTN_IMPLS
+from .ops.normalize import l2_normalize
 from .ops.preprocess import Preprocessor
 from .ops.quant import check_quantize_mode, quantize_tree_checked
 from .utils.images import to_rgb_array
-from .weights import load_pytree, to_device_tree, validate_tower_pytree
+from .utils.logging import warn_once
+from .weights import (load_pytree, params_from_numpy, save_pytree, to_device_tree,
+                      validate_tower_pytree)
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -67,7 +79,7 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 # the families whose forward takes attn_impl; the others run their
 # attention on the plain core, as the JAX package runs it on XLA's
-ATTN_IMPL_FAMILIES = frozenset({"vit", "eva02", "text_transformer", "hf_bert"})
+ATTN_IMPL_FAMILIES = frozenset({"vit", "eva02", "text_transformer", "hf_bert", "mct"})
 
 
 def resolve_attn_impl(attn_impl: str, device: torch.device, family: str) -> str:
@@ -111,6 +123,71 @@ def quantize_params(params: dict, spec: TowerSpec, quantize: str | None, device,
                           device=device, dtype=dtype)
 
 
+class OnnxVisual(nn.Module):
+    """The executor family's vision tower: the graph (``onnx_exec``) on NCHW
+    f32 pixels, its output L2-normalized (exported graphs bake the
+    normalize in; doing it again keeps the unit-norm contract for graphs
+    that don't)."""
+
+    def __init__(self, graph: OnnxTower):
+        super().__init__()
+        self.graph = graph
+        self.input_name = next((n for n in ("pixel_values", "input") if n in graph.input_names),
+                               graph.input_names[0])
+
+    def forward(self, pixels: torch.Tensor, *, attn_impl: str = "eager",
+                channels_first: bool = True) -> torch.Tensor:
+        return l2_normalize(self.graph({self.input_name: pixels.float()}))
+
+
+def persist_cfg(model_dir: Path, tower_cfg: str, key: str, value) -> None:
+    """Write ``model_cfg.{tower_cfg}.{key} = value`` into the dir's
+    open_clip_config.json (atomically; a read-only dir keeps the update in
+    memory only), so later loads resolve from the config alone."""
+    update_config_json(
+        model_dir / "open_clip_config.json",
+        lambda raw: raw.setdefault("model_cfg", {}).setdefault(
+            tower_cfg, {}).__setitem__(key, value))
+
+
+def maybe_derive_vision_dims(model_dir: Path, config: OpenClipConfig) -> None:
+    """For the families whose per-size dims are a reconstructed table
+    (PE-Core, EVA02, FastViT MCi3/MCi4) or that the config describes only in
+    part (ConvNeXt, ModifiedResNet's attnpool heads): a dir that arrived as a
+    reference ONNX export carries the ground truth in ``visual.onnx`` —
+    derive the dims from the graph and persist them under
+    ``vision_cfg.{pe_cfg,eva02_cfg,fastvit_cfg,convnext_cfg,resnet_cfg}``.
+    A graph the derivation does not recognize leaves the config as it is
+    (the table, and a loud failure at weight load)."""
+    from . import onnx_reader
+
+    v = config.model_cfg.vision_cfg
+    name = (v.timm_model_name or "").lower()
+    if "pe_core" in name:
+        derive, key = onnx_reader.derive_pe_cfg, "pe_cfg"
+    elif name.startswith("eva02_"):
+        derive, key = onnx_reader.derive_eva02_cfg, "eva02_cfg"
+    elif "fastvit" in name or "mci" in name or "mobileclip" in name:
+        derive, key = onnx_reader.derive_fastvit_cfg, "fastvit_cfg"
+    elif name.startswith("convnext"):
+        derive, key = onnx_reader.derive_convnext_cfg, "convnext_cfg"
+    elif not name and isinstance(v.layers, (list, tuple)):
+        derive, key = onnx_reader.derive_resnet_cfg, "resnet_cfg"
+    else:
+        return
+    if v.extra.get(key):
+        return
+    onnx_path = model_dir / "visual.onnx"
+    if not onnx_path.is_file():
+        return
+    try:
+        derived = derive(onnx_path)
+    except WeightError:
+        return
+    v.extra[key] = derived
+    persist_cfg(model_dir, "vision_cfg", key, derived)
+
+
 def derive_vision_dims_from_sd(model_dir: Path, config: OpenClipConfig,
                                visual_sd: dict) -> None:
     """At conversion (``pull_weights.convert_checkpoint``), for the families
@@ -139,21 +216,53 @@ def derive_vision_dims_from_sd(model_dir: Path, config: OpenClipConfig,
     except WeightError:
         return
     v.extra[key] = derived
-    update_config_json(
-        model_dir / "open_clip_config.json",
-        lambda raw: raw.setdefault("model_cfg", {}).setdefault(
-            "vision_cfg", {}).__setitem__(key, derived))
+    persist_cfg(model_dir, "vision_cfg", key, derived)
 
 
-def _load_visual(model_dir: Path, spec: TowerSpec, device, dtype) -> dict:
-    native = model_dir / NATIVE_VISUAL
-    if not native.is_file():
-        # the ONNX conversion / executor fallback is not yet ported
-        raise ConfigError(f"No native vision weights ({NATIVE_VISUAL}) in "
-                          f"{model_dir}; the ONNX path is not yet ported")
-    params = load_pytree(native, device=device, dtype=dtype)
-    validate_tower_pytree(params, spec, source=native)
-    return params
+# the native weight file of each tower ("visual", "text")
+NATIVE = {"visual": NATIVE_VISUAL, "text": NATIVE_TEXT}
+
+
+def cache_converted(model_dir: Path, tower: str, tree: dict, device, dtype) -> dict:
+    """A tree converted from ``{tower}.onnx``, saved as the native npz (not
+    on a read-only dir) and returned as tensors on ``device``."""
+    try:
+        save_pytree(model_dir / NATIVE[tower], tree)
+    except OSError:
+        pass  # read-only model dir: skip the cache, stay functional
+    return params_from_numpy(tree, device=device, dtype=dtype)
+
+
+def load_or_convert(model_dir: Path, spec: TowerSpec, tower: str, device, dtype) -> dict:
+    """The tower's weight tree on ``device``: from its native npz
+    (validated) or, where that is absent, converted from ``{tower}.onnx``
+    (``onnx_reader.extract_tower_params``, self-checked on ``device``) and
+    cached (``cache_converted``)."""
+    from .onnx_reader import extract_tower_params
+
+    native = model_dir / NATIVE[tower]
+    if native.is_file():
+        params = load_pytree(native, device=device, dtype=dtype)
+        validate_tower_pytree(params, spec, source=native)
+        return params
+    tree = extract_tower_params(model_dir / f"{tower}.onnx", spec, tower=tower, device=device)
+    return cache_converted(model_dir, tower, tree, device, dtype)
+
+
+def executor_fallback(model_dir: Path, tower: str, err: Exception, device, dtype,
+                      quantize: str | None) -> TowerSpec:
+    """After the native route failed with ``err``: the executor family's
+    spec over ``{tower}.onnx``, with a warning — unless the native npz is
+    present (then it is broken, and ``err`` is raised) or there is no graph
+    to run."""
+    onnx_path = model_dir / f"{tower}.onnx"
+    if (model_dir / NATIVE[tower]).is_file() or not onnx_path.is_file():
+        raise err
+    what = "text" if tower == "text" else "vision"
+    warn_once(f"{what}_fallback:{model_dir}",
+              "no native %s tower for %s — serving the graph via the ONNX executor "
+              "instead (%s)", what, str(model_dir), err)
+    return TowerSpec("onnx", fallback_cfg(onnx_path, dtype=dtype, quantize=quantize))
 
 
 class VisionEmbedder:
@@ -209,12 +318,20 @@ class VisionEmbedder:
         verify_model_dir(model_dir)
         config = OpenClipConfig.from_file(model_dir / "open_clip_config.json")
         model_config = ModelConfig.from_file(model_dir / "model_config.json")
-        spec = resolve_vision(config.model_cfg)
-        params = quantize_params(_load_visual(model_dir, spec, dev, dtype), spec, quantize,
-                                 dev, dtype)
-        return cls(tower=build_tower(spec, params), spec=spec, config=config,
-                   model_config=model_config, model_dir=model_dir, device=dev,
-                   dtype=dtype, attn_impl=attn_impl, quantize=quantize)
+        check_quantize_mode(quantize)
+        maybe_derive_vision_dims(model_dir, config)
+        try:
+            spec = resolve_vision(config.model_cfg)
+            params = load_or_convert(model_dir, spec, "visual", dev, dtype)
+        except (ConfigError, WeightError) as err:
+            spec = executor_fallback(model_dir, "visual", err, dev, dtype, quantize)
+        if spec.family == "onnx":  # the executor quantizes at load
+            tower = OnnxVisual(load_tower(spec.cfg, dev))
+        else:
+            tower = build_tower(spec, quantize_params(params, spec, quantize, dev, dtype))
+        return cls(tower=tower, spec=spec, config=config, model_config=model_config,
+                   model_dir=model_dir, device=dev, dtype=dtype, attn_impl=attn_impl,
+                   quantize=quantize)
 
     @classmethod
     def from_local_id(

@@ -209,7 +209,10 @@ def _family_init(family: str):
     if family == "hf_bert":
         from .models import hf_text
         return hf_text.init
-    return None
+    if family == "mct":
+        from .models import mct
+        return mct.init
+    return None  # "onnx": the graph IS the params, nothing to check against
 
 
 def _accepted_layout(family: str, expected: dict, got: dict) -> dict:

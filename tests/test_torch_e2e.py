@@ -17,7 +17,7 @@ from clip_embedder_tpu import Clip as JaxClip
 from clip_embedder_tpu.tokenizer import Tokenizer as JaxTokenizer
 from clip_embedder_tpu_torch import Clip
 from clip_embedder_tpu_torch.errors import (ConfigError, InferenceError,
-                                            ModelFolderNotFoundError)
+                                            ModelFolderNotFoundError, WeightError)
 from clip_embedder_tpu_torch.tokenizer import Tokenizer
 
 FIXTURES = Path(__file__).parent / "fixtures"
@@ -239,15 +239,50 @@ def test_error_surface(clips, tmp_path):
         Clip.from_local_dir(FIXTURES / "golden_siglip", device="cpu", attn_impl="pallas")
 
 
-def test_onnx_only_dir_is_refused(tmp_path):
-    """Without native npz weights the port has no path yet (the ONNX
-    conversion and executor are not ported): a typed error, not a crash."""
+def test_onnx_only_dir_loads_and_equals_jax(tmp_path):
+    """A dir with ONNX graphs and no native npz (the reference's format:
+    tests/test_onnx_dir_e2e.py's mini CLIP) loads, converting in place, and
+    equals the JAX ``Clip`` on a copy of it (tests/test_golden.py's
+    tolerances); both write the same npz files."""
+    import shutil
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from test_convert_verify import _TmpFactory
+    from test_onnx_dir_e2e import onnx_model_dir
+
+    src, _, _, jpg = onnx_model_dir.__wrapped__(_TmpFactory(tmp_path / "src"))
+    pd, jd = tmp_path / "port", tmp_path / "jax"
+    shutil.copytree(src, pd)
+    shutil.copytree(src, jd)
+    clip, jclip = Clip.from_local_dir(pd, device="cpu"), JaxClip.from_local_dir(jd)
+    got, ref = clip.text.embed_texts(TEXTS), jclip.text.embed_texts(TEXTS)
+    assert ((got * ref).sum(-1) > 1 - 1e-6).all()
+    np.testing.assert_allclose(got, ref, atol=5e-4)
+    got, ref = clip.classify(jpg, TEXTS), jclip.classify(jpg, TEXTS)
+    assert [l for l, _ in got] == [l for l, _ in ref]
+    np.testing.assert_allclose([p for _, p in got], [p for _, p in ref], atol=1e-4)
+    for name in ("visual.npz", "text.npz"):
+        a, b = np.load(pd / name), np.load(jd / name)
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_empty_visual_onnx_raises_weight_error(tmp_path):
+    """An ONNX-only vision tower whose graph is empty: the conversion
+    fails, the executor cannot parse it either, and the typed WeightError
+    surfaces, as in the JAX package."""
     src = FIXTURES / "golden_model"
-    for f in ("open_clip_config.json", "model_config.json", "tokenizer.json", "text.npz"):
-        (tmp_path / f).write_bytes((src / f).read_bytes())
-    (tmp_path / "visual.onnx").write_bytes(b"")
-    with pytest.raises(ConfigError, match="ONNX path is not yet ported"):
-        Clip.from_local_dir(tmp_path, device="cpu")
+    for d in (tmp_path / "port", tmp_path / "jax"):
+        d.mkdir()
+        for f in ("open_clip_config.json", "model_config.json", "tokenizer.json", "text.npz"):
+            (d / f).write_bytes((src / f).read_bytes())
+        (d / "visual.onnx").write_bytes(b"")
+    with pytest.raises(WeightError, match="No graph"):
+        Clip.from_local_dir(tmp_path / "port", device="cpu")
+    with pytest.raises(Exception, match="No graph"):
+        JaxClip.from_local_dir(tmp_path / "jax")
 
 
 def test_auto_impl_is_eager_on_cpu(clips):

@@ -256,19 +256,19 @@ def test_string_attentional_pool_forms_raise(form):
         tbuild.resolve_vision(_model_cfg(vision=vision))
 
 
-@pytest.mark.parametrize("text,match", [
-    ({"mct_cfg": {"x": 1}}, "MCT"),
-])
-def test_unported_text_families_raise(text, match):
-    with pytest.raises(ConfigError, match=f"{match}.*not yet ported"):
-        tbuild.resolve_text(_model_cfg(text=text))
-
-
 def test_hf_text_without_hf_config_raises():
-    """An hf_model_name dir without text_cfg.hf_config: deriving it from
-    text.onnx waits for the ONNX path, and the error says so."""
-    with pytest.raises(ConfigError, match="hf_config.*ONNX path"):
-        tbuild.resolve_text(_model_cfg(text={"hf_model_name": "microsoft/BiomedNLP"}))
+    """An hf_model_name config without text_cfg.hf_config: the same
+    ConfigError as the JAX package's (a dir with a text.onnx gets the
+    config derived from the graph first: tests/test_torch_onnx_dirs.py)."""
+    from clip_embedder_tpu.config import ModelCfg as JModelCfg
+
+    text = {"hf_model_name": "microsoft/BiomedNLP"}
+    with pytest.raises(ConfigError, match="hf_config") as got:
+        tbuild.resolve_text(_model_cfg(text=text))
+    with pytest.raises(Exception) as ref:
+        jbuild.resolve_text(JModelCfg.from_dict({"embed_dim": 32, "vision_cfg": {},
+                                                 "text_cfg": text}))
+    assert str(got.value) == str(ref.value)
 
 
 def test_unported_tower_options_raise():
