@@ -87,6 +87,17 @@ card, in phases, and fail loudly if any phase fails.
    towers and of the executor, the converted ViT-B-32's device time by
    kernel group. Phase 3 holds and times kernels 1, 2 and 4-6 at its
    shapes.
+12. the sharded path — ViT-SO400M-16-SigLIP2-384 at full width and depth
+   (phase 5's seeded bf16 weights) through ``clip_embedder_tpu_torch.parallel``
+   on meshes of two entries of one card: ``get_mesh()`` over the visible
+   cards; ``ShardedVisionEmbedder`` DP in bf16 and ``int8_all`` (exact launch
+   counts over two shards, rows against the unsharded embedder at cosine
+   1 - 1e-3, images/s and p50 beside the unsharded ones); TP over the model
+   axis (the eager core: no kernel launched, the override warned; refused
+   for ``int8_all``); ``ShardedTextEmbedder``; ``EmbedPipeline`` over 256
+   JPEGs against a loop; ``CorpusIndex`` over 2^20 x 1152 f32 unit rows
+   against a dense ``torch.matmul`` + ``topk``; ``ClipServer(mesh=)``: one
+   client through every endpoint, then 64 concurrent clients.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -1339,7 +1350,7 @@ def time_embedder(emb, arrays, label) -> dict:
     lat = []
     for _ in range(20):
         t = time.perf_counter()
-        emb.embed_image(arrays[0])
+        emb.embed_images(arrays[:1])
         lat.append(time.perf_counter() - t)
     p50 = statistics.median(lat) * 1e3
     say(f"  {label}: {ips:.2f} images/s at batch {len(arrays)} (median of 5, host clock, "
@@ -2144,10 +2155,11 @@ print(json.dumps({"rows": rows, "lat": lat, "wall": wall, "errors": errors,
 """
 
 
-def serve_concurrently(server, paths, direct, label, device) -> dict:
+def serve_concurrently(server, paths, direct, label, device, bound=SERVED_COSINE) -> dict:
     """One single-JPEG request for each file of ``paths``, each from its own
     thread of a client process (``CLIENTS``), released together: all must
-    succeed, in few micro-batches, with the direct call's rows; images/s
+    succeed, in few micro-batches, with the direct call's rows (min cosine
+    ``bound``); images/s
     served (the clients' clock, release to last reply), the server's
     p50/p95 from ``/v1/metrics`` (its counters set anew for this run) and
     the clients' own. Launch counts are only asserted to grow (plain
@@ -2170,7 +2182,7 @@ def serve_concurrently(server, paths, direct, label, device) -> dict:
     windows = server._vision_batcher.batches - before
     counts1 = launch_counts()
     grew = {k: counts1[k] - counts0[k] for k in ("ln_qkv", "flash_attention_packed")}
-    cos = hold_rows(label, res["rows"], direct, SERVED_COSINE)
+    cos = hold_rows(label, res["rows"], direct, bound)
     ep = http(server, "/v1/metrics")["latency"]["/v1/embed/image"]
     ms = sorted(x * 1e3 for x in res["lat"])
     run = {"label": label, "clients": clients, "wall_s": wall, "images_per_s": clients / wall,
@@ -2785,6 +2797,274 @@ def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, ba
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded path (parallel/)
+# ---------------------------------------------------------------------------
+
+SHARDED_COSINE = 1 - 1e-3  # sharded rows against unsharded: the port's bf16 budget
+
+
+def hold_tie_swaps(ids, ref_ids, ref_scores, tie: float) -> int:
+    """``ids`` against the dense top-k's ``ref_ids``: equal, except where the
+    dense scores at the two positions lie within ``tie`` (two products in
+    other orders may swap a near-tie). Returns the number of such swaps."""
+    swaps = 0
+    for row, (got, want, scores) in enumerate(zip(ids, ref_ids, ref_scores)):
+        for j in np.flatnonzero(got != want):
+            if not any(abs(scores[j] - scores[i]) <= tie for i in np.flatnonzero(want == got[j])):
+                raise AssertionError(f"search ids {got} against the dense top-k {want} (query "
+                                     f"{row})")
+            swaps += 1
+    return swaps
+
+
+def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+                  stream=256, corpus_rows=1 << 20, clients=64, timed=True) -> dict:
+    """Phase 12: ViT-SO400M-16-SigLIP2-384 at full width through the
+    port's scale-out layer (``parallel``) on meshes of two entries of one
+    device (``layers``, ``vocab_size`` and the counts cut it for a CPU
+    rehearsal): DP in bf16 and ``int8_all``, TP (no kernel), the sharded
+    text embedder, ``EmbedPipeline``, ``CorpusIndex`` and ``ClipServer``
+    with ``mesh=``. Rows are held against the unsharded embedders at
+    cosine 1 - 1e-3: a shard of 16 may take other cuBLAS algorithms than
+    one batch of 32."""
+    import base64
+    import tempfile
+
+    from clip_embedder_tpu_torch.errors import ConfigError
+    from clip_embedder_tpu_torch.parallel import (CorpusIndex, EmbedPipeline,
+                                                  ShardedTextEmbedder, ShardedVisionEmbedder,
+                                                  get_mesh)
+    from clip_embedder_tpu_torch.serving import ClipServer, warmup
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+    from clip_embedder_tpu_torch.utils.logging import _warned_once
+
+    free_device_memory()
+    say(f"[12] sharded path: ViT-SO400M-16-SigLIP2-384, {dtype}, phase 5's weights, through "
+        "clip_embedder_tpu_torch.parallel")
+    clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size)
+    depth_v, depth_t = vspec.cfg.layers, tspec.cfg.layers
+    card = device == "cuda"
+    entry = "cuda:0" if card else "cpu"
+    out: dict = {}
+
+    # 1. the default mesh: every visible card once
+    if card:
+        full = get_mesh()
+        want = {"data": torch.cuda.device_count(), "model": 1}
+        say(f"  get_mesh(): {full}")
+        if dict(full.shape) != want:
+            raise AssertionError(f"get_mesh() is {dict(full.shape)}, expected {want}")
+
+    # 2. DP over two entries of one device, bf16 then int8_all
+    dp = get_mesh(devices=[entry] * 2)
+    images = mixed_batch(batch)
+    sharded = ShardedVisionEmbedder(clip.vision, dp)
+    reset_launch_counts()
+    embs = sharded.embed_images(images)
+    counts = launch_counts()
+    cos = cosines(embs, clip.vision.embed_images(images))
+    want = dict.fromkeys(_wrappers(), 0)
+    if card:
+        want.update(ln_qkv=2 * depth_v, flash_attention_packed=2 * depth_v)
+    say(f"  DP {dp}: embed_images {embs.shape}, against unsharded min cosine {cos.min():.7f} "
+        f"(need >= {SHARDED_COSINE}); launches {counts}")
+    if embs.shape != (batch, vspec.cfg.embed_dim) or not np.isfinite(embs).all():
+        raise AssertionError("DP embed_images returned bad embeddings")
+    if cos.min() < SHARDED_COSINE or counts != want:
+        raise AssertionError(f"DP: cosine {cos.min()}, launches {counts} (want {want})")
+    out["dp"] = {"launches": counts, "cosine": float(cos.min())}
+    if timed:
+        arrays = [to_rgb_array(im) for im in images]
+        out["dp"]["unsharded"] = time_embedder(clip.vision, arrays, "unsharded bf16")
+        out["dp"].update(time_embedder(sharded, arrays, "DP bf16, 2 shards of one card"))
+
+    clip_q, _, _ = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                              quantize="int8_all")
+    sharded_q = ShardedVisionEmbedder(clip_q.vision, dp)
+    reset_launch_counts()
+    embs_q = sharded_q.embed_images(images)
+    counts_q = launch_counts()
+    cos_q = cosines(embs_q, clip_q.vision.embed_images(images))
+    # two shard forwards of the vision tower: expected_int8_launches' count
+    # for two vision forwards and no text forward
+    want_q = (expected_int8_launches("int8_all", depth_v, 0) if card
+              else dict.fromkeys(_wrappers(), 0))
+    say(f"  DP int8_all: against unsharded int8_all min cosine {cos_q.min():.7f}; launches "
+        f"{counts_q}")
+    if cos_q.min() < SHARDED_COSINE or counts_q != want_q:
+        raise AssertionError(f"DP int8_all: cosine {cos_q.min()}, launches {counts_q} "
+                             f"(want {want_q})")
+    out["dp_int8_all"] = {"launches": counts_q, "cosine": float(cos_q.min())}
+    if timed:
+        out["dp_int8_all"].update(time_embedder(sharded_q, arrays, "DP int8_all, 2 shards"))
+
+    # 3. TP over the model axis: the eager core, no kernel
+    tp_mesh = get_mesh(devices=[entry] * 2, model_parallel=2)
+    _warned_once.discard("tp-kernel-override")
+    tp = ShardedVisionEmbedder(clip.vision, tp_mesh, tensor_parallel=True)
+    warned = "tp-kernel-override" in _warned_once
+    reset_launch_counts()
+    embs_tp = tp.embed_images(images)
+    counts_tp = launch_counts()
+    cos_tp = cosines(embs_tp, clip.vision.embed_images(images))
+    say(f"  TP {tp_mesh}: attn_impl {clip.vision.attn_impl!r} -> {tp.attn_impl!r} (override "
+        f"warned: {warned}); against the replicated embedder min cosine {cos_tp.min():.7f}; "
+        f"launches {counts_tp}")
+    if tp.attn_impl != "eager" or (card and not warned) or any(counts_tp.values()) \
+            or cos_tp.min() < SHARDED_COSINE:
+        raise AssertionError(f"TP: impl {tp.attn_impl}, warned {warned}, launches "
+                             f"{counts_tp}, cosine {cos_tp.min()}")
+    try:
+        ShardedVisionEmbedder(clip_q.vision, tp_mesh, tensor_parallel=True)
+    except ConfigError as e:
+        say(f"  TP on the int8_all embedder refused: {e}")
+    else:
+        raise AssertionError("TP on a quantized embedder was not refused")
+    out["tp"] = {"cosine": float(cos_tp.min())}
+    if timed:
+        out["tp"].update(time_embedder(tp, arrays, "TP bf16, 2 ranks of one card (eager)"))
+    del tp, sharded_q, clip_q
+    free_device_memory()
+
+    # 4. the sharded text embedder
+    texts = captions(batch, 12)
+    sharded_t = ShardedTextEmbedder(clip.text, dp)
+    reset_launch_counts()
+    tembs = sharded_t.embed_texts(texts)
+    counts_t = launch_counts()
+    cos_t = cosines(tembs, clip.text.embed_texts(texts))
+    want_t = dict.fromkeys(_wrappers(), 0)
+    if card:
+        want_t.update(ln_qkv=2 * depth_t, flash_attention_packed=2 * depth_t)
+    say(f"  ShardedTextEmbedder: {tembs.shape}, against unsharded min cosine "
+        f"{cos_t.min():.7f}; launches {counts_t}")
+    if cos_t.min() < SHARDED_COSINE or counts_t != want_t:
+        raise AssertionError(f"sharded text: cosine {cos_t.min()}, launches {counts_t}")
+    out["text"] = {"cosine": float(cos_t.min())}
+
+    # 5. EmbedPipeline over a stream of the JPEGs (decoded in its pool)
+    paths = [str(p) for p in sorted(IMAGES.glob("*.jpg"))]
+    files = (paths * (stream // len(paths) + 1))[:stream]
+    pipe = EmbedPipeline(sharded, batch_size=batch, prefetch=2)
+    t = time.perf_counter()
+    blocks = list(pipe.embed_iter(files))
+    pipe_s = time.perf_counter() - t
+    t = time.perf_counter()
+    direct = [sharded.embed_images(files[i:i + batch]) for i in range(0, stream, batch)]
+    loop_s = time.perf_counter() - t
+    cos_p = cosines(np.concatenate(blocks), np.concatenate(direct))
+    say(f"  EmbedPipeline over {stream} JPEGs (batch {batch}, prefetch 2): {len(blocks)} "
+        f"blocks in order, against direct calls min cosine {cos_p.min():.7f}; "
+        f"{stream / pipe_s:.2f} images/s against a plain loop of embed_images "
+        f"{stream / loop_s:.2f} (host clock, decode included)")
+    if [b.shape[0] for b in blocks] != [d.shape[0] for d in direct] \
+            or cos_p.min() < 1 - 1e-6:
+        raise AssertionError("EmbedPipeline's blocks differ from the direct calls")
+    out["pipeline"] = {"images_per_s": stream / pipe_s, "loop_images_per_s": stream / loop_s}
+    del blocks, direct
+    free_device_memory()
+
+    # 6. CorpusIndex: unit rows at SO400M's embedding width, over the DP
+    # mesh's data axis; the queries are the DP image embeddings
+    width = vspec.cfg.embed_dim
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = torch.randn(corpus_rows, width, generator=gen, device=device)
+    rows /= rows.norm(dim=-1, keepdim=True)
+    host = rows.cpu().numpy()
+    t = time.perf_counter()
+    index = CorpusIndex.build(host, dp)
+    if card:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    k = 10
+    vals, ids = index.search(embs, k)
+    with torch.inference_mode():
+        dense = torch.matmul(torch.from_numpy(embs).to(device), rows.T)
+        dvals, dids = torch.topk(dense, k, dim=1)
+    dvals, dids = dvals.cpu().numpy(), dids.cpu().numpy()
+    swaps = hold_tie_swaps(ids, dids, dvals, 1e-6)
+    err = float(np.abs(vals - dvals).max())
+    times = []
+    for _ in range(10):
+        t = time.perf_counter()
+        index.search(embs, k)
+        times.append(time.perf_counter() - t)
+    search_ms = statistics.median(times) * 1e3
+    mem = (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if card else "not measured")
+    say(f"  CorpusIndex of {corpus_rows} x {width} f32 rows ({host.nbytes / 1e9:.2f} GB) over "
+        f"{len(index.devices)} shards: build {build_s:.2f} s; search of {embs.shape[0]} "
+        f"queries, k={k}: ids equal to the dense matmul + topk ({swaps} near-tie swaps), "
+        f"scores within {err:.2e} (need <= 1e-5); {search_ms:.3f} ms a search (median of 10, "
+        f"host clock, queries in and results out); device memory {mem}")
+    if err > 1e-5:
+        raise AssertionError(f"CorpusIndex scores {err} from the dense top-k")
+    out["search"] = {"build_s": build_s, "search_ms": search_ms, "swaps": swaps,
+                     "max_abs_err": err}
+    del index, rows, host, dense
+    free_device_memory()
+
+    # 7. ClipServer over the DP mesh: one client, then concurrent clients
+    t = time.perf_counter()
+    warmup(ShardedVisionEmbedder(clip.vision, dp), batch_sizes=(1, 8, batch), texts=False)
+    warmup(ShardedTextEmbedder(clip.text, dp), batch_sizes=(1, 8, batch))
+    say(f"  warmup of the sharded embedders in {time.perf_counter() - t:.2f} s")
+    jpgs = jpeg_bytes(mixed_batch(max(batch, clients)))
+    b64 = [base64.b64encode(j).decode() for j in jpgs]
+    server = ClipServer(clip, max_batch=32, mesh=dp)
+    try:
+        if server.mesh is not dp:
+            raise AssertionError("server.mesh is not the mesh it was given")
+        reset_launch_counts()
+        served = {
+            "image": http(server, "/v1/embed/image", jpgs[0], "image/jpeg"),
+            "images": http(server, "/v1/embed/image", {"images_b64": b64[:batch]}),
+            "text": http(server, "/v1/embed/text", {"texts": [LABELS[0]]}),
+            "texts": http(server, "/v1/embed/text", {"texts": texts}),
+            "classify": http(server, "/v1/classify", {"image_b64": b64[1], "labels": LABELS}),
+            "rank": http(server, "/v1/rank", {"images_b64": b64[:8], "text": LABELS[1]}),
+        }
+        counts_s = launch_counts()
+        # 4 vision and 4 text requests, each two shard forwards
+        want_s = dict.fromkeys(_wrappers(), 0)
+        if card:
+            want_s.update(ln_qkv=8 * (depth_v + depth_t),
+                          flash_attention_packed=8 * (depth_v + depth_t))
+        cos_s = {
+            "image": hold_rows("image", served["image"]["embeddings"],
+                               clip.vision.embed_images([jpgs[0]]), SHARDED_COSINE),
+            "images": hold_rows("images", served["images"]["embeddings"],
+                                clip.vision.embed_images(jpgs[:batch]), SHARDED_COSINE),
+            "text": hold_rows("text", served["text"]["embeddings"],
+                              clip.text.embed_texts([LABELS[0]]), SHARDED_COSINE),
+            "texts": hold_rows("texts", served["texts"]["embeddings"],
+                               clip.text.embed_texts(texts), SHARDED_COSINE),
+        }
+        dp_max = {name: max(abs(g[1] - r[1]) for g, r in zip(
+            sorted(served[name]["results"]), sorted(ref)))
+            for name, ref in (("classify", clip.classify(jpgs[1], LABELS)),
+                              ("rank", clip.rank_images(jpgs[:8], LABELS[1])))}
+        say(f"  mesh server, one client through every endpoint: rows against the unsharded "
+            f"direct call min cosine {', '.join(f'{n} {c:.7f}' for n, c in cos_s.items())}; "
+            f"classify and rank probabilities within {dp_max} of the unsharded Clip's "
+            f"(printed, not gated); launches {counts_s}")
+        if counts_s != want_s:
+            raise AssertionError(f"mesh server launches {counts_s}, expected {want_s}")
+        direct = np.concatenate([clip.vision.embed_images(jpgs[i:i + 32])
+                                 for i in range(0, clients, 32)])
+        with tempfile.TemporaryDirectory(prefix="clip_smoke_jpegs_") as jdir:
+            files = [Path(jdir) / f"{i}.jpg" for i in range(clients)]
+            for path, data in zip(files, jpgs):
+                path.write_bytes(data)
+            out["server"] = serve_concurrently(server, files, direct[:clients], "mesh server",
+                                               device, bound=SHARDED_COSINE)
+        out["server"]["single_client"] = cos_s
+    finally:
+        server.close()
+    return out
+
+
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 
@@ -2888,6 +3168,7 @@ def main(argv) -> int:
     serving = phase_serving("cuda")
     families = phase_families("cuda")
     onnx = phase_onnx("cuda")
+    sharded = phase_sharded("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
@@ -2969,6 +3250,17 @@ def main(argv) -> int:
         f"texts/s; executor {r['executor']['images_per_s']:.2f} images/s, p50 "
         f"{r['executor']['p50_ms']:.2f} ms, {r['executor']['texts_per_s']:.2f} texts/s"
         for label, r in onnx.items()) + f"; {card}")
+    dp, srv = sharded["dp"], sharded["server"]
+    say(f"phase 12 (two shards of one card): DP bf16 {dp['images_per_s']:.2f} images/s, p50 "
+        f"{dp['p50_ms']:.2f} ms against unsharded {dp['unsharded']['images_per_s']:.2f}, p50 "
+        f"{dp['unsharded']['p50_ms']:.2f} ms; DP int8_all "
+        f"{sharded['dp_int8_all']['images_per_s']:.2f}; TP (eager) "
+        f"{sharded['tp']['images_per_s']:.2f}; EmbedPipeline "
+        f"{sharded['pipeline']['images_per_s']:.2f} against a loop "
+        f"{sharded['pipeline']['loop_images_per_s']:.2f} images/s; CorpusIndex build "
+        f"{sharded['search']['build_s']:.2f} s, search {sharded['search']['search_ms']:.3f} ms; "
+        f"mesh server {srv['clients']} clients {srv['images_per_s']:.2f} images/s in "
+        f"{srv['windows']} micro-batches, p50 {srv['p50_ms']} ms; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

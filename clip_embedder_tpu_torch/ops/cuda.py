@@ -8,8 +8,12 @@ file running in parallel, into ``clip_embedder_tpu_torch/_build/``. A
 library's file name carries a hash of its source and the compiler flags, so
 an edited source rebuilds and an unchanged one is reused.
 
-Kernels launch on PyTorch's current stream and return
-``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
+Kernels launch through ``launch``: on the device of the tensor they are
+given (the CUDA runtime's current device is set to it for the call, since
+the sources set their attributes, encode their tensor maps and launch on
+the current device) and on PyTorch's current stream there; a kernel
+returns ``cudaGetLastError()``, and ``launch`` turns a non-zero code into
+an error.
 """
 
 from __future__ import annotations
@@ -122,6 +126,16 @@ VOID_P, INT, LONG, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, cty
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(fn: ctypes._CFuncPtr, name: str, on: torch.Tensor, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``on``'s device, with that device current for the call: a wrapper's
+    operands all lie on ``on``'s device, which need not be the current
+    one (a mesh shard on ``cuda:1``). Raises if the launch failed."""
+    with torch.cuda.device(on.device):
+        code = fn(*args, stream_ptr(on))
+    check(code, name)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -228,11 +228,11 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
     fn = cuda.kernel("flash_packed", "flash_packed_launch",
                      (cuda.VOID_P,) * 4 + (cuda.LONG,) * 2 + (cuda.VOID_P,) * 5
                      + (cuda.INT,) * 4 + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m), sb, sr, cuda.ptr(sin),
-              cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d,
-              float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), int(d % 128 != 0),
-              cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
-    cuda.check(code, "flash_attention_packed")
+    cuda.launch(fn, "flash_attention_packed", q,
+                cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m), sb, sr, cuda.ptr(sin),
+                cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d,
+                float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), int(d % 128 != 0),
+                cuda.DTYPE_CODES[q.dtype])
     flash_attention_packed.launches += 1
     if m is not None:
         flash_attention_packed.mask_launches[mask_form(sb, sr)] += 1
@@ -299,10 +299,10 @@ def flash_attention(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.
         return out
     fn = cuda.kernel("flash_bhsd", "flash_bhsd_launch", (cuda.VOID_P,) * 5 + (cuda.INT,) * 4
                      + (cuda.FLOAT,) + (cuda.INT,) * 3 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out), b, h, s, d,
-              float(1.0 / d ** 0.5), int(fast_softmax), int(d % 128 != 0),
-              cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
-    cuda.check(code, "flash_attention")
+    cuda.launch(fn, "flash_attention", q,
+                cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out), b, h, s, d,
+                float(1.0 / d ** 0.5), int(fast_softmax), int(d % 128 != 0),
+                cuda.DTYPE_CODES[q.dtype])
     flash_attention.launches += 1
     return out
 

@@ -297,12 +297,12 @@ def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
     extra = () if chunk is None else (chunk,)
     fn = cuda.kernel(what, f"{what}_launch", (cuda.VOID_P,) * 15 + (cuda.INT,) * (4 + len(extra))
                      + (cuda.FLOAT,) + (cuda.INT,) * 4 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
-              cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
-              cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
-              rows, k_in, hidden, k_out, *extra, float(ln_eps), ACT_CODES[activation],
-              int(ln), int(add_residual), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
-    cuda.check(code, what)
+    cuda.launch(fn, what, x,
+                cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
+                cuda.ptr(w1), cuda.ptr(s1), cuda.ptr(b1), cuda.ptr(h), cuda.ptr(hq),
+                cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
+                rows, k_in, hidden, k_out, *extra, float(ln_eps), ACT_CODES[activation],
+                int(ln), int(add_residual), cuda.DTYPE_CODES[x.dtype])
     wrapper.launches += 1
     return out
 
@@ -388,10 +388,10 @@ def int8_linear_fused(params, x: torch.Tensor, *,
     xs = torch.empty(rows, dtype=torch.float32, device=x.device)
     fn = cuda.kernel("int8_linear", "int8_linear_fused_launch",
                      (cuda.VOID_P,) * 8 + (cuda.INT,) * 7 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
-              cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out, lda, w.stride(1), ldo,
-              cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
-    cuda.check(code, "int8_linear_fused")
+    cuda.launch(fn, "int8_linear_fused", x,
+                cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
+                cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out, lda, w.stride(1), ldo,
+                cuda.DTYPE_CODES[x.dtype])
     int8_linear_fused.launches += 1
     return out[:, :k_out].reshape(shape)
 

@@ -256,16 +256,17 @@ class Preprocessor:
         return hit
 
     def stage_host_batch_unique(
-        self, arrays: list[np.ndarray]
+        self, arrays: list[np.ndarray], *, batch_bucket: int | None = None
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Host staging with deduplicated weight matrices: returns
-        (batch_u8, whs_u [U, S, Hp], wws_u [U, S, Wp], idx [B]).
+        (batch_u8, whs_u [U, S, Hp], wws_u [U, S, Wp], idx [B]), B being
+        ``batch_bucket`` (default: the power-of-two bucket of the batch).
         U is bucketed to a power of two (bounded program set); padded batch
         rows index slot 0. For homogeneous bulk streams this cuts the
         staged bytes ~3× (one matrix pair instead of one per image)."""
         if not arrays:
             raise ImageError("Empty batch")
-        bb = bucket_batch(len(arrays))
+        bb = batch_bucket or bucket_batch(len(arrays))
         ph = bucket_size(max(a.shape[0] for a in arrays))
         pw = bucket_size(max(a.shape[1] for a in arrays))
 

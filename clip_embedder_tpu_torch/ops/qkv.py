@@ -111,11 +111,11 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     xn = torch.empty_like(x)  # the normalized rows, rounded to x's dtype
     fn = cuda.kernel("ln_qkv", "ln_qkv_launch", (cuda.VOID_P,) * 13 + (cuda.INT,) * 2
                      + (cuda.FLOAT,) + (cuda.INT,) * 3 + (cuda.VOID_P,))
-    code = fn(cuda.ptr(x), cuda.ptr(xn), cuda.ptr(gamma), cuda.ptr(beta),
-              *(cuda.ptr(w) for w in ws), *(cuda.ptr(b) for b in bs),
-              *(cuda.ptr(o) for o in outs), rows, width, float(eps),
-              cuda.DTYPE_CODES[x.dtype], bm, bn, cuda.stream_ptr(x))
-    cuda.check(code, "ln_qkv")
+    cuda.launch(fn, "ln_qkv", x,
+                cuda.ptr(x), cuda.ptr(xn), cuda.ptr(gamma), cuda.ptr(beta),
+                *(cuda.ptr(w) for w in ws), *(cuda.ptr(b) for b in bs),
+                *(cuda.ptr(o) for o in outs), rows, width, float(eps),
+                cuda.DTYPE_CODES[x.dtype], bm, bn)
     ln_qkv.launches += 1
     return tuple(outs)
 
@@ -180,11 +180,11 @@ def ln_qkv_int8(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
     xs = torch.empty(rows, dtype=torch.float32, device=x.device)
     fn = cuda.kernel("ln_qkv_int8", "ln_qkv_int8_launch", (cuda.VOID_P,) * 17
                      + (cuda.INT,) * 2 + (cuda.FLOAT,) + (cuda.INT,) + (cuda.VOID_P,))
-    code = fn(cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
-              *(cuda.ptr(w) for w, _, _ in ops), *(cuda.ptr(s) for _, s, _ in ops),
-              *(cuda.ptr(b) for _, _, b in ops), *(cuda.ptr(o) for o in outs),
-              rows, width, float(eps), cuda.DTYPE_CODES[x.dtype], cuda.stream_ptr(x))
-    cuda.check(code, "ln_qkv_int8")
+    cuda.launch(fn, "ln_qkv_int8", x,
+                cuda.ptr(x), cuda.ptr(gamma), cuda.ptr(beta), cuda.ptr(xq), cuda.ptr(xs),
+                *(cuda.ptr(w) for w, _, _ in ops), *(cuda.ptr(s) for _, s, _ in ops),
+                *(cuda.ptr(b) for _, _, b in ops), *(cuda.ptr(o) for o in outs),
+                rows, width, float(eps), cuda.DTYPE_CODES[x.dtype])
     ln_qkv_int8.launches += 1
     return tuple(outs)
 

@@ -1,0 +1,240 @@
+"""The tensor-parallel forward of the ViT and text towers over one model
+row of a mesh.
+
+The JAX package gets it from GSPMD: its towers run unchanged on parameters
+placed by ``tp_param_specs``, and XLA inserts one all-reduce per sublayer.
+Here it is written out. Each model rank holds its local tree
+(``sharding.shard_params``) on its device and runs the port's own
+``multi_head_attention`` / ``mlp`` on it, with ``heads // n`` heads and the
+eager core (the kernels are not on this path, as the JAX package's TP
+forces its sharding-native attention core). The partial outputs of the
+row-parallel linears (attention out-projection, MLP proj) are summed on the
+activations' device (the first of the row), in at least f32; then their
+bias is added once, and then the residual once. The local trees carry no
+row-parallel bias: ``linear`` would add it on every rank, and a block that
+passes ``residual=x`` into the out-projection would add the residual on
+every rank too.
+
+PE-Core's rope tables are head-tiled [S, H·D]; each rank gets the columns
+of its heads. The pooler attention (SigLIP/PE MAP pool, CoCa's attentional
+pooler) shards by heads like a block's, the MAP MLP like any MLP. Heads or
+widths that the ranks do not divide raise ``ConfigError`` (GSPMD would pad
+them).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import torch
+
+from ..errors import ConfigError
+from ..models.text_transformer import TextTransformer
+from ..models.vit import ViT, check_ported
+from ..ops.attention import multi_head_attention
+from ..ops.layers import ACTIVATIONS, layer_norm, mlp, promote
+from ..weights import ParamTree, unstack
+from .mesh import tree_to
+from .sharding import shard_params, tp_param_specs
+
+
+def tower_tree(tower: ParamTree) -> dict:
+    """The parameter tree of a ViT or text tower in the JAX package's layout
+    (blocks stacked on axis 0: a copy), the layout ``tp_param_specs``
+    describes."""
+    def as_dict(node):
+        return {k: as_dict(node[k]) if isinstance(node[k], ParamTree) else node[k].detach()
+                for k in node.keys()}
+
+    def stack(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    tree = as_dict(tower)
+    tree["blocks"] = stack([as_dict(b) for b in tower.blocks])
+    return tree
+
+
+def _strip_row_bias(local: dict, specs: dict) -> dict:
+    """``local`` without the bias of each row-parallel linear: it is added
+    once, after the sum over the ranks."""
+    out = {}
+    for k, v in local.items():
+        if not isinstance(v, dict):
+            out[k] = v
+        elif getattr(specs[k].get("w"), "kind", None) == "row":
+            out[k] = {n: t for n, t in v.items() if n != "b"}
+        else:
+            out[k] = _strip_row_bias(v, specs[k])
+    return out
+
+
+def rank_trees(tree: dict, specs: dict, devices, *, path: str) -> list[dict]:
+    """Each model rank's local tree on its device, row-parallel biases
+    stripped."""
+    n = len(devices)
+    return [tree_to(_strip_row_bias(shard_params(tree, specs, r, n, path=path), specs), d)
+            for r, d in enumerate(devices)]
+
+
+def reduce_ranks(parts: list[torch.Tensor], bias: torch.Tensor | None,
+                 like: torch.Tensor) -> torch.Tensor:
+    """The model axis's sum: the ranks' partial outputs moved to ``like``'s
+    device and summed in at least f32, the bias added once, one rounding to
+    ``like``'s dtype."""
+    ct = promote(like.dtype)
+    acc = parts[0].to(like.device, ct)
+    for p in parts[1:]:
+        acc = acc + p.to(like.device, ct)
+    if bias is not None:
+        acc = acc + bias.to(like.device, ct)
+    return acc.to(like.dtype)
+
+
+def _local_heads(heads: int, n: int, what: str) -> int:
+    if heads % n:
+        raise ConfigError(f"tensor_parallel over {n} ranks: {what} has {heads} heads, "
+                          f"which {n} does not divide")
+    return heads // n
+
+
+class TPAttention:
+    """One attention sharded by heads over a model row: ``ranks[r]`` is
+    rank r's {"q","k","v","out"} tree (``out`` without its bias), ``pre_ln``
+    its LayerNorm ({r: tree} per rank, or None)."""
+
+    def __init__(self, ranks, devices, *, heads: int, bias, pre_ln=None, ln_eps=1e-6):
+        self.ranks, self.devices, self.heads = ranks, devices, heads
+        self.bias, self.pre_ln, self.ln_eps = bias, pre_ln, ln_eps
+
+    def __call__(self, x, *, kv=None, mask=None, rope=None) -> torch.Tensor:
+        parts = []
+        for r, (d, p) in enumerate(zip(self.devices, self.ranks)):
+            parts.append(multi_head_attention(
+                p, x.to(d), num_heads=self.heads, kv=None if kv is None else kv.to(d),
+                mask=None if mask is None else mask.to(d), impl="eager",
+                pre_ln=None if self.pre_ln is None else self.pre_ln[r], ln_eps=self.ln_eps,
+                rope=None if rope is None else rope[r]))
+        return reduce_ranks(parts, self.bias, x)
+
+
+class TPMlp:
+    """One MLP sharded by its hidden over a model row (``proj`` without its
+    bias in ``ranks``)."""
+
+    def __init__(self, ranks, devices, *, activation, bias, pre_ln=None, ln_eps=1e-6):
+        self.ranks, self.devices, self.activation = ranks, devices, activation
+        self.bias, self.pre_ln, self.ln_eps = bias, pre_ln, ln_eps
+
+    def __call__(self, x) -> torch.Tensor:
+        parts = [mlp(p, x.to(d), activation=self.activation,
+                     pre_ln=None if self.pre_ln is None else self.pre_ln[r], ln_eps=self.ln_eps)
+                 for r, (d, p) in enumerate(zip(self.devices, self.ranks))]
+        return reduce_ranks(parts, self.bias, x)
+
+
+class TPBlock:
+    """``models.vit.Block``'s function over a model row: x + attn(ln1(x)),
+    then x + mlp(ln2(x)), each sublayer summed over the ranks, with its
+    bias, its layer scale and its residual applied once."""
+
+    def __init__(self, full: dict, ranks: list[dict], devices, *, heads: int,
+                 activation: str, ln_eps: float):
+        self.attn = TPAttention([r["attn"] for r in ranks], devices, heads=heads,
+                                bias=full["attn"]["out"].get("b"),
+                                pre_ln=[r["ln1"] for r in ranks], ln_eps=ln_eps)
+        self.mlp = TPMlp([r["mlp"] for r in ranks], devices, activation=ACTIVATIONS[activation],
+                         bias=full["mlp"]["proj"].get("b"), pre_ln=[r["ln2"] for r in ranks],
+                         ln_eps=ln_eps)
+        self.ls1, self.ls2 = full.get("ls1"), full.get("ls2")
+
+    def __call__(self, x, *, impl: str, mask=None, rope=None) -> torch.Tensor:
+        h = self.attn(x, mask=mask, rope=rope)
+        x = x + (h if self.ls1 is None else h * self.ls1)
+        h = self.mlp(x)
+        return x + (h if self.ls2 is None else h * self.ls2)
+
+
+def tp_blocks(tree: dict, specs: dict, devices, *, layers: int, heads: int,
+              activation: str, ln_eps: float) -> list[TPBlock]:
+    local_heads = _local_heads(heads, len(devices), "the blocks' attention")
+    ranks = rank_trees(tree["blocks"], specs["blocks"], devices, path="blocks.")
+    return [TPBlock(unstack(tree["blocks"], i), [unstack(r, i) for r in ranks], devices,
+                    heads=local_heads, activation=activation, ln_eps=ln_eps)
+            for i in range(layers)]
+
+
+class TPViT(ViT):
+    """``models.vit.ViT`` over a model row: ``forward`` is the ViT's own;
+    its blocks, its rope tables and its pooler are the sharded ones. The
+    replicated leaves and the activations live on the row's first
+    device."""
+
+    def __init__(self, cfg, tree: dict, devices):
+        check_ported(cfg)
+        devices = list(devices)
+        tree = tree_to(tree, devices[0])
+        specs = tp_param_specs(tree, tower="vit")
+        rest = {k: v for k, v in tree.items() if k not in ("blocks", "attn_pool")}
+        pool = tree.get("attn_pool")
+        if pool is not None:  # the pooler's replicated leaves (probe/query, LNs)
+            rest["attn_pool"] = {k: v for k, v in pool.items() if k not in ("attn", "mlp")}
+        ParamTree.__init__(self, rest)
+        self.cfg, self.devices = cfg, devices
+        self.act = ACTIVATIONS[cfg.activation]
+        self._rope = {}
+        self.blocks = tp_blocks(tree, specs, devices, layers=cfg.layers, heads=cfg.heads,
+                                activation=cfg.activation, ln_eps=cfg.ln_eps)
+        if pool is not None:
+            ranks = rank_trees(pool, specs["attn_pool"], devices, path="attn_pool.")
+            heads = _local_heads(cfg.pool_heads or cfg.heads, len(devices), "the pooler")
+            self.pool_attn = TPAttention([r["attn"] for r in ranks], devices, heads=heads,
+                                         bias=pool["attn"]["out"].get("b"))
+            if "mlp" in pool:
+                self.pool_mlp = TPMlp([r["mlp"] for r in ranks], devices, activation=self.act,
+                                      bias=pool["mlp"]["proj"].get("b"),
+                                      pre_ln=[r["ln"] for r in ranks], ln_eps=cfg.ln_eps)
+
+    def rope_tables(self, device: torch.device):
+        """Per rank, the columns of its heads of PE-Core's head-tiled
+        [S, H·D] tables, on the rank's device; None without rope."""
+        full = super().rope_tables(device)
+        if full is None:
+            return None
+        key = ("ranks", device)
+        if key not in self._rope:
+            w = full[0].shape[1] // len(self.devices)
+            self._rope[key] = [tuple(t[:, r * w:(r + 1) * w].to(d).contiguous() for t in full)
+                               for r, d in enumerate(self.devices)]
+        return self._rope[key]
+
+    def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, p = self.cfg, self["attn_pool"]
+        probe = p["probe"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
+        pooled = self.pool_attn(probe, kv=x)
+        return (pooled + self.pool_mlp(pooled))[:, 0]
+
+    def _attn_pool(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, p = self.cfg, self["attn_pool"]
+        dm = cfg.attn_pool_dim or cfg.width
+        keys = layer_norm(p["ln_k"], x, eps=cfg.ln_eps)
+        q = layer_norm(p["ln_q"], p["query"].to(x.dtype), eps=cfg.ln_eps)
+        q = q[None].expand(x.shape[0], cfg.attn_pool_queries, dm)
+        pooled = self.pool_attn(q, kv=keys)
+        return layer_norm(self["ln_post"], pooled, eps=cfg.ln_eps)[:, 0]
+
+
+class TPTextTransformer(TextTransformer):
+    """``models.text_transformer.TextTransformer`` over a model row (its
+    ``forward``, sharded blocks)."""
+
+    def __init__(self, cfg, tree: dict, devices):
+        devices = list(devices)
+        tree = tree_to(tree, devices[0])
+        specs = tp_param_specs(tree, tower="text")
+        ParamTree.__init__(self, {k: v for k, v in tree.items() if k != "blocks"})
+        self.cfg, self.devices = cfg, devices
+        self.blocks = tp_blocks(tree, specs, devices, layers=cfg.layers, heads=cfg.heads,
+                                activation=cfg.activation, ln_eps=cfg.ln_eps)
+

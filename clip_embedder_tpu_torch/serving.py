@@ -19,7 +19,9 @@ thread before it joins a micro-batch (the JAX server's collector decodes
 them, in turn, and one undecodable image fails its whole window), and the
 listen backlog is 128, not socketserver's 5, under which a burst of
 concurrent uploads has its connections reset.
-``mesh=`` (a sharded deployment) is not ported yet.
+
+With ``mesh=`` every forward — bulk requests and both micro-batchers' —
+runs through the sharded embedders of ``parallel`` over the mesh.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 
-from .errors import ClipError, ConfigError, InferenceError
+from .errors import ClipError, InferenceError
 from .utils.images import to_rgb_array
 from .utils.logging import get_logger, timed
 
@@ -321,6 +323,10 @@ class ClipServer:
     anything else 500. Binds loopback by default: put a real ingress in
     front for anything public. Call :func:`warmup` first, so that no
     request pays the kernels' build.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) serves every forward through
+    ``ShardedVisionEmbedder`` (with ``tensor_parallel`` as it takes it) and
+    ``ShardedTextEmbedder``; ``server.mesh`` is that mesh, or None.
     """
 
     def __init__(
@@ -332,15 +338,25 @@ class ClipServer:
         max_batch: int = 32,
         max_delay_ms: float = 2.0,
         mesh=None,
+        tensor_parallel: bool = False,
     ) -> None:
-        if mesh is not None:
-            raise ConfigError("ClipServer(mesh=...) (a sharded deployment) is not yet "
-                              "ported to the torch package")
         self._clip = clip
         self._closing = False
         self.metrics = ServerMetrics()
-        self._embed_images = clip.vision.embed_images
-        self._embed_texts = clip.text.embed_texts
+        self.mesh = mesh
+        if mesh is not None:
+            # a sharded deployment: every forward (bulk requests and the
+            # coalesced micro-batches) runs DP (+TP) over the mesh
+            from .parallel.embed import ShardedTextEmbedder, ShardedVisionEmbedder
+
+            self._sharded_vision = ShardedVisionEmbedder(clip.vision, mesh,
+                                                         tensor_parallel=tensor_parallel)
+            self._sharded_text = ShardedTextEmbedder(clip.text, mesh)
+            self._embed_images = self._sharded_vision.embed_images
+            self._embed_texts = self._sharded_text.embed_texts
+        else:
+            self._embed_images = clip.vision.embed_images
+            self._embed_texts = clip.text.embed_texts
         self._vision_batcher = MicroBatcher(self._embed_images, max_batch=max_batch,
                                             max_delay_ms=max_delay_ms)
         self._text_batcher = MicroBatcher(self._embed_texts, max_batch=max_batch,

@@ -139,6 +139,24 @@ def maybe_native_hybrid(model_dir: Path, onnx_path: Path,
     return spec, params
 
 
+def pad_batch(ids: np.ndarray, mask: np.ndarray, rows: int,
+              pad_id: int) -> tuple[np.ndarray, np.ndarray]:
+    """ids and mask padded to ``rows`` rows (the batch bucket): pad ids, no
+    key attended."""
+    if rows == ids.shape[0]:
+        return ids, mask
+    pad = np.full((rows - ids.shape[0], ids.shape[1]), pad_id, np.int32)
+    return np.concatenate([ids, pad], axis=0), np.concatenate([mask, np.zeros_like(pad)], axis=0)
+
+
+def tower_kwargs(spec: TowerSpec, mask: np.ndarray, device) -> dict:
+    """The tokenizer's attention mask, for the towers that take one (BERT,
+    the executor's graphs): there it is authoritative."""
+    if spec.family in ("hf_bert", "onnx"):
+        return {"attention_mask": torch.from_numpy(mask).to(device)}
+    return {}
+
+
 def with_tokenizer_pad_id(spec: TowerSpec, pad_id: int) -> TowerSpec:
     """CoCa's cls mask is built from the ids inside the forward, so it
     takes the id the tokenizer pads with (``configure_tokenizer``'s chain),
@@ -259,15 +277,8 @@ class TextEmbedder:
         if len(texts) == 0:
             raise InferenceError("Empty batch")
         ids, mask = self.tokenize(texts)
-        bb = bucket_batch(len(texts))
-        if bb != ids.shape[0]:  # the bucket's rows: pad ids, no key attended
-            pad = np.full((bb - ids.shape[0], ids.shape[1]), self.pad_id, np.int32)
-            ids = np.concatenate([ids, pad], axis=0)
-            mask = np.concatenate([mask, np.zeros_like(pad)], axis=0)
-        kw = {}
-        if self.spec.family in ("hf_bert", "onnx"):  # the tokenizer's mask is authoritative
-            kw["attention_mask"] = torch.from_numpy(mask).to(self.device)
+        ids, mask = pad_batch(ids, mask, bucket_batch(len(texts)), self.pad_id)
         with torch.inference_mode():
-            embs = self.tower(torch.from_numpy(ids).to(self.device),
-                              attn_impl=self.attn_impl, **kw)
+            embs = self.tower(torch.from_numpy(ids).to(self.device), attn_impl=self.attn_impl,
+                              **tower_kwargs(self.spec, mask, self.device))
             return embs[: len(texts)].float().cpu().numpy()

@@ -361,13 +361,21 @@ class VisionEmbedder:
 
     def embed_images(self, images: Sequence[Any]) -> np.ndarray:
         """[N, embed_dim] f32 embeddings, L2-normalized."""
+        embs, n = self.embed_images_device(images)
+        return embs[:n].float().cpu().numpy()
+
+    def embed_images_device(self, images: Sequence[Any]) -> tuple[torch.Tensor, int]:
+        """Asynchronous variant: launches the forward and returns
+        ``(embeddings [bucket, embed_dim] on the embedder's device, n)``
+        without a host sync (nothing is read back), so a caller
+        (``parallel.pipeline.EmbedPipeline``) can keep a batch in flight
+        while the previous one reads back. Rows past ``n`` are padding."""
         if len(images) == 0:
             raise InferenceError("Empty batch")
         arrays = [to_rgb_array(img) for img in images]
         with torch.inference_mode():
             pixels = self.preprocessor(arrays)  # [bucket, 3, S, S]
-            embs = self.tower(pixels, attn_impl=self.attn_impl, channels_first=True)
-            return embs[: len(arrays)].float().cpu().numpy()
+            return self.tower(pixels, attn_impl=self.attn_impl, channels_first=True), len(arrays)
 
     # -- preprocessing only (reference: src/vision.rs:120-138) -------------
 

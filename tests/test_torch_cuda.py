@@ -705,3 +705,50 @@ def test_golden_siglip_quantized_through_kernels(dev, mode):
     for g, r in zip(got, ref):
         cos = (g * r).sum(-1) / (np.linalg.norm(g, axis=-1) * np.linalg.norm(r, axis=-1))
         assert float(np.min(cos)) >= 1 - 1e-4
+
+
+def test_every_wrapper_launches_on_its_tensors_device(dev):
+    """Each wrapper on the last visible card, while the runtime's current
+    device is card 0: the launch enters the tensors' device (``ops.cuda
+    .launch``), so the kernel runs there, on that device's stream, and
+    matches its plain version. Skipped below two cards, where it proves
+    nothing."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices (a mesh shard on a card that is not current)")
+    last = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(12)
+    dt = torch.bfloat16
+    wrappers = (qkv.ln_qkv, flash.flash_attention_packed, flash.flash_attention,
+                qkv.ln_qkv_int8, int8_mlp.int8_linear_fused, int8_mlp.int8_mlp,
+                int8_mlp.int8_mlp_streamed)
+    before = [fn.launches for fn in wrappers]
+    params, pre_ln, x = _qkv_inputs(2 * 61, 256, dt, last)
+    got = qkv.ln_qkv(params, pre_ln, x)
+    for g, r in zip(got, qkv.ln_qkv_plain(params, pre_ln, x)):
+        torch.testing.assert_close(g.float(), r.float(), atol=1e-2, rtol=2 ** -7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 61, 4 * 64)).astype(np.float32))
+               .to(last, dt) for _ in range(3))
+    torch.testing.assert_close(
+        flash.flash_attention_packed(q, k, v, num_heads=4).float(),
+        flash.flash_attention_packed_plain(q, k, v, num_heads=4).float(), atol=2e-2, rtol=2e-2)
+    qh, kh, vh = (t.reshape(2, 61, 4, 64).transpose(1, 2).contiguous() for t in (q, k, v))
+    torch.testing.assert_close(flash.flash_attention(qh, kh, vh).float(),
+                               flash.flash_attention_plain(qh, kh, vh).float(),
+                               atol=2e-2, rtol=2e-2)
+    qparams = {name: _qlinear(rng, 256, 256, dt, last) for name in "qkv"}
+    for g, r in zip(qkv.ln_qkv_int8(qparams, pre_ln, x),
+                    qkv.ln_qkv_int8_plain(qparams, pre_ln, x)):
+        assert_rows_close(g, r, dt)
+    assert_rows_close(int8_mlp.int8_linear_fused(qparams["q"], x, residual=x),
+                      int8_mlp.int8_linear_fused_plain(qparams["q"], x, residual=x), dt)
+    mlp = {"fc": _qlinear(rng, 256, 512, dt, last), "proj": _qlinear(rng, 512, 256, dt, last)}
+    for fn, plain, kw in ((int8_mlp.int8_mlp, int8_mlp.int8_mlp_plain, {}),
+                          (int8_mlp.int8_mlp_streamed, int8_mlp.int8_mlp_streamed_plain,
+                           {"chunk": 256})):
+        assert_rows_close(fn(mlp, x, pre_ln=pre_ln, add_residual=True, **kw),
+                          plain(mlp, x, pre_ln=pre_ln, add_residual=True, **kw), dt)
+    torch.cuda.synchronize(last)
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == [1] * len(wrappers)
+    assert torch.cuda.current_device() == 0

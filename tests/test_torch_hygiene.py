@@ -24,6 +24,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "from clip_embedder_tpu_torch import native, pull_weights, serving\n"
         "from clip_embedder_tpu_torch.utils import logging\n"
         "from clip_embedder_tpu_torch.models import build, text_transformer, vit\n"
+        "from clip_embedder_tpu_torch.parallel import embed, mesh, pipeline, search, sharding\n"
+        "from clip_embedder_tpu_torch.parallel import tensor_parallel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'clip_embedder_tpu' or m.startswith('clip_embedder_tpu.'))\n"
         "print(bad)\n"
@@ -74,12 +76,22 @@ def no_cuda(monkeypatch):
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
     from clip_embedder_tpu_torch.errors import DeviceError
+    from clip_embedder_tpu_torch.parallel import CorpusIndex, get_mesh
 
     for entry in (Clip, VisionEmbedder, TextEmbedder):
         with pytest.raises(DeviceError, match="CUDA is not available"):
             entry.from_local_dir(FIXTURE)
         with pytest.raises(DeviceError, match="CUDA is not available"):
             entry.from_local_dir(FIXTURE, device="cuda")
+    # a mesh takes every visible card, never the CPU on its own
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        get_mesh()
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        get_mesh(model_parallel=2)
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        CorpusIndex(get_mesh(), 8)
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        get_mesh(devices=["cuda:0"] * 2)
 
 
 def test_resolve_device_and_attn_impl(no_cuda):

@@ -1,10 +1,10 @@
 """The torch port's serving layer on the CPU: ``MicroBatcher`` (the cases of
-tests/test_serving.py), ``ClipServer`` (the single-device cases of
-tests/test_serving_http.py) over a port ``Clip`` on the dir
-tests/test_concurrency.py writes, the same requests to a JAX server and a
-port server over that dir, the divergences from the JAX server (a capped
-request body, a socket timeout, images decoded in the handler threads,
-``mesh=`` refused), ``warmup`` / ``timed`` / ``trace``, and the
+tests/test_serving.py), ``ClipServer`` (the cases of
+tests/test_serving_http.py, a mesh-backed server's included) over a port
+``Clip`` on the dir tests/test_concurrency.py writes, the same requests to
+a JAX server and a port server over that dir, the divergences from the JAX
+server (a capped request body, a socket timeout, images decoded in the
+handler threads), ``warmup`` / ``timed`` / ``trace``, and the
 thread-safety of the preprocess LRU that the server's threads share."""
 
 import base64
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 
 from clip_embedder_tpu_torch import Clip, serving
-from clip_embedder_tpu_torch.errors import ConfigError, InferenceError
+from clip_embedder_tpu_torch.errors import InferenceError
 from clip_embedder_tpu_torch.serving import ClipServer, MicroBatcher
 
 from test_concurrency import make_model_dir
@@ -366,9 +366,69 @@ def test_metrics_endpoint(served):
     assert snap["uptime_s"] >= 0
 
 
-def test_mesh_is_not_ported(clip):
-    with pytest.raises(ConfigError, match="mesh"):
-        ClipServer(clip, mesh=object())
+# -- a mesh-backed deployment (the mesh cases of tests/test_serving_http.py):
+# the same HTTP surface over the sharded embedders, on a mesh of eight CPU
+# entries; every path must agree with the single-device port Clip
+
+@pytest.fixture(scope="module")
+def served_mesh(clip):
+    from clip_embedder_tpu_torch.parallel import get_mesh
+
+    with ClipServer(clip, max_delay_ms=5.0, mesh=get_mesh(devices=["cpu"] * 8)) as server:
+        yield clip, server
+
+
+def test_mesh_server_serves_image_embeddings(served_mesh):
+    clip, server = served_mesh
+    assert server.mesh is not None and dict(server.mesh.shape) == {"data": 8, "model": 1}
+    jpg = _jpeg(9)
+    got = _post(server, "/v1/embed/image", jpg, "image/jpeg")
+    np.testing.assert_allclose(np.asarray(got["embeddings"][0], np.float32),
+                               clip.vision.embed_image(jpg), atol=1e-4)
+    with ClipServer(clip) as plain:
+        assert plain.mesh is None
+
+
+def test_mesh_server_embeds_match_single_device(served_mesh):
+    clip, server = served_mesh
+    jpgs = [_jpeg(10), _jpeg(11), _jpeg(12)]
+    got = _post(server, "/v1/embed/image", {"images_b64": [_b64(j) for j in jpgs]})
+    np.testing.assert_allclose(np.asarray(got["embeddings"], np.float32),
+                               clip.vision.embed_images(jpgs), atol=1e-4)
+    texts = ["a cat", "a dog", "a beignet", "x"]
+    got = _post(server, "/v1/embed/text", {"texts": texts})
+    np.testing.assert_allclose(np.asarray(got["embeddings"], np.float32),
+                               clip.text.embed_texts(texts), atol=1e-4)
+
+
+def test_mesh_server_classify_and_rank_parity(served_mesh):
+    clip, server = served_mesh
+    jpg = _jpeg(13)
+    labels = ["a photo of a cat", "a photo of a dog"]
+    got = _post(server, "/v1/classify", {"image_b64": _b64(jpg), "labels": labels})
+    expect = clip.classify(jpg, labels)
+    assert [r[0] for r in got["results"]] == [e[0] for e in expect]
+    np.testing.assert_allclose([r[1] for r in got["results"]], [e[1] for e in expect],
+                               atol=1e-4)
+    jpgs = [_jpeg(14), _jpeg(15)]
+    got = _post(server, "/v1/rank", {"images_b64": [_b64(j) for j in jpgs], "text": "the cat"})
+    expect = clip.rank_images(jpgs, "the cat")
+    assert [r[0] for r in got["results"]] == [e[0] for e in expect]
+
+
+def test_mesh_server_concurrent_singles_coalesce(served_mesh):
+    clip, server = served_mesh
+    jpg = _jpeg(16)
+    expect = clip.vision.embed_image(jpg)
+    before = server._vision_batcher.batches
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        results = list(pool.map(lambda _: _post(server, "/v1/embed/image", jpg, "image/jpeg"),
+                                range(16)))
+    for got in results:
+        np.testing.assert_allclose(np.asarray(got["embeddings"][0], np.float32), expect,
+                                   atol=1e-4)
+    # concurrent singles share sharded device steps, as on one device
+    assert server._vision_batcher.batches - before < 16
 
 
 # -- the port's departures from the JAX server --------------------------------
