@@ -98,6 +98,18 @@ card, in phases, and fail loudly if any phase fails.
    JPEGs against a loop; ``CorpusIndex`` over 2^20 x 1152 f32 unit rows
    against a dense ``torch.matmul`` + ``topk``; ``ClipServer(mesh=)``: one
    client through every endpoint, then 64 concurrent clients.
+13. training — ViT-SO400M-16-SigLIP2-384 at full width and depth through
+   ``clip_embedder_tpu_torch.train`` (f32, SigLIP loss, remat, lr 1e-5,
+   seeded random init, a fixed seeded batch of 16): five unsharded steps (the loss
+   descends; s/step, samples/s, peak memory, one step under torch.profiler);
+   one step each of DP, the ring loss, FSDP and TP (cut to 2 layers a
+   tower) on meshes of two entries of one card from the same initial state,
+   each within rtol 1e-4 of the unsharded loss; no kernel launched on the
+   way; the trained tree exported into a model dir and served through
+   ``Clip`` in bf16 (27 launches each of kernels 1 and 2 a tower call),
+   held against the eager impl at cosine 0.999 and printed against the
+   trained tree's own f32 forward; a q that requires grad refused by kernel
+   2's wrapper.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -3065,6 +3077,281 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     return out
 
 
+# a variant's first loss and its second (after one update) against the
+# unsharded run's
+TRAIN_RTOL = 1e-4
+# A fine-tuning rate. At TrainConfig's default 1e-4, AdamW's first steps
+# (≈ lr·sign(g) on all 1.136 B parameters) threw the random full-depth
+# towers about on one batch: losses 9.54, 7.28, 18.63, 8.66, 10.18.
+# tools/train_witness.py runs both rates in both packages at a cut depth.
+TRAIN_LR = 1e-5
+TP_LAYERS = 2  # the TP variant's depth: the eager TP step at full depth outlasts the time limit
+
+
+def so400m_train_config(*, layers=None, vocab_size=None, **kw):
+    """ViT-SO400M-16-SigLIP2-384 resolved through the port's config → build
+    as a ``train.TrainConfig`` (SigLIP loss, remat, ``TRAIN_LR``; ``kw``
+    sets the rest),
+    and its open_clip config for a model dir."""
+    import copy
+    import dataclasses
+
+    from clip_embedder_tpu_torch.config import OpenClipConfig
+    from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
+    from clip_embedder_tpu_torch.train import TrainConfig
+
+    model_cfg = copy.deepcopy(SO400M_SIGLIP2_384)
+    if layers is not None:
+        cut_vision_depth(model_cfg["vision_cfg"], layers)
+        model_cfg["text_cfg"]["layers"] = layers
+    if vocab_size is not None:
+        model_cfg["text_cfg"]["vocab_size"] = vocab_size
+    occ = {"model_cfg": model_cfg, "preprocess_cfg": SIGLIP_PREPROCESS}
+    config = OpenClipConfig.from_dict(occ)
+    vspec, tspec = resolve_vision(config.model_cfg), resolve_text(config.model_cfg)
+    if (vspec.family, tspec.family) != ("vit", "text_transformer"):
+        raise AssertionError(f"SO400M resolved to {vspec.family} + {tspec.family}")
+    cfg = TrainConfig(vision_cfg=vspec.cfg, text_cfg=tspec.cfg, loss="siglip", remat=True,
+                      learning_rate=TRAIN_LR)
+    return dataclasses.replace(cfg, **kw), occ
+
+
+def train_step_flops(cfg, batch: int) -> float:
+    """The products' FLOPs of one remat training step, from the shapes: 4
+    forwards (the forward, the blocks' recompute, and the backward's two
+    products for each one of the forward). A forward counts the linears
+    (2·tokens·in·out), attention's two products (4·S²·width a block) and
+    the map pool's probe."""
+    v, t = cfg.vision_cfg, cfg.text_cfg
+    s, w, m = v.seq_len, v.width, v.mlp_hidden
+    vision = 2 * s * v.patch_size ** 2 * 3 * w
+    vision += v.layers * (2 * s * (4 * w * w + 2 * w * m) + 4 * s * s * w)
+    if v.pool == "map":
+        pm = v.pool_mlp_hidden or m
+        vision += 2 * s * 2 * w * w + 2 * 2 * w * w + 4 * s * w + 2 * 2 * w * pm
+    if v.use_proj:
+        vision += 2 * w * v.embed_dim
+    n, tw, tm = t.context_length, t.width, t.mlp_hidden
+    text = t.layers * (2 * n * (4 * tw * tw + 2 * tw * tm) + 4 * n * n * tw)
+    text += 2 * tw * t.embed_dim
+    return 4.0 * batch * (vision + text)
+
+
+def cut_blocks(tree, layers: int):
+    """A train tree with its stacked blocks cut to the first ``layers``."""
+    from clip_embedder_tpu_torch.weights import tree_map
+
+    return {k: ({**v, "blocks": tree_map(lambda t: t[:layers], v["blocks"])}
+                if isinstance(v, dict) else v) for k, v in tree.items()}
+
+
+def timed_step(step, params, opt, batch, card):
+    """One train step; (params, opt, loss as a float, host seconds to its end)."""
+    t = time.perf_counter()
+    params, opt, loss = step(params, opt, batch)
+    loss = float(loss)
+    if card:
+        torch.cuda.synchronize()
+    return params, opt, loss, time.perf_counter() - t
+
+
+def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None, batch=16,
+                   steps=5, timed=True) -> dict:
+    """Phase 13: ViT-SO400M-16-SigLIP2-384 trained through
+    ``clip_embedder_tpu_torch.train`` at full width and depth (``layers``,
+    ``vocab_size``, ``batch`` and ``steps`` cut it for a CPU rehearsal), a
+    fixed seeded batch: (a) unsharded steps (the loss descends; s/step,
+    samples/s, peak memory), (b) two steps each of DP, the ring loss, FSDP
+    and TP on a mesh of two entries of one device from the same initial
+    state, both losses held against the unsharded run's first two: the
+    second comes after the layout's backward pass and AdamW update (TP at
+    ``TP_LAYERS``, against an unsharded run of that cut tree), (c) the
+    handoff: the trained tree exported into a model dir and served through
+    ``Clip`` (bf16 on the card, through kernels 1 and 2) against the eager
+    impl and against the trained tree's own f32 forward, (d) the kernel
+    guard. The training path runs no kernel."""
+    import dataclasses
+    import tempfile
+
+    from clip_embedder_tpu_torch import Clip
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.models.text_transformer import TextTransformer
+    from clip_embedder_tpu_torch.models.vit import ViT
+    from clip_embedder_tpu_torch.ops.flash import flash_attention_packed
+    from clip_embedder_tpu_torch.parallel import get_mesh
+    from clip_embedder_tpu_torch.weights import _flatten, tree_map
+
+    free_device_memory()
+    t_phase = time.perf_counter()
+    card = device == "cuda"
+    label = nvidia_smi() if card else "cpu"
+    cfg, occ = so400m_train_config(layers=layers, vocab_size=vocab_size)
+    vcfg, tcfg = cfg.vision_cfg, cfg.text_cfg
+    say(f"[13] training: ViT-SO400M-16-SigLIP2-384 through clip_embedder_tpu_torch.train, "
+        f"{dtype}, SigLIP loss, remat, vision {vcfg.layers}x{vcfg.width} ({vcfg.seq_len} "
+        f"tokens, {vcfg.pool} pool), text {tcfg.layers}x{tcfg.width} (vocab "
+        f"{tcfg.vocab_size}, ctx {tcfg.context_length}), batch {batch} (seed 0)")
+    rng = np.random.default_rng(0)
+    data = {"pixels": rng.uniform(-1, 1, (batch, vcfg.image_size, vcfg.image_size, 3))
+            .astype(np.float32),
+            "input_ids": rng.integers(1, tcfg.vocab_size, (batch, tcfg.context_length))
+            .astype(np.int32)}
+    out: dict = {}
+
+    # (a) unsharded
+    t = time.perf_counter()
+    params, _ = tt.init_train_state(torch.Generator(device=device).manual_seed(0), cfg,
+                                    device=device, dtype=dtype)
+    init = tree_map(lambda p: p.detach().cpu().clone(), params)
+    n_params = sum(v.numel() for v in _flatten(init).values())
+    say(f"  initialized {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t:.1f} s")
+    tx = tt.make_optimizer(cfg)
+    opt = tt.init_opt_state(cfg, params)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+
+    def step(p, o, b):
+        return tt.train_step(p, o, b, cfg=cfg, tx=tx)
+
+    losses, secs = [], []
+    for _ in range(steps):
+        params, opt, loss, s = timed_step(step, params, opt, data, card)
+        losses.append(loss)
+        secs.append(s)
+    s_step = statistics.median(secs[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else None
+    flops = train_step_flops(cfg, batch)
+    bound = flops / peaks_for(label)["f32"] if card else None
+    out.update(losses=losses, step_s=secs, s_per_step=s_step, samples_per_s=batch / s_step,
+               peak_gib=peak, step_flops=flops, bound_s=bound)
+    say(f"  {steps} unsharded steps: losses {[round(x, 6) for x in losses]}; "
+        f"{s_step:.4f} s/step (median of steps 2-{steps}, host clock to a synchronize; "
+        f"first {secs[0]:.4f} s), {batch / s_step:.3f} samples/s, peak "
+        + (f"{peak:.3f} GiB allocated" if card else "not measured")
+        + f"; {flops / 1e12:.3f} TFLOP a step (products, from the shapes), bound at the f32 "
+        + (f"peak {bound:.4f} s ({bound / s_step:.3f} of the step)" if card else
+           "peak not measured") + f"; {label}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the training loss did not descend: {losses}")
+    if timed and card:
+        bd = device_breakdown(lambda: step(params, opt, data))
+        out["breakdown"] = bd
+        say(f"  one step under torch.profiler: device busy {bd['busy_ms']:.3f} of "
+            f"{bd['wall_ms']:.3f} ms (idle share {bd['idle_share']:.3f}); by group: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bd["groups_ms"].items(),
+                                                      key=lambda kv: -kv[1])))
+    trained = tree_map(lambda p: p.detach().cpu(), params)
+    del params, opt
+    free_device_memory()
+
+    # (b) two steps of each layout from the same initial state, two entries of one device
+    mesh = get_mesh(devices=["cuda:0" if card else "cpu"] * 2)
+    tp_mesh = get_mesh(devices=["cuda:0" if card else "cpu"] * 2, model_parallel=2)
+    tp_layers = min(TP_LAYERS, vcfg.layers)
+    tp_cfg, _ = so400m_train_config(layers=tp_layers, vocab_size=vocab_size,
+                                    tensor_parallel=True)
+    flat_tp = dataclasses.replace(tp_cfg, tensor_parallel=False)
+    tp_params = tt.train_params_from_numpy(
+        tree_map(lambda p: p.numpy(), cut_blocks(init, tp_layers)), device=device, dtype=dtype)
+    tp_opt, tp_tx, tp_ref = tt.init_opt_state(flat_tp, tp_params), tt.make_optimizer(flat_tp), []
+    for _ in range(2):
+        tp_params, tp_opt, loss = tt.train_step(tp_params, tp_opt, data, cfg=flat_tp, tx=tp_tx)
+        tp_ref.append(float(loss))
+    del tp_params, tp_opt
+    variants = {
+        "dp": (cfg, mesh, init, losses[:2]),
+        "ring": (dataclasses.replace(cfg, ring_loss=True), mesh, init, losses[:2]),
+        "fsdp": (dataclasses.replace(cfg, fsdp=True), mesh, init, losses[:2]),
+        "tp": (tp_cfg, tp_mesh, cut_blocks(init, tp_layers), tp_ref),
+    }
+    out["variants"] = {}
+    for name, (var_cfg, vmesh, tree, ref) in variants.items():
+        start = tree_map(lambda p: p.to(device), tree)
+        vstep, placed, vopt = tt.make_sharded_train_step(var_cfg, vmesh, start)
+        del start
+        placed, vopt, loss, s = timed_step(vstep, placed, vopt, data, card)
+        _, _, loss2, s2 = timed_step(vstep, placed, vopt, data, card)
+        rel = [abs(got - want) / abs(want) for got, want in zip((loss, loss2), ref)]
+        out["variants"][name] = {"losses": [loss, loss2], "s": s, "s2": s2, "rel": rel}
+        cut = f" (cut to {tp_layers} layers a tower, against an unsharded run of that tree: " \
+              f"{ref[0]:.6f}, {ref[1]:.6f})" if name == "tp" else ""
+        say(f"  {name} over {vmesh.shape}: losses {loss:.6f}, {loss2:.6f}, relative "
+            f"{rel[0]:.2e} and {rel[1]:.2e} of the unsharded run's first two (the second after "
+            f"one update; need <= {TRAIN_RTOL}){cut}; steps {s:.4f} s, {s2:.4f} s; {label}")
+        if not max(rel) <= TRAIN_RTOL:
+            raise AssertionError(f"the {name} steps' losses {[loss, loss2]} are not the "
+                                 f"unsharded {ref}")
+        del vstep, placed, vopt
+        free_device_memory()
+    out["launches"] = launch_counts()
+    if set(out["launches"].values()) != {0}:
+        raise AssertionError(f"the training path launched kernels: {out['launches']}")
+
+    # (c) the handoff: export, serve through Clip, hold against eager and the trained tree
+    serve_dtype = torch.bfloat16 if card else dtype
+    images = mixed_batch(8)
+    with tempfile.TemporaryDirectory(prefix="clip_smoke_train_") as tmp:
+        d = Path(tmp)
+        (d / "open_clip_config.json").write_text(json.dumps(occ, indent=2))
+        for name in ("tokenizer.json", "model_config.json"):
+            (d / name).write_bytes((FIXTURES / "golden_siglip" / name).read_bytes())
+        t = time.perf_counter()
+        tt.export_trained_model(d, trained)
+        export_s = time.perf_counter() - t
+        clip = Clip.from_local_dir(d, device=device, dtype=serve_dtype)
+        eager = Clip.from_local_dir(d, device=device, dtype=serve_dtype, attn_impl="eager")
+    reset_launch_counts()
+    embs = {"images": clip.vision.embed_images(images)}
+    n_img = launch_counts()
+    reset_launch_counts()
+    embs["texts"] = clip.text.embed_texts(LABELS)
+    n_txt = launch_counts()
+    ref = {"images": eager.vision.embed_images(images), "texts": eager.text.embed_texts(LABELS)}
+    pixels = torch.from_numpy(clip.vision.preprocess_batch(images)).to(device)
+    ids = torch.from_numpy(clip.text.tokenize(LABELS)[0]).to(device)
+    with torch.no_grad():
+        on_dev = tree_map(lambda p: p.to(device), trained)
+        own = {"images": ViT(vcfg, on_dev["visual"], trainable=True)(
+                   pixels, channels_first=True).cpu().numpy(),
+               "texts": TextTransformer(tcfg, on_dev["text"], trainable=True)(ids).cpu().numpy()}
+    del on_dev
+    eager_cos = {k: float(cosines(embs[k], ref[k]).min()) for k in embs}
+    trained_cos = {k: float(cosines(embs[k], own[k]).min()) for k in embs}
+    out["handoff"] = {"export_s": export_s, "eager_cosine": eager_cos,
+                      "trained_cosine": trained_cos, "launches": {"embed_images": n_img,
+                                                                 "embed_texts": n_txt}}
+    say(f"  handoff: exported in {export_s:.2f} s, served in {serve_dtype}: min cosine against "
+        f"the eager impl {eager_cos} (need >= 0.999), against the trained tree's f32 forward "
+        f"{trained_cos} (printed); launches embed_images ln_qkv={n_img['ln_qkv']} "
+        f"flash={n_img['flash_attention_packed']}, embed_texts ln_qkv={n_txt['ln_qkv']} "
+        f"flash={n_txt['flash_attention_packed']}; {label}")
+    if min(eager_cos.values()) < 0.999:
+        raise AssertionError("the served handoff disagrees with the eager impl")
+    if card:
+        for call, n, depth in (("embed_images", n_img, vcfg.layers),
+                               ("embed_texts", n_txt, tcfg.layers)):
+            if (n["ln_qkv"], n["flash_attention_packed"]) != (depth, depth):
+                raise AssertionError(f"{call}: kernel launches {n}, expected {depth} each of "
+                                     "ln_qkv and flash_attention_packed")
+    del clip, eager
+    free_device_memory()
+
+    # (d) the kernel guard: an operand that requires grad is refused on the card
+    if card:
+        q = torch.randn(2, 16, 256, device=device, dtype=torch.bfloat16, requires_grad=True)
+        try:
+            flash_attention_packed(q, q.detach(), q.detach(), num_heads=2)
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+            say(f"  kernel guard: flash_attention_packed refused a q that requires grad ({e})")
+        else:
+            raise AssertionError("flash_attention_packed took a q that requires grad")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 
@@ -3169,6 +3456,7 @@ def main(argv) -> int:
     families = phase_families("cuda")
     onnx = phase_onnx("cuda")
     sharded = phase_sharded("cuda")
+    training = phase_training("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
@@ -3261,6 +3549,14 @@ def main(argv) -> int:
         f"{sharded['search']['build_s']:.2f} s, search {sharded['search']['search_ms']:.3f} ms; "
         f"mesh server {srv['clients']} clients {srv['images_per_s']:.2f} images/s in "
         f"{srv['windows']} micro-batches, p50 {srv['p50_ms']} ms; {card}")
+    var = training["variants"]
+    say(f"phase 13 (ViT-SO400M-16-SigLIP2-384 training, f32, batch 16, remat): "
+        f"{training['s_per_step']:.4f} s/step, {training['samples_per_s']:.3f} samples/s, peak "
+        f"{training['peak_gib']:.3f} GiB; second step of DP {var['dp']['s2']:.4f} s, ring "
+        f"{var['ring']['s2']:.4f} s, FSDP {var['fsdp']['s2']:.4f} s, TP ({TP_LAYERS} layers) "
+        f"{var['tp']['s2']:.4f} s; idle share {training['breakdown']['idle_share']:.3f}; "
+        f"export {training['handoff']['export_s']:.2f} s; the phase took "
+        f"{training['phase_s']:.1f} s; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

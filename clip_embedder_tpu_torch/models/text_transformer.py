@@ -26,7 +26,7 @@ from ..ops.attention import causal_mask
 from ..ops.layers import layer_norm, linear
 from ..ops.normalize import l2_normalize
 from ..weights import ParamTree
-from .vit import _init_linear, _init_ln, _normal, blocks_from_tree, init_blocks
+from .vit import _init_linear, _init_ln, _normal, blocks_from_tree, init_blocks, run_blocks
 
 
 @dataclass(frozen=True)
@@ -94,17 +94,20 @@ def cls_mask(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
 
 class TextTransformer(ParamTree):
     """The text tower over a parameter tree from ``init`` or
-    ``weights.load_pytree``."""
+    ``weights.load_pytree``; ``trainable`` as ``models.vit.ViT``'s."""
 
-    def __init__(self, cfg: TextCfgResolved, params: Mapping):
-        super().__init__({k: v for k, v in params.items() if k != "blocks"})
+    def __init__(self, cfg: TextCfgResolved, params: Mapping, *, trainable: bool = False):
+        super().__init__({k: v for k, v in params.items() if k != "blocks"},
+                         trainable=trainable)
         self.cfg = cfg
         self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
-                                       activation=cfg.activation, ln_eps=cfg.ln_eps)
+                                       activation=cfg.activation, ln_eps=cfg.ln_eps,
+                                       trainable=trainable)
 
     def forward(self, input_ids: torch.Tensor, *, attn_impl: str = "eager",
-                normalize: bool = True) -> torch.Tensor:
-        """[B, context_length] token ids → [B, embed_dim]."""
+                normalize: bool = True, remat: bool = False) -> torch.Tensor:
+        """[B, context_length] token ids → [B, embed_dim]. ``remat``:
+        ``models.vit.run_blocks``."""
         cfg = self.cfg
         ids = input_ids.long()
         x = self["token_embed"][ids]
@@ -116,8 +119,7 @@ class TextTransformer(ParamTree):
         if cfg.embed_cls:
             cls_add = cls_mask(ids, cfg.pad_id)
             mask = cls_add if mask is None else mask + cls_add
-        for blk in self.blocks:
-            x = blk(x, impl=attn_impl, mask=mask)
+        x = run_blocks(self.blocks, x, remat=remat, impl=attn_impl, mask=mask)
 
         if cfg.embed_cls:  # the appended cls (last position), then ln_final on it alone
             pooled = layer_norm(self["ln_final"], x[:, -1], eps=cfg.ln_eps)

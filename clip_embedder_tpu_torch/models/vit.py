@@ -21,10 +21,12 @@ Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..errors import ConfigError
 from ..ops.attention import multi_head_attention
@@ -209,9 +211,26 @@ def patchify(x: torch.Tensor, patch_size: int, channels_first: bool = False) -> 
     return x.reshape(b, (h // p) * (w // p), p * p * c)
 
 
+def block_forward(p, x: torch.Tensor, *, heads: int, act, ln_eps: float, impl: str,
+                  mask=None, rope=None) -> torch.Tensor:
+    """One pre-LN transformer block over the block tree ``p``: x + attn(ln1(x)),
+    then x + mlp(ln2(x)), with optional layer scale (``ls1``/``ls2``)."""
+    if "ls1" in p:
+        h = multi_head_attention(p["attn"], x, num_heads=heads, mask=mask, impl=impl,
+                                 pre_ln=p["ln1"], ln_eps=ln_eps, rope=rope)
+        x = x + h * p["ls1"]
+    else:
+        x = multi_head_attention(p["attn"], x, num_heads=heads, mask=mask, impl=impl,
+                                 pre_ln=p["ln1"], ln_eps=ln_eps, residual=x, rope=rope)
+    if "ls2" in p:
+        h = mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps)
+        return x + h * p["ls2"]
+    return mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps, residual=True)
+
+
 class Block(ParamTree):
-    """One pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x)),
-    with optional layer scale (``ls1``/``ls2``). Shared by the text tower."""
+    """``block_forward`` over one block's (frozen) weights. Shared by the text
+    tower."""
 
     def __init__(self, params: Mapping, *, heads: int, activation: str, ln_eps: float):
         super().__init__(params)
@@ -220,40 +239,61 @@ class Block(ParamTree):
         self.ln_eps = ln_eps
 
     def forward(self, x: torch.Tensor, *, impl: str, mask=None, rope=None) -> torch.Tensor:
-        if "ls1" in self:
-            h = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
-                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps,
-                                     rope=rope)
-            x = x + h * self["ls1"]
-        else:
-            x = multi_head_attention(self["attn"], x, num_heads=self.heads, mask=mask,
-                                     impl=impl, pre_ln=self["ln1"], ln_eps=self.ln_eps,
-                                     residual=x, rope=rope)
-        if "ls2" in self:
-            h = mlp(self["mlp"], x, activation=self.act, pre_ln=self["ln2"],
-                    ln_eps=self.ln_eps)
-            return x + h * self["ls2"]
-        return mlp(self["mlp"], x, activation=self.act, pre_ln=self["ln2"],
-                   ln_eps=self.ln_eps, residual=True)
+        return block_forward(self, x, heads=self.heads, act=self.act, ln_eps=self.ln_eps,
+                             impl=impl, mask=mask, rope=rope)
+
+
+class StackedBlock:
+    """``block_forward`` over layer ``i`` of the stacked block leaves,
+    indexed inside the call, so that autograd carries the block's gradient
+    into the stacked leaves themselves (a trainable tower's blocks)."""
+
+    def __init__(self, stacked: Mapping, i: int, *, heads: int, activation: str,
+                 ln_eps: float):
+        self.stacked, self.i = stacked, i
+        self.heads, self.act, self.ln_eps = heads, ACTIVATIONS[activation], ln_eps
+
+    def __call__(self, x: torch.Tensor, *, impl: str, mask=None, rope=None) -> torch.Tensor:
+        return block_forward(unstack(self.stacked, self.i), x, heads=self.heads, act=self.act,
+                             ln_eps=self.ln_eps, impl=impl, mask=mask, rope=rope)
 
 
 def blocks_from_tree(stacked: Mapping, *, layers: int, heads: int, activation: str,
-                     ln_eps: float) -> nn.ModuleList:
-    return nn.ModuleList(
-        Block(unstack(stacked, i), heads=heads, activation=activation, ln_eps=ln_eps)
-        for i in range(layers))
+                     ln_eps: float, trainable: bool = False):
+    """The tower's blocks: frozen per-layer modules (views of the stacked
+    leaves), or with ``trainable`` a ``StackedBlock`` a layer over the
+    stacked tree as given."""
+    kw = {"heads": heads, "activation": activation, "ln_eps": ln_eps}
+    if trainable:
+        return [StackedBlock(stacked, i, **kw) for i in range(layers)]
+    return nn.ModuleList(Block(unstack(stacked, i), **kw) for i in range(layers))
+
+
+def run_blocks(blocks, x: torch.Tensor, *, remat: bool, **kw) -> torch.Tensor:
+    """x through ``blocks`` in order; with ``remat`` each block's activations
+    are recomputed on the backward pass (``jax.checkpoint`` in the JAX
+    package) and only its input is kept."""
+    for blk in blocks:
+        if remat:
+            x = checkpoint(partial(blk, **kw), x, use_reentrant=False)
+        else:
+            x = blk(x, **kw)
+    return x
 
 
 class ViT(ParamTree):
     """The vision tower over a parameter tree from ``init`` or
-    ``weights.load_pytree``."""
+    ``weights.load_pytree``; with ``trainable`` over the tree's own tensors
+    (``ParamTree``, ``StackedBlock``), so that a backward pass reaches them."""
 
-    def __init__(self, cfg: ViTCfg, params: Mapping):
+    def __init__(self, cfg: ViTCfg, params: Mapping, *, trainable: bool = False):
         check_ported(cfg)
-        super().__init__({k: v for k, v in params.items() if k != "blocks"})
+        super().__init__({k: v for k, v in params.items() if k != "blocks"},
+                         trainable=trainable)
         self.cfg = cfg
         self.blocks = blocks_from_tree(params["blocks"], layers=cfg.layers, heads=cfg.heads,
-                                       activation=cfg.activation, ln_eps=cfg.ln_eps)
+                                       activation=cfg.activation, ln_eps=cfg.ln_eps,
+                                       trainable=trainable)
         self.act = ACTIVATIONS[cfg.activation]
         self._rope: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -298,9 +338,10 @@ class ViT(ParamTree):
         return layer_norm(self["ln_post"], pooled, eps=cfg.ln_eps)[:, 0]
 
     def forward(self, pixels: torch.Tensor, *, attn_impl: str = "eager",
-                channels_first: bool = False, normalize: bool = True) -> torch.Tensor:
+                channels_first: bool = False, normalize: bool = True,
+                remat: bool = False) -> torch.Tensor:
         """[B, H, W, 3] preprocessed pixels ([B, 3, H, W] with
-        ``channels_first``) → [B, embed_dim]."""
+        ``channels_first``) → [B, embed_dim]. ``remat``: ``run_blocks``."""
         cfg = self.cfg
         x = linear(self["patch_embed"], patchify(pixels, cfg.patch_size, channels_first))
         b = x.shape[0]
@@ -319,9 +360,8 @@ class ViT(ParamTree):
         if cfg.use_ln_pre:
             x = layer_norm(self["ln_pre"], x, eps=cfg.ln_eps)
 
-        rope = self.rope_tables(x.device)
-        for blk in self.blocks:
-            x = blk(x, impl=attn_impl, rope=rope)
+        x = run_blocks(self.blocks, x, remat=remat, impl=attn_impl,
+                       rope=self.rope_tables(x.device))
 
         if cfg.pool == "attn":
             pooled = self._attn_pool(x)

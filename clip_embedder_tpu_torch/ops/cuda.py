@@ -14,6 +14,12 @@ the sources set their attributes, encode their tensor maps and launch on
 the current device) and on PyTorch's current stream there; a kernel
 returns ``cudaGetLastError()``, and ``launch`` turns a non-zero code into
 an error.
+
+The kernels have no backward. A wrapper calls ``no_grad_operands`` before it
+launches: with autograd on, an operand that requires grad raises, where the
+kernel's fresh output would otherwise end the gradient without a word (a
+JAX Pallas kernel without a VJP cannot be differentiated either). Serving
+runs under ``torch.inference_mode``, so it never gets there.
 """
 
 from __future__ import annotations
@@ -162,6 +168,28 @@ def f32_vector(t: torch.Tensor | None, n: int, like: torch.Tensor, what: str) ->
                          f"{tuple(t.shape)} on {t.device}")
     v = t.to(torch.float32).contiguous()
     return v.clone() if v.data_ptr() % 16 else v
+
+
+def _tensors(node):
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensors(v)
+    elif hasattr(node, "keys"):  # a dict or a weights.ParamTree
+        for k in node.keys():
+            yield from _tensors(node[k])
+
+
+def no_grad_operands(what: str, *operands) -> None:
+    """Raise when autograd is on and a tensor among ``operands`` (tensors,
+    or trees of them: dicts, ``ParamTree``s, lists) requires grad: the
+    kernel behind ``what`` has no backward."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t.requires_grad for t in _tensors(operands)):
+        raise RuntimeError(f"{what}: an operand requires grad, and the CUDA kernel has no "
+                           "backward; call it under torch.no_grad() or use the eager impl")
 
 
 def check_input(x: torch.Tensor, what: str) -> None:

@@ -205,6 +205,7 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
             fast_softmax=fast_softmax, exp_bf16=exp_bf16)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
+    cuda.no_grad_operands("flash_attention_packed", q, k, v, mask, rope)
     _check(q, k, v, num_heads)
     b, s, hd = q.shape
     d = hd // num_heads
@@ -281,6 +282,7 @@ def flash_attention(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.
         return flash_attention_plain(q, k, v, mask=mask, fast_softmax=fast_softmax)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    cuda.no_grad_operands("flash_attention", q, k, v, mask)
     b, h, s, d = q.shape
     if (not (q.shape == k.shape == v.shape) or not (q.dtype == k.dtype == v.dtype)
             or q.dtype not in cuda.DTYPE_CODES or d > MAX_HEAD_DIM):

@@ -265,6 +265,7 @@ def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
     ``int8_mlp_streamed`` (one a slab of ``chunk`` columns) with it. Counts
     the launch on ``wrapper``."""
     what = wrapper.__name__
+    cuda.no_grad_operands(what, params, pre_ln, x)
     if add_residual and pre_ln is None:
         raise ValueError("add_residual requires the fused pre_ln")
     if activation not in ACT_CODES:
@@ -363,6 +364,7 @@ def int8_linear_fused(params, x: torch.Tensor, *,
         return int8_linear_fused_plain(params, x, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"int8_linear_fused: unsupported device {x.device}")
+    cuda.no_grad_operands("int8_linear_fused", params, x, residual)
     cuda.check_input(x, "int8_linear_fused")
     k_in = x.shape[-1]
     w, s, b = qlinear_operands(params, k_in, x, "int8_linear_fused", any_width=True)

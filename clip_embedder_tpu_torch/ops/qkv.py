@@ -84,6 +84,7 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
         return ln_qkv_plain(params, pre_ln, x, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_qkv: unsupported device {x.device}")
+    cuda.no_grad_operands("ln_qkv", params, pre_ln, x)
     width = x.shape[-1]
     cfg = tile_config(width, x.dtype)
     if cfg is None:
@@ -165,6 +166,7 @@ def ln_qkv_int8(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
         return ln_qkv_int8_plain(params, pre_ln, x, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_qkv_int8: unsupported device {x.device}")
+    cuda.no_grad_operands("ln_qkv_int8", params, pre_ln, x)
     cuda.check_input(x, "ln_qkv_int8")
     width = x.shape[-1]
     ops = [qlinear_operands(params[n], width, x, f"ln_qkv_int8 {n}") for n in ("q", "k", "v")]

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 from ..errors import ConfigError
 
 
@@ -34,6 +36,24 @@ class Spec(NamedTuple):
 
 
 REPL = Spec("repl")  # fully replicated leaf
+
+
+class Sharded:
+    """One leaf held as equal ``parts`` along ``dim``, each on its own device:
+    the training path's tensor-parallel shards (``shard_params`` takes rank
+    r's part as it is) and FSDP chunks (``gather`` joins them where a
+    forward needs the whole leaf). The parts are the tensors an optimizer
+    steps."""
+
+    def __init__(self, parts: list, dim: int):
+        self.parts, self.dim = list(parts), dim
+
+    def dims(self) -> int:
+        return self.parts[0].dim()
+
+    def gather(self, device):
+        """The whole leaf on ``device`` (autograd-tracked moves)."""
+        return torch.cat([p.to(device) for p in self.parts], dim=self.dim)
 
 
 def _linear_col(params: dict, *, stacked: bool) -> dict:
@@ -116,12 +136,18 @@ def shard_params(params: dict, specs: dict, rank: int, n: int, *, path: str = ""
     "col"/"row" leaf narrowed to its ``1/n`` slice of ``spec.dim`` (a view),
     every replicated leaf as it is. A dimension that ``n`` does not divide
     raises ``ConfigError`` naming the leaf and its width (GSPMD would pad
-    it instead)."""
+    it instead). A ``Sharded`` leaf split the same way gives its part
+    ``rank``."""
     out = {}
     for k, v in params.items():
         spec, where = specs[k], f"{path}{k}"
         if isinstance(v, dict):
             out[k] = shard_params(v, spec, rank, n, path=f"{where}.")
+        elif isinstance(v, Sharded):
+            if v.dim != spec.dim or len(v.parts) != n:
+                raise ConfigError(f"{where} is held in {len(v.parts)} parts along dim {v.dim}, "
+                                  f"not {n} along {spec.dim}")
+            out[k] = v.parts[rank]
         elif spec.dim is None:
             out[k] = v
         else:

@@ -70,6 +70,12 @@ def _strip_row_bias(local: dict, specs: dict) -> dict:
     return out
 
 
+def _replicated(tree: dict, specs: dict) -> dict:
+    """``tree``'s replicated leaves alone."""
+    return {k: _replicated(v, specs[k]) if isinstance(v, dict) else v
+            for k, v in tree.items() if isinstance(v, dict) or specs[k].dim is None}
+
+
 def rank_trees(tree: dict, specs: dict, devices, *, path: str) -> list[dict]:
     """Each model rank's local tree on its device, row-parallel biases
     stripped."""
@@ -160,7 +166,8 @@ def tp_blocks(tree: dict, specs: dict, devices, *, layers: int, heads: int,
               activation: str, ln_eps: float) -> list[TPBlock]:
     local_heads = _local_heads(heads, len(devices), "the blocks' attention")
     ranks = rank_trees(tree["blocks"], specs["blocks"], devices, path="blocks.")
-    return [TPBlock(unstack(tree["blocks"], i), [unstack(r, i) for r in ranks], devices,
+    full = _replicated(tree["blocks"], specs["blocks"])
+    return [TPBlock(unstack(full, i), [unstack(r, i) for r in ranks], devices,
                     heads=local_heads, activation=activation, ln_eps=ln_eps)
             for i in range(layers)]
 
@@ -169,7 +176,12 @@ class TPViT(ViT):
     """``models.vit.ViT`` over a model row: ``forward`` is the ViT's own;
     its blocks, its rope tables and its pooler are the sharded ones. The
     replicated leaves and the activations live on the row's first
-    device."""
+    device.
+
+    ``tree`` may hold ``sharding.Sharded`` leaves, rank r reading its part.
+    The forward reads the tree's own tensors (``ParamTree(trainable=True)``)
+    or autograd-tracked moves of them, so a backward pass reaches a training
+    tree's leaves; a serving tree's tensors require no grad."""
 
     def __init__(self, cfg, tree: dict, devices):
         check_ported(cfg)
@@ -180,7 +192,7 @@ class TPViT(ViT):
         pool = tree.get("attn_pool")
         if pool is not None:  # the pooler's replicated leaves (probe/query, LNs)
             rest["attn_pool"] = {k: v for k, v in pool.items() if k not in ("attn", "mlp")}
-        ParamTree.__init__(self, rest)
+        ParamTree.__init__(self, rest, trainable=True)
         self.cfg, self.devices = cfg, devices
         self.act = ACTIVATIONS[cfg.activation]
         self._rope = {}
@@ -227,13 +239,14 @@ class TPViT(ViT):
 
 class TPTextTransformer(TextTransformer):
     """``models.text_transformer.TextTransformer`` over a model row (its
-    ``forward``, sharded blocks)."""
+    ``forward``, sharded blocks); ``tree`` as ``TPViT``'s."""
 
     def __init__(self, cfg, tree: dict, devices):
         devices = list(devices)
         tree = tree_to(tree, devices[0])
         specs = tp_param_specs(tree, tower="text")
-        ParamTree.__init__(self, {k: v for k, v in tree.items() if k != "blocks"})
+        ParamTree.__init__(self, {k: v for k, v in tree.items() if k != "blocks"},
+                           trainable=True)
         self.cfg, self.devices = cfg, devices
         self.blocks = tp_blocks(tree, specs, devices, layers=cfg.layers, heads=cfg.heads,
                                 activation=cfg.activation, ln_eps=cfg.ln_eps)

@@ -149,14 +149,22 @@ class ParamTree(nn.Module):
     parameters or buffers, dict nodes child ``ParamTree``s, so ``.to()``,
     ``state_dict()`` and ``parameters()`` see every weight. Reads like the
     dict it was built from (``p["w"]``, ``"b" in p``, ``p.get("b")``), which
-    is what the ops take."""
+    is what the ops take.
 
-    def __init__(self, tree: Mapping):
+    ``trainable=True`` keeps the tree's own tensors as they are, unregistered
+    (a ``Parameter`` made from a leaf would be a new tensor, and autograd
+    would stop at it): the training path reads the leaves its optimizer
+    steps, or autograd-tracked moves of them."""
+
+    def __init__(self, tree: Mapping, *, trainable: bool = False):
         super().__init__()
         self._names: tuple[str, ...] = tuple(tree)
+        self._held: dict[str, torch.Tensor] = {}
         for key, val in tree.items():
             if isinstance(val, Mapping):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable=trainable))
+            elif trainable:
+                self._held[key] = val
             elif val.is_floating_point():
                 self.register_parameter(key, nn.Parameter(val, requires_grad=False))
             else:
@@ -165,6 +173,8 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         if key not in self._names:
             raise KeyError(key)
+        if key in self._held:
+            return self._held[key]
         return getattr(self, key)
 
     def __contains__(self, key: object) -> bool:

@@ -752,3 +752,65 @@ def test_every_wrapper_launches_on_its_tensors_device(dev):
     torch.cuda.synchronize(last)
     assert [fn.launches - b for fn, b in zip(wrappers, before)] == [1] * len(wrappers)
     assert torch.cuda.current_device() == 0
+
+
+def _guard_call(name, dev):
+    """(wrapper, a call of it on small bf16 operands, the operand to mark
+    requires_grad, the plain version's result)."""
+    rng = np.random.default_rng(13)
+    dt = torch.bfloat16
+    params, pre_ln, x = _qkv_inputs(2 * 61, 256, dt, dev)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 61, 4 * 64)).astype(np.float32))
+               .to(dev, dt) for _ in range(3))
+    qh, kh, vh = (t.reshape(2, 61, 4, 64).transpose(1, 2).contiguous() for t in (q, k, v))
+    qparams = {n: _qlinear(rng, 256, 256, dt, dev) for n in "qkv"}
+    mlp = {"fc": _qlinear(rng, 256, 512, dt, dev), "proj": _qlinear(rng, 512, 256, dt, dev)}
+    calls = {
+        "ln_qkv": (qkv.ln_qkv, lambda: qkv.ln_qkv(params, pre_ln, x), x,
+                   lambda: qkv.ln_qkv_plain(params, pre_ln, x)),
+        "flash_attention_packed": (
+            flash.flash_attention_packed, lambda: flash.flash_attention_packed(q, k, v,
+                                                                               num_heads=4),
+            q, lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=4)),
+        "flash_attention": (flash.flash_attention, lambda: flash.flash_attention(qh, kh, vh), kh,
+                            lambda: flash.flash_attention_plain(qh, kh, vh)),
+        "ln_qkv_int8": (qkv.ln_qkv_int8, lambda: qkv.ln_qkv_int8(qparams, pre_ln, x),
+                        pre_ln["scale"], lambda: qkv.ln_qkv_int8_plain(qparams, pre_ln, x)),
+        "int8_linear_fused": (
+            int8_mlp.int8_linear_fused, lambda: int8_mlp.int8_linear_fused(qparams["q"], x,
+                                                                          residual=x),
+            x, lambda: int8_mlp.int8_linear_fused_plain(qparams["q"], x, residual=x)),
+        "int8_mlp": (int8_mlp.int8_mlp, lambda: int8_mlp.int8_mlp(mlp, x, pre_ln=pre_ln), x,
+                     lambda: int8_mlp.int8_mlp_plain(mlp, x, pre_ln=pre_ln)),
+        "int8_mlp_streamed": (
+            int8_mlp.int8_mlp_streamed,
+            lambda: int8_mlp.int8_mlp_streamed(mlp, x, pre_ln=pre_ln, chunk=256), x,
+            lambda: int8_mlp.int8_mlp_streamed_plain(mlp, x, pre_ln=pre_ln, chunk=256)),
+    }
+    return calls[name]
+
+
+@pytest.mark.parametrize("name", ["ln_qkv", "flash_attention_packed", "flash_attention",
+                                  "ln_qkv_int8", "int8_linear_fused", "int8_mlp",
+                                  "int8_mlp_streamed"])
+def test_wrapper_refuses_an_operand_that_requires_grad(dev, name):
+    """With autograd on, a wrapper raises before it launches when an operand
+    requires grad (its kernel has no backward: the fresh output would end
+    the gradient silently); under ``torch.no_grad()`` the same call
+    launches and matches the plain version."""
+    fn, call, operand, plain = _guard_call(name, dev)
+    operand.requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    assert fn.launches == before
+    with torch.no_grad():
+        got, ref = call(), plain()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        if "int8" in name:
+            assert_rows_close(g, r, torch.bfloat16)
+        else:
+            torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2)
