@@ -5,13 +5,14 @@ card, in phases, and fail loudly if any phase fails.
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --int8   # phases 1-2 for the int8 sources, phase 3's int8 kernels
     python3 chip_smoke.py --masks  # phases 1-2 for flash_packed, its time by mask form
+    python3 chip_smoke.py --options  # phases 1-2 for kernel 2's sources, phase 3's options
 
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
 2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a; for
-   the four int8 sources, ptxas's wgmma-serialization warnings and the int8
-   wgmma (IGMMA) and mma.sync (IMMA) instructions in their SASS (a warning,
-   no IGMMA or any IMMA fails);
+   the four int8 sources and ``flash_int8.cu``, ptxas's wgmma-serialization
+   warnings and the int8 wgmma (IGMMA) and mma.sync (IMMA) instructions in
+   their SASS (a warning, no IGMMA or any IMMA fails);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes (max error beside the tolerance), and its time (CUDA
    events, median of 20) beside the plain version's, one PyTorch library
@@ -21,7 +22,14 @@ card, in phases, and fail loudly if any phase fails.
    products): the packed attention kernel also with PE-Core's rope, the
    [B, H, S, D] attention kernel at the fixtures' and at SO400M's head
    layout, ``ln_qkv_int8`` and ``int8_linear_fused`` also at PE-Core-bigG's
-   vision width, the streamed int8 MLP at PE-Core-bigG's;
+   vision width, the streamed int8 MLP at PE-Core-bigG's; kernel 2's
+   options (``quant_qk``, ``quant_pv`` on ``csrc/flash_int8.cu``,
+   ``mxu_denom``, ``pair_exp``, ``group_mult``), which no path sets: every
+   flag set against the plain version at SO400M's shape in bf16 and f32,
+   the int8 ones with PE-Core-bigG's rope and at the three mask forms' shapes,
+   the schedule ones (which the card ignores) bitwise against the default
+   launch, the pre-pass's int8 codes against the plain version's, and the
+   int8 ones' batch-32 times with their device time by launch;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
    embeddings and classify results (4 heads x 16: no 128-lane head group, so
@@ -669,6 +677,182 @@ def phase_pe_attention_kernels(dev, peaks) -> dict:
                  "bound_ms": b_rope, "library_ms": t_rope_lib, "sdpa_ms": t_sdpa}}
 
 
+# kernel 2's options: tools/profile_attn_variants.py's flag sets, and each
+# option alone (none of them is set on any path of either package)
+FLASH_OPTIONS = {
+    "exp_bf16": {"exp_bf16": True}, "quant_qk": {"quant_qk": True},
+    "quant_qk+exp_bf16": {"quant_qk": True, "exp_bf16": True}, "fast": {"fast_softmax": True},
+    "fast+exp_bf16": {"fast_softmax": True, "exp_bf16": True},
+    "fast+pair_exp": {"fast_softmax": True, "pair_exp": True}, "pair_exp": {"pair_exp": True},
+    "fast+group_mult2": {"fast_softmax": True, "group_mult": 2},
+    "fast+pair+gm2": {"fast_softmax": True, "pair_exp": True, "group_mult": 2},
+    "quant_pv": {"quant_pv": True}, "quant_qk+quant_pv": {"quant_qk": True, "quant_pv": True},
+    "quant_pv+fast+exp_bf16": {"quant_pv": True, "fast_softmax": True, "exp_bf16": True},
+    "mxu_denom=False": {"mxu_denom": False}, "group_mult2": {"group_mult": 2},
+}
+# the int8 variants the kernels' record times (SO400M, batch 32, bf16)
+FLASH_TIMED = {"quant_qk": "qk", "quant_pv": "pv", "quant_qk+quant_pv": "both"}
+
+
+def option_route(d, dtype, opts) -> str:
+    """The kernel that kernel 2's wrapper picks for ``opts``."""
+    from clip_embedder_tpu_torch.ops import flash
+
+    quant = bool(opts.get("quant_qk") or opts.get("quant_pv"))
+    return flash.kernel_route(d, dtype, quant=quant, mxu_denom=opts.get("mxu_denom", True))
+
+
+def int8_attn_bound(b, h, s, d, peaks, opts) -> tuple:
+    """(bound ms, bound_by, s8 op, bf16 FLOP, bytes, the design's bytes) of
+    an int8 attention call on bf16 operands. The function's floor: the
+    quantized products' operations at the int8 peak plus the others' at the
+    bf16 peak, against q, k and v read and out written once, and for
+    ``quant_pv`` one more read of v (its per-column scales span every row
+    before the first product). q's codes are per row and k's scale can be
+    taken while pass 1 reads k, so codes need not pass through memory. The
+    design's bytes add to q, k, v and out what the pre-pass writes and the
+    attention kernel reads back (codes with S and D padded to 64 and 32,
+    their scales), printed beside the bound and not in it."""
+    bh, sp, dp = b * h, -(-s // 64) * 64, -(-d // 32) * 32
+    product = 2 * bh * s * s * d
+    n8 = product * (bool(opts.get("quant_qk")) + bool(opts.get("quant_pv")))
+    n16 = 2 * product - n8
+    operand = b * s * h * d * 2
+    nbytes = 4 * operand + (operand if opts.get("quant_pv") else 0)
+    design = 4 * operand
+    if opts.get("quant_qk"):
+        design += 2 * (2 * bh * sp * dp + bh * sp * 4 + bh * 4)
+    if opts.get("quant_pv"):
+        design += 2 * (bh * dp * sp + bh * dp * 4)
+    t_ops = n8 / peaks["int8"] + n16 / peaks["bf16"]
+    t_bytes = nbytes / peaks["bytes"]
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", n8, n16,
+            nbytes, design)
+
+
+def phase_flash_options(dev, peaks) -> dict:
+    """Kernel 2's options (``quant_qk``, ``quant_pv``, ``mxu_denom``,
+    ``pair_exp``, ``group_mult``), none of which any path sets: each flag
+    set against the plain version at SO400M's shape [8, 576, 16x72] in bf16
+    and f32, quant_qk / quant_pv (and both) with PE-Core-bigG's rope [8,
+    1025, 16x96] and at the three mask forms' shapes, group_mult / pair_exp
+    (ignored on the card) bitwise against the default launch, the
+    pre-pass's int8 codes against the plain version's, then the int8
+    variants' times at SO400M batch 32 in bf16 beside the plain version and
+    the bound (no PyTorch call computes int8 attention: library null), and
+    their device time by launch."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import flash
+    from clip_embedder_tpu_torch.ops.attention import causal_mask
+    from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
+
+    say("[3] flash_attention_packed's options against the plain version (bf16 2e-2, f32 2e-5)")
+    heads, seq, hdim = 16, 576, 72
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        q, k, v = attn_inputs(8, heads, seq, hdim, dtype, dev, seed=12)
+        for name, kw in FLASH_OPTIONS.items():
+            got = flash.flash_attention_packed(q, k, v, num_heads=heads, **kw)
+            torch.cuda.synchronize()
+            hold(f"flash_attention_packed B=8 S=576 16x72 {name} {dtype} "
+                 f"({option_route(hdim, dtype, kw)})", [got],
+                 [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw)], tol, tol)
+    quants = ("quant_qk", "quant_pv", "quant_qk+quant_pv")
+    grid, pe_heads, pe_dim = 32, 16, 96
+    pe_seq = grid * grid + 1
+    rope = tuple(t.to(dev) for t in head_tiled_tables(
+        axial_rope_table(grid, pe_dim, order="xy", prefix=1), pe_heads))
+    q, k, v = attn_inputs(8, pe_heads, pe_seq, pe_dim, torch.bfloat16, dev, seed=13)
+    for name in quants:
+        hold(f"flash_attention_packed+rope B=8 S=1025 16x96 {name} bf16",
+             [flash.flash_attention_packed(q, k, v, num_heads=pe_heads, rope=rope,
+                                           **FLASH_OPTIONS[name])],
+             [flash.flash_attention_packed_plain(q, k, v, num_heads=pe_heads, rope=rope,
+                                                 **FLASH_OPTIONS[name])], 2e-2, 2e-2)
+    codes = {"SO400M [8, 576, 16x72]": attn_inputs(8, heads, seq, hdim, torch.bfloat16, dev,
+                                                   seed=12) + [None],
+             "PE-Core-bigG with rope [8, 1025, 16x96]": [q, k, v, rope]}
+    for label, (cq, ck, cv, crope) in codes.items():
+        h = heads if crope is None else pe_heads
+        got = flash.quant_codes(cq, ck, cv, num_heads=h, rope=crope)
+        ref = flash.quant_codes_plain(cq, ck, cv, num_heads=h, rope=crope)
+        agree = {n: float((got[n] == ref[n]).float().mean()) for n in ("q", "k", "v")}
+        scales = all(torch.equal(got[n], ref[n]) for n in ("q_scale", "k_scale", "v_scale"))
+        say(f"  int8 codes, pre-pass against the plain version, {label} bf16: share equal q "
+            f"{agree['q']:.8f}, k {agree['k']:.8f}, v {agree['v']:.8f} (of "
+            f"{got['q'].numel()} each); scales equal: {scales}")
+    for form, (b, s, h, d) in (("shared causal", (5, 72, 20, 64)), ("key", (32, 256, 12, 64)),
+                               ("full", (32, 77, 12, 64))):
+        mask = (causal_mask(s, device=dev) if form == "shared causal" else
+                key_mask(b, s, dev) if form == "key" else full_mask(b, s, dev))
+        mq, mk, mv = attn_inputs(b, h, s, d, torch.bfloat16, dev, seed=14)
+        for name in quants:
+            got = flash.flash_attention_packed(mq, mk, mv, num_heads=h, mask=mask,
+                                               **FLASH_OPTIONS[name])
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{form} mask {name}: non-finite output")
+            hold(f"flash_attention_packed {form} mask [{b}, {s}, {h}x{d}] {name} bf16", [got],
+                 [flash.flash_attention_packed_plain(mq, mk, mv, num_heads=h, mask=mask,
+                                                     **FLASH_OPTIONS[name])], 2e-2, 2e-2)
+    for label, (bq, bk, bv, brope, h) in (
+            ("SO400M bf16", (*attn_inputs(8, heads, seq, hdim, torch.bfloat16, dev, seed=15),
+                             None, heads)),
+            ("SO400M f32", (*attn_inputs(8, heads, seq, hdim, torch.float32, dev, seed=15),
+                            None, heads)),
+            ("PE-Core-bigG rope bf16", (q, k, v, rope, pe_heads))):
+        for fast in (False, True):
+            base = flash.flash_attention_packed(bq, bk, bv, num_heads=h, rope=brope,
+                                                fast_softmax=fast)
+            for kw in ({"pair_exp": True}, {"group_mult": 2}, {"group_mult": 2, "pair_exp": True},
+                       {"group_mult": 4}):
+                got = flash.flash_attention_packed(bq, bk, bv, num_heads=h, rope=brope,
+                                                   fast_softmax=fast, **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(got, base)
+                say(f"  {label} fast={fast} {kw}: bitwise the default launch: {same}")
+                if not same:
+                    raise AssertionError(f"{label} {kw} differs from the default launch")
+
+    say("[3] flash_attention_packed's options at batch 32, SO400M 16x72, bf16 (CUDA events, "
+        "median of 20)")
+    b = 32
+    q, k, v = attn_inputs(b, heads, seq, hdim, torch.bfloat16, dev, seed=6)
+    t_exact = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads))
+    t_mma = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads,
+                                                         mxu_denom=False))
+    qh, kh, vh = (t.unflatten(-1, (heads, hdim)).transpose(1, 2) for t in (q, k, v))
+    t_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    say(f"  exact (TMA + wgmma, warp-specialized) {t_exact:.4f} ms; mxu_denom=False (the "
+        f"mma.sync kernel, cp.async tiles: the int8 kernel's class of design) {t_mma:.4f} ms; "
+        f"F.scaled_dot_product_attention {t_sdpa:.4f} ms")
+    out = {}
+    for name in FLASH_TIMED:
+        kw = FLASH_OPTIONS[name]
+        err = hold(f"flash_attention_packed B=32 {name} bf16",
+                   [flash.flash_attention_packed(q, k, v, num_heads=heads, **kw)],
+                   [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw)],
+                   2e-2, 2e-2)
+        t_k = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, **kw))
+        t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw),
+                      iters=5)
+        bound, by, n8, n16, nbytes, design = int8_attn_bound(b, heads, seq, hdim, peaks, kw)
+        say(f"  {name}: {t_k:.4f} ms ({t_k / t_exact:.3f}x exact; "
+            f"{option_route(hdim, q.dtype, kw)}); plain {t_p:.4f} ms (median of 5); library "
+            f"none (no PyTorch call computes int8 attention); bound {bound:.4f} ms ({n8:.3e} "
+            f"int8 op, {n16:.3e} bf16 FLOP, {nbytes:.3e} B, {by}); this design moves "
+            f"{design:.3e} B with its scratch codes ({design / peaks['bytes'] * 1e3:.4f} ms)")
+        launch_breakdown(f"  {name}", lambda: flash.flash_attention_packed(
+            q, k, v, num_heads=heads, **kw))
+        out[f"flash_attention_packed[{name}]"] = {
+            "name": f"flash_attention_packed[{name}]", "route": "cuda",
+            "source": "clip_embedder_tpu_torch/csrc/flash_int8.cu",
+            "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}  # no PyTorch call computes int8 attention
+    return out
+
+
 def hold_int8(name, got, ref, dtype) -> float:
     """Kernel against plain for the int8 kernels. The LayerNorm's row sums
     are taken in another order, which can flip an int8 code by one and move
@@ -1304,6 +1488,7 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     results = clip.classify(images[0], LABELS)
     n = launch_counts()
     launches = (n["ln_qkv"], n["flash_attention_packed"])
+    quant = quant_launch_counts()
 
     norms = np.linalg.norm(embs, axis=-1)
     say(f"  embed_images: {embs.shape}, finite={bool(np.isfinite(embs).all())}, "
@@ -1334,7 +1519,7 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
         raise AssertionError("the kernel path disagrees with the eager path")
 
     out = {"launches": {"ln_qkv": launches[0], "flash_attention_packed": launches[1]},
-           "embeddings": embs}
+           "quant_launches": quant, "embeddings": embs}
     if not timed:
         return out
     arrays = [to_rgb_array(im) for im in images]
@@ -1407,13 +1592,21 @@ def mask_launch_counts() -> dict:
     return dict(flash.flash_attention_packed.mask_launches)
 
 
+def quant_launch_counts() -> dict:
+    """The packed kernel's int8 launches, by what they quantize (qk, pv, both)."""
+    from clip_embedder_tpu_torch.ops import flash
+
+    return dict(flash.flash_attention_packed.quant_launches)
+
+
 def reset_launch_counts() -> None:
     from clip_embedder_tpu_torch.ops import flash
 
     for fn in _wrappers().values():
         fn.launches = 0
-    flash.flash_attention_packed.mask_launches = dict.fromkeys(
-        flash.flash_attention_packed.mask_launches, 0)
+    for counts in ("mask_launches", "quant_launches"):
+        setattr(flash.flash_attention_packed, counts,
+                dict.fromkeys(getattr(flash.flash_attention_packed, counts), 0))
 
 
 def expected_int8_launches(mode, depth_v, depth_t, *, streamed=False) -> dict:
@@ -3354,10 +3547,12 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
 
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
+# the sources whose SASS must hold int8 wgmma: those and kernel 2's int8 route
+SASS_CHECKED = INT8_SOURCES + ("flash_int8",)
 
 
 def int8_sass_report(libs) -> None:
-    """Per int8 source: the ptxas warnings that say it serialized wgmma
+    """Per int8 source built (``SASS_CHECKED``): the ptxas warnings that say it serialized wgmma
     (C7512-C7514 in the build log) and the counts of IGMMA (int8 wgmma) and
     IMMA (an mma.sync int8 product) instructions in the built library's SASS
     (``cuobjdump -sass``). Fails if a source has no IGMMA or any IMMA, if
@@ -3376,7 +3571,7 @@ def int8_sass_report(libs) -> None:
     if cuobjdump is None:
         raise FileNotFoundError("cuobjdump not found (beside nvcc, PATH, $CUDA_HOME/bin): "
                                 "the int8 SASS check cannot run")
-    for stem in INT8_SOURCES:
+    for stem in (s for s in SASS_CHECKED if s in libs):
         path = libs[stem]
         log = path.with_suffix(".log")
         if not log.is_file():
@@ -3394,7 +3589,8 @@ def int8_sass_report(libs) -> None:
 
 
 def main(argv) -> int:
-    int8_only, masks_only = "--int8" in argv, "--masks" in argv
+    int8_only, masks_only, options_only = "--int8" in argv, "--masks" in argv, \
+        "--options" in argv
     say("[1] environment")
     if not torch.cuda.is_available():
         say("  torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -3420,7 +3616,7 @@ def main(argv) -> int:
     say("[2] build")
     t = time.perf_counter()
     libs = kernels.build_all(INT8_SOURCES if int8_only else ("flash_packed",) if masks_only
-                             else None)
+                             else ("flash_packed", "flash_int8") if options_only else None)
     say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for stem, path in sorted(libs.items()):
@@ -3433,6 +3629,10 @@ def main(argv) -> int:
         say(card)
         return 0
     int8_sass_report(libs)
+    if options_only:  # kernel 2's options alone: no result line
+        phase_flash_options(dev, peaks)
+        say(card)
+        return 0
     if int8_only:  # a quick look at the int8 kernels alone: no result line
         phase_int8_kernels(dev, peaks)
         phase_streamed_mlp_kernel(dev, peaks)
@@ -3447,6 +3647,7 @@ def main(argv) -> int:
     record.update(phase_streamed_mlp_kernel(dev, peaks))
     record.update(phase_family_kernels(dev, peaks))
     record.update(phase_onnx_kernels(dev, peaks))
+    record.update(phase_flash_options(dev, peaks))
     fixtures = phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
@@ -3465,6 +3666,10 @@ def main(argv) -> int:
     record["flash_attention"]["launches"] = fixtures["flash_attention"]
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
+    # kernel 2's int8 options from the same run: its int8 launches by what
+    # they quantize (0: no path sets quant_qk or quant_pv)
+    for name, form in FLASH_TIMED.items():
+        record[f"flash_attention_packed[{name}]"]["launches"] = main_path["quant_launches"][form]
     for name in INT8_WRAPPERS:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][

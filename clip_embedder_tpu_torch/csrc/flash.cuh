@@ -39,6 +39,8 @@
 
 #pragma once
 
+#include <algorithm>
+
 #include "hopper.cuh"
 
 namespace clipk {
@@ -1085,13 +1087,15 @@ inline int launch_f32(const Attn& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. The route is the shape's: f32 takes the
 // FMA kernel; bf16 with D a multiple of 8 (16-byte rows, as TMA needs) the
-// TMA + wgmma kernel, which then needs 16-byte aligned q, k and v; bf16 with
-// any other D <= 128 the mma.sync kernel. Returns cudaGetLastError().
+// TMA + wgmma kernel, which then needs 16-byte aligned q, k and v, where the
+// denominator is the one its ones chunk gives (denom_rounded exactly when D
+// is not a multiple of 128); bf16 otherwise the mma.sync kernel. Returns
+// cudaGetLastError().
 inline int launch(const Attn& a, int dtype, cudaStream_t stream) {
   if (a.d < 1 || a.d > kMaxDP) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_f32(a, stream);  // f32: p rounded to v's type is p itself
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (a.d % 8 == 0) {
+  if (a.d % 8 == 0 && a.denom_rounded == (a.d % 128 != 0 ? 1 : 0)) {
     switch (a.d / 8) {
 #define CLIPK_FLASH_TMA(N) \
   case N:                  \
@@ -1130,6 +1134,109 @@ inline int launch(const Attn& a, int dtype, cudaStream_t stream) {
 #undef CLIPK_FLASH
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// rope pre-pass (kernel 2: flash_packed.cu, flash_int8.cu)
+// ---------------------------------------------------------------------------
+
+// (x0, x1) -> (x0 cos0 - x1 sin0, x1 cos1 + x0 sin1): x*cos + rot(x)*sin on
+// one lane pair in f32, each product and sum rounded as the plain version
+// rounds them (no fma contraction).
+__device__ __forceinline__ void rope_pair(float& x0, float& x1, float2 sn, float2 cs) {
+  const float y0 = __fadd_rn(__fmul_rn(x0, cs.x), __fmul_rn(-x1, sn.x));
+  const float y1 = __fadd_rn(__fmul_rn(x1, cs.y), __fmul_rn(x0, sn.y));
+  x0 = y0;
+  x1 = y1;
+}
+
+// qr/kr = rope(q)/rope(k), each rounded to T: one thread per lane pair of
+// the [rows = B*S, width = H*D] tensors, table row = token % seq.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rope_kernel(const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ sin,
+                const float* __restrict__ cos, T* __restrict__ qr, T* __restrict__ kr,
+                long long pairs, int seq, int width) {
+  const int half = width / 2;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs; i += 256ll * gridDim.x) {
+    const long long row = i / half;
+    const int c = 2 * (int)(i % half);
+    const size_t t = (size_t)(row % seq) * width + c, e = (size_t)row * width + c;
+    const float2 sn = *reinterpret_cast<const float2*>(sin + t);
+    const float2 cs = *reinterpret_cast<const float2*>(cos + t);
+    float x0 = to_f(q[e]), x1 = to_f(q[e + 1]);
+    rope_pair(x0, x1, sn, cs);
+    qr[e] = from_f<T>(x0);
+    qr[e + 1] = from_f<T>(x1);
+    x0 = to_f(k[e]);
+    x1 = to_f(k[e + 1]);
+    rope_pair(x0, x1, sn, cs);
+    kr[e] = from_f<T>(x0);
+    kr[e + 1] = from_f<T>(x1);
+  }
+}
+
+// The rope pre-pass of [batch, seq, width] q and k into qr and kr. dtype: 0
+// = float32, 1 = bfloat16. Returns cudaGetLastError().
+inline int launch_rope(const void* q, const void* k, const void* sin, const void* cos, void* qr,
+                       void* kr, int batch, int seq, int width, int dtype, cudaStream_t stream) {
+  const long long pairs = (long long)batch * seq * width / 2;
+  const int blocks = (int)std::min<long long>((pairs + 255) / 256, 132ll * 16);
+  if (dtype == 1)
+    rope_kernel<bf16><<<blocks, 256, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const float*>(sin),
+        static_cast<const float*>(cos), static_cast<bf16*>(qr), static_cast<bf16*>(kr), pairs,
+        seq, width);
+  else
+    rope_kernel<float><<<blocks, 256, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(sin), static_cast<const float*>(cos), static_cast<float*>(qr),
+        static_cast<float*>(kr), pairs, seq, width);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kernel 2's calls (flash_packed.cu, flash_int8.cu)
+// ---------------------------------------------------------------------------
+
+// The Attn of a call on [batch, seq, heads*d] q/k/v/out with an additive f32
+// mask given by its element strides (flash_packed_launch has the forms);
+// with rope tables the pre-pass first rotates q and k into qr and kr, which
+// the Attn then reads. The caller sets the softmax's fields. Returns 0, or a
+// cudaError: a stride pair of no form, another dtype, rope with a mask or
+// an odd d or without its scratch, the pre-pass's launch error.
+inline int packed_call(Attn* a, const void* q, const void* k, const void* v, const void* mask,
+                       long long mask_batch_stride, long long mask_row_stride, const void* sin,
+                       const void* cos, void* qr, void* kr, void* out, int batch, int seq,
+                       int heads, int d, int dtype, cudaStream_t stream) {
+  const long long sb = mask_batch_stride, sr = mask_row_stride, s = seq;
+  const bool form_ok = mask == nullptr ? sb == 0 && sr == 0
+                                       : (sb == 0 && (sr == s || sr == 0)) ||
+                                             (sb == s && sr == 0) || (sb == s * s && sr == s);
+  if (!form_ok || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  *a = Attn{};
+  a->q = q;
+  a->k = k;
+  a->v = v;
+  a->mask = static_cast<const float*>(mask);
+  a->mask_batch_stride = sb;
+  a->mask_row_stride = sr;
+  a->out = out;
+  a->batch_stride = (long long)seq * heads * d;
+  a->head_stride = d;
+  a->row_stride = (long long)heads * d;
+  a->batch = batch;
+  a->seq = seq;
+  a->heads = heads;
+  a->d = d;
+  if (sin == nullptr && cos == nullptr) return 0;
+  if (sin == nullptr || cos == nullptr || qr == nullptr || kr == nullptr || d % 2 != 0 ||
+      mask != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_rope(q, k, sin, cos, qr, kr, batch, seq, heads * d, dtype, stream);
+  a->q = qr;
+  a->k = kr;
+  return err;
 }
 
 }  // namespace flash

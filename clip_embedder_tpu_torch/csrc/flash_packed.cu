@@ -41,62 +41,9 @@
 // for the pre-pass and the attention together (chip_smoke.py, H100 SXM,
 // one run; PERF.md). The pre-pass moves 4 * B*S*H*D * 2 bytes plus the
 // tables (~0.13 ms at batch 32 by the bytes).
-
-#include <algorithm>
+// The JAX kernel's int8 options, quant_qk and quant_pv, are flash_int8.cu's.
 
 #include "flash.cuh"
-
-namespace {
-
-// (x0, x1) -> (x0 cos0 - x1 sin0, x1 cos1 + x0 sin1): x*cos + rot(x)*sin on
-// one lane pair in f32, each product and sum rounded as the plain version
-// rounds them (no fma contraction).
-__device__ __forceinline__ void rope_pair(float& x0, float& x1, float2 sn, float2 cs) {
-  const float y0 = __fadd_rn(__fmul_rn(x0, cs.x), __fmul_rn(-x1, sn.x));
-  const float y1 = __fadd_rn(__fmul_rn(x1, cs.y), __fmul_rn(x0, sn.y));
-  x0 = y0;
-  x1 = y1;
-}
-
-// qr/kr = rope(q)/rope(k), each rounded to T: one thread per lane pair of
-// the [rows = B*S, width = H*D] tensors, table row = token % seq.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    rope_kernel(const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ sin,
-                const float* __restrict__ cos, T* __restrict__ qr, T* __restrict__ kr,
-                long long pairs, int seq, int width) {
-  const int half = width / 2;
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs; i += 256ll * gridDim.x) {
-    const long long row = i / half;
-    const int c = 2 * (int)(i % half);
-    const size_t t = (size_t)(row % seq) * width + c, e = (size_t)row * width + c;
-    const float2 sn = *reinterpret_cast<const float2*>(sin + t);
-    const float2 cs = *reinterpret_cast<const float2*>(cos + t);
-    float x0 = clipk::to_f(q[e]), x1 = clipk::to_f(q[e + 1]);
-    rope_pair(x0, x1, sn, cs);
-    qr[e] = clipk::from_f<T>(x0);
-    qr[e + 1] = clipk::from_f<T>(x1);
-    x0 = clipk::to_f(k[e]);
-    x1 = clipk::to_f(k[e + 1]);
-    rope_pair(x0, x1, sn, cs);
-    kr[e] = clipk::from_f<T>(x0);
-    kr[e + 1] = clipk::from_f<T>(x1);
-  }
-}
-
-template <typename T>
-int launch_rope(const void* q, const void* k, const void* sin, const void* cos, void* qr,
-                void* kr, int batch, int seq, int width, cudaStream_t stream) {
-  const long long pairs = (long long)batch * seq * width / 2;
-  const int blocks = (int)std::min<long long>((pairs + 255) / 256, 132ll * 16);
-  rope_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const float*>(sin),
-      static_cast<const float*>(cos), static_cast<T*>(qr), static_cast<T*>(kr), pairs, seq,
-      width);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // q/k/v/out: [batch, seq, heads*d] contiguous; mask: null or an additive
 // f32 mask in one of the forms of the JAX kernel, given by its element
@@ -106,8 +53,10 @@ int launch_rope(const void* q, const void* k, const void* sin, const void* cos, 
 // element [batch, seq, seq] (seq*seq, seq; CoCa's causal + cls mask); any
 // other pair is refused, and both are 0 without a mask. sin/cos: null or
 // [seq, heads*d] f32 rope tables (d even; not with a mask), with qr/kr:
-// scratch like q for the rotated q and k. d <= 128. dtype: 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError().
+// scratch like q for the rotated q and k. d <= 128. denom_rounded: the
+// denominator sums p rounded to the input type (the JAX kernel's mxu_denom
+// where d is not a multiple of 128). dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError(). The int8 options take flash_int8.cu's entry.
 extern "C" int flash_packed_launch(const void* q, const void* k, const void* v,
                                    const void* mask, long long mask_batch_stride,
                                    long long mask_row_stride, const void* sin, const void* cos,
@@ -115,40 +64,14 @@ extern "C" int flash_packed_launch(const void* q, const void* k, const void* v,
                                    int d, float scale, int fast, int exp_bf16, int denom_rounded,
                                    int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long sb = mask_batch_stride, sr = mask_row_stride, s = seq;
-  const bool form_ok = mask == nullptr ? sb == 0 && sr == 0
-                                       : (sb == 0 && (sr == s || sr == 0)) ||
-                                             (sb == s && sr == 0) || (sb == s * s && sr == s);
-  if (!form_ok) return (int)cudaErrorInvalidValue;
-  clipk::flash::Attn a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.mask = static_cast<const float*>(mask);
-  a.mask_batch_stride = sb;
-  a.mask_row_stride = sr;
-  a.out = out;
-  a.batch_stride = (long long)seq * heads * d;
-  a.head_stride = d;
-  a.row_stride = (long long)heads * d;
-  a.batch = batch;
-  a.seq = seq;
-  a.heads = heads;
-  a.d = d;
+  clipk::flash::Attn a;
+  const int err = clipk::flash::packed_call(&a, q, k, v, mask, mask_batch_stride,
+                                            mask_row_stride, sin, cos, qr, kr, out, batch, seq,
+                                            heads, d, dtype, st);
+  if (err != 0) return err;
   a.scale = scale;
   a.fast = fast;
   a.exp_bf16 = exp_bf16;
   a.denom_rounded = denom_rounded;
-  if (sin != nullptr || cos != nullptr) {
-    if (sin == nullptr || cos == nullptr || qr == nullptr || kr == nullptr || d % 2 != 0 ||
-        mask != nullptr || (dtype != 0 && dtype != 1))
-      return (int)cudaErrorInvalidValue;
-    const int w = heads * d;
-    const int err = dtype == 1 ? launch_rope<clipk::bf16>(q, k, sin, cos, qr, kr, batch, seq, w, st)
-                               : launch_rope<float>(q, k, sin, cos, qr, kr, batch, seq, w, st);
-    if (err != 0) return err;
-    a.q = qr;
-    a.k = kr;
-  }
   return clipk::flash::launch(a, dtype, st);
 }

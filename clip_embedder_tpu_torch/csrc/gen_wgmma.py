@@ -8,14 +8,17 @@ each shape is its own asm statement; this script writes them out.
 * ``WgmmaRS<N, TRANS_B>``: m64nNk16, bf16 in, f32 accumulators, A (64 x 16)
   in registers (the ``mma.sync`` m16n8k16 A fragment of each warp's 16
   rows), B (16 x N) in shared memory through a matrix descriptor; N = 8,
-  16, ..., 64 and 128. The attention kernel's p.v (64 or 128 swizzled
-  columns, then the rest of the head dim in 8-column chunks).
+  16, ..., 64, 96 and 128. The attention kernels' p.v (flash.cuh: 64 or 128
+  swizzled columns, then the rest of the head dim in 8-column chunks;
+  flash_int8.cu: the head dim rounded up to 32).
 * ``WgmmaSS<N, TRANS_B>``: m64nNk16 with A and B both in shared memory, A
   K-major; N = 64 (the attention's q.k^T, B K-major) and 128 (the q/k/v
   projection, B MN-major).
 * ``WgmmaS8<N>``: m64nNk32, s8 x s8 -> s32 accumulators (N / 2 registers a
   thread), A and B both K-major in shared memory (the integer forms have no
-  transpose); N = 128 (the int8 MLPs' products, ``int8_wgmma.cuh``).
+  transpose); N = 128 (the int8 MLPs' products, ``int8_wgmma.cuh``) and
+  32, 64, 96 (``flash_int8.cu``: q.k^T over 64 keys, p.v over the head dim
+  rounded up to 32).
 """
 
 from pathlib import Path
@@ -116,8 +119,8 @@ struct WgmmaS8<{n}> {{
 
 
 def main() -> None:
-    body = HEAD + "".join(rs(n) for n in (*range(8, 65, 8), 128)) + "".join(
-        ss(n) for n in (64, 128)) + s8(128)
+    body = HEAD + "".join(rs(n) for n in (*range(8, 65, 8), 96, 128)) + "".join(
+        ss(n) for n in (64, 128)) + "".join(s8(n) for n in (32, 64, 96, 128))
     body += "\n}  // namespace clipk\n"
     (Path(__file__).resolve().parent / "wgmma.cuh").write_text(body)
 

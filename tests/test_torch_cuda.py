@@ -262,6 +262,136 @@ def test_flash_kernel_rope_refuses_mask_and_bad_tables(dev):
         flash.flash_attention_packed(q, q, q, num_heads=4, rope=(tab[:8], tab[:8]))
 
 
+QUANT = {"qk": {"quant_qk": True}, "pv": {"quant_pv": True},
+         "both": {"quant_qk": True, "quant_pv": True}}
+MODES = {"exact": {}, "fast": {"fast_softmax": True}, "exp_bf16": {"exp_bf16": True},
+         "fast_bf16exp": {"fast_softmax": True, "exp_bf16": True}}
+
+
+def _held_int8(q, k, v, h, quant, **kw):
+    """The int8 kernel against the plain version: one launch, counted as
+    quantized (the plain version is never its fallback)."""
+    before = (flash.flash_attention_packed.launches,
+              flash.flash_attention_packed.quant_launches[quant])
+    got = flash.flash_attention_packed(q, k, v, num_heads=h, **QUANT[quant], **kw)
+    torch.cuda.synchronize()
+    assert (flash.flash_attention_packed.launches,
+            flash.flash_attention_packed.quant_launches[quant]) == (before[0] + 1, before[1] + 1)
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, **QUANT[quant], **kw)
+    assert torch.isfinite(got).all()
+    # f32: the codes agree exactly, only sums' order differs; bf16: the
+    # kernel's exp (ex2.approx) can move a p code by one
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 16, 61, 72), (2, 2, 64, 64), (1, 4, 130, 128),
+                                     (2, 3, 33, 40)])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", sorted(QUANT))
+def test_flash_int8_kernel_matches_plain(dev, b, h, s, d, mode, dtype, quant):
+    """quant_qk / quant_pv / both on the int8 kernel (csrc/flash_int8.cu):
+    SO400M's head dim over a ragged S, one 64-key tile, D = 128 over three
+    tiles, D = 40 (padded to 64 in the codes), every softmax mode."""
+    assert flash.kernel_route(d, dtype, quant=True) == "int8_wgmma"
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=31)
+    _held_int8(q, k, v, h, quant, **MODES[mode])
+
+
+@pytest.mark.parametrize("form", ["causal", "key", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", sorted(QUANT))
+def test_flash_int8_kernel_masks(dev, form, dtype, quant):
+    """Every mask form of packed_mask on the int8 kernel, at CoCa text's 77
+    tokens: the shared causal mask, BERT's key rows (a row with every key
+    masked) and CoCa's full blocks; counted by form too."""
+    b, h, s, d = 4, 12, 77, 64
+    mask = {"causal": lambda: causal_mask(s, device=dev), "key": lambda: _key_mask(b, s, dev),
+            "full": lambda: _full_mask(b, s, dev)}[form]()
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=32)
+    kind = "shared" if form == "causal" else form
+    before = flash.flash_attention_packed.mask_launches[kind]
+    _held_int8(q, k, v, h, quant, mask=mask)
+    assert flash.flash_attention_packed.mask_launches[kind] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", sorted(QUANT))
+def test_flash_int8_kernel_rope(dev, dtype, quant):
+    """The codes come from the rotated q and k (PE-Core's tables, 16 x 96)."""
+    b, h, s, d = 2, 16, 65, 96
+    sin, cos = (t.to(dev) for t in head_tiled_tables(
+        axial_rope_table(8, d, order="xy", prefix=1), h))
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=33)
+    _held_int8(q, k, v, h, quant, rope=(sin, cos))
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_int8_codes_match_plain(dev, rope, dtype):
+    """The pre-pass divides and rounds as the plain version does: every code
+    and scale of q, k and v equal."""
+    b, h, s, d = 2, 16, 65, 72
+    tables = None
+    if rope:
+        tables = tuple(t.to(dev) for t in head_tiled_tables(
+            axial_rope_table(8, d, order="xy", prefix=1), h))
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=34)
+    got = flash.quant_codes(q, k, v, num_heads=h, rope=tables)
+    ref = flash.quant_codes_plain(q, k, v, num_heads=h, rope=tables)
+    for name in ref:
+        assert torch.equal(got[name], ref[name]), name
+
+
+@pytest.mark.parametrize("b,h,s,d,dtype", [
+    (2, 16, 61, 72, torch.bfloat16), (2, 16, 130, 96, torch.bfloat16),
+    (2, 2, 64, 128, torch.bfloat16), (2, 32, 50, 36, torch.bfloat16),
+    (2, 16, 61, 72, torch.float32)], ids=["tma-72", "tma-96", "tma-128", "mma_sync", "f32"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_schedule_options_are_bitwise_the_default(dev, b, h, s, d, dtype, fast):
+    """group_mult and pair_exp change the TPU's schedule alone, and the card
+    has no counterpart: on each route the launch writes the bytes of the
+    default one."""
+    q, k, v = _packed(b, h, s, d, dtype, dev, seed=35)
+    base = flash.flash_attention_packed(q, k, v, num_heads=h, fast_softmax=fast)
+    for kw in ({"pair_exp": True}, {"group_mult": 2}, {"group_mult": 2, "pair_exp": True},
+               {"group_mult": 4}):
+        got = flash.flash_attention_packed(q, k, v, num_heads=h, fast_softmax=fast, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mxu_denom_false(dev, dtype):
+    """mxu_denom=False sums p unrounded: on bf16 at D = 72 the mma.sync
+    kernel (the TMA kernel's denominator is its ones column)."""
+    q, k, v = _packed(2, 16, 61, 72, dtype, dev, seed=36)
+    want = "mma_sync" if dtype == torch.bfloat16 else "fma_f32"
+    assert flash.kernel_route(72, dtype, mxu_denom=False) == want
+    got = flash.flash_attention_packed(q, k, v, num_heads=16, mxu_denom=False)
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=16, mxu_denom=False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_int8_never_runs_the_plain_version(dev, monkeypatch):
+    """No fallback: with a quant flag on the card the int8 kernel launches
+    (its counter moves) and the plain version is never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    q, k, v = _packed(2, 16, 61, 72, torch.bfloat16, dev, seed=37)
+    ref = flash.flash_attention_packed_plain(q, k, v, num_heads=16, quant_qk=True,
+                                             quant_pv=True)
+    monkeypatch.setattr(flash, "flash_attention_packed_plain", refuse)
+    before = flash.flash_attention_packed.quant_launches["both"]
+    got = flash.flash_attention_packed(q, k, v, num_heads=16, quant_qk=True, quant_pv=True)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_packed.quant_launches["both"] == before + 1
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.parametrize("b,h,s,d", [(2, 4, 16, 16), (2, 4, 61, 72), (1, 3, 130, 128),
                                      (2, 16, 576, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -772,6 +902,12 @@ def _guard_call(name, dev):
             flash.flash_attention_packed, lambda: flash.flash_attention_packed(q, k, v,
                                                                                num_heads=4),
             q, lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=4)),
+        "flash_attention_packed[quant]": (
+            flash.flash_attention_packed,
+            lambda: flash.flash_attention_packed(q, k, v, num_heads=4, quant_qk=True,
+                                                 quant_pv=True),
+            k, lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=4, quant_qk=True,
+                                                          quant_pv=True)),
         "flash_attention": (flash.flash_attention, lambda: flash.flash_attention(qh, kh, vh), kh,
                             lambda: flash.flash_attention_plain(qh, kh, vh)),
         "ln_qkv_int8": (qkv.ln_qkv_int8, lambda: qkv.ln_qkv_int8(qparams, pre_ln, x),
@@ -790,7 +926,8 @@ def _guard_call(name, dev):
     return calls[name]
 
 
-@pytest.mark.parametrize("name", ["ln_qkv", "flash_attention_packed", "flash_attention",
+@pytest.mark.parametrize("name", ["ln_qkv", "flash_attention_packed",
+                                  "flash_attention_packed[quant]", "flash_attention",
                                   "ln_qkv_int8", "int8_linear_fused", "int8_mlp",
                                   "int8_mlp_streamed"])
 def test_wrapper_refuses_an_operand_that_requires_grad(dev, name):

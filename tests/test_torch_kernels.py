@@ -98,6 +98,25 @@ def test_flash_plain_matches_jax_kernel_bf16_exp_bf16(fast):
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_plain_matches_jax_kernel_f32_exp_bf16(fast):
+    """exp_bf16 on f32 inputs, against the JAX kernel compiled with
+    ``xla_allow_excess_precision`` off: XLA on the CPU otherwise keeps the
+    exp's argument and result in f32 where the kernel rounds them to bf16
+    (up to 1.5e-3 on 97% of the elements at this shape; ROADMAP.md §3)."""
+    import jax
+
+    b, h, s, d = 2, 16, 61, 72
+    arrs = _attn_case(b, s, h, d, "float32", seed=9)
+    args = [jnp.asarray(a) for a in arrs]
+    kw = {"fast_softmax": fast, "exp_bf16": True}
+    compiled = jax.jit(lambda q, k, v: jflash(q, k, v, num_heads=h, interpret=True, **kw)).lower(
+        *args).compile(compiler_options={"xla_allow_excess_precision": False})
+    ref = np.asarray(compiled(*args), np.float32)
+    got = flash.flash_attention_packed(*(torch.from_numpy(a) for a in arrs), num_heads=h, **kw)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
 def test_flash_plain_lane_multiple_head_dim_sums_unrounded_p():
     """D a multiple of 128: the denominator is the f32 sum of p itself."""
     b, h, s, d = 1, 2, 16, 128
