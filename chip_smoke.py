@@ -10,7 +10,8 @@ card, in phases, and fail loudly if any phase fails.
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
 2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a; for
-   the four int8 sources and ``flash_int8.cu``, ptxas's wgmma-serialization
+   the four int8 sources, ``flash_int8.cu`` and ``flash_int8_tma.cu``,
+   ptxas's wgmma-serialization
    warnings and the int8 wgmma (IGMMA) and mma.sync (IMMA) instructions in
    their SASS (a warning, no IGMMA or any IMMA fails);
 3. kernels — each kernel against its plain PyTorch version at the main
@@ -23,13 +24,18 @@ card, in phases, and fail loudly if any phase fails.
    [B, H, S, D] attention kernel at the fixtures' and at SO400M's head
    layout, ``ln_qkv_int8`` and ``int8_linear_fused`` also at PE-Core-bigG's
    vision width, the streamed int8 MLP at PE-Core-bigG's; kernel 2's
-   options (``quant_qk``, ``quant_pv`` on ``csrc/flash_int8.cu``,
-   ``mxu_denom``, ``pair_exp``, ``group_mult``), which no path sets: every
-   flag set against the plain version at SO400M's shape in bf16 and f32,
-   the int8 ones with PE-Core-bigG's rope and at the three mask forms' shapes,
-   the schedule ones (which the card ignores) bitwise against the default
-   launch, the pre-pass's int8 codes against the plain version's, and the
-   int8 ones' batch-32 times with their device time by launch;
+   options (``quant_qk``, ``quant_pv``: in bf16 with D a multiple of 8 on
+   ``csrc/flash_int8_tma.cu``, in f32 and at other D on
+   ``csrc/flash_int8.cu``; ``mxu_denom``, ``pair_exp``, ``group_mult``),
+   which no path sets: every flag set against the plain version at
+   SO400M's shape in bf16 and f32, the int8 ones with PE-Core-bigG's rope,
+   at the three mask forms' shapes and, on the TMA route, each with and
+   without ``fast_softmax`` / ``exp_bf16`` at D = 64, 72, 96, 128 over
+   ragged S, the schedule ones (which the card ignores) bitwise against
+   the default launch, both routes' int8 codes against the plain version's
+   (all equal), and the int8 ones' batch-32 times at SO400M's and
+   PE-Core's shapes (the first route's in f32) with their device time by
+   launch and the route that ran;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
    embeddings and classify results (4 heads x 16: no 128-lane head group, so
@@ -690,8 +696,11 @@ FLASH_OPTIONS = {
     "quant_pv+fast+exp_bf16": {"quant_pv": True, "fast_softmax": True, "exp_bf16": True},
     "mxu_denom=False": {"mxu_denom": False}, "group_mult2": {"group_mult": 2},
 }
-# the int8 variants the kernels' record times (SO400M, batch 32, bf16)
+# the int8 variants the kernels' record times (SO400M, batch 32: bf16 on the
+# TMA route, f32 on the first one)
 FLASH_TIMED = {"quant_qk": "qk", "quant_pv": "pv", "quant_qk+quant_pv": "both"}
+INT8_ROUTE_SOURCES = {"int8_tma": "clip_embedder_tpu_torch/csrc/flash_int8_tma.cu",
+                      "int8_wgmma": "clip_embedder_tpu_torch/csrc/flash_int8.cu"}
 
 
 def option_route(d, dtype, opts) -> str:
@@ -702,32 +711,52 @@ def option_route(d, dtype, opts) -> str:
     return flash.kernel_route(d, dtype, quant=quant, mxu_denom=opts.get("mxu_denom", True))
 
 
-def int8_attn_bound(b, h, s, d, peaks, opts) -> tuple:
+def int8_attn_bound(b, h, s, d, peaks, opts, *, es=2, route="int8_tma") -> tuple:
     """(bound ms, bound_by, s8 op, bf16 FLOP, bytes, the design's bytes) of
-    an int8 attention call on bf16 operands. The function's floor: the
-    quantized products' operations at the int8 peak plus the others' at the
-    bf16 peak, against q, k and v read and out written once, and for
-    ``quant_pv`` one more read of v (its per-column scales span every row
-    before the first product). q's codes are per row and k's scale can be
-    taken while pass 1 reads k, so codes need not pass through memory. The
-    design's bytes add to q, k, v and out what the pre-pass writes and the
-    attention kernel reads back (codes with S and D padded to 64 and 32,
-    their scales), printed beside the bound and not in it."""
+    an int8 attention call on operands of ``es`` bytes an element. The
+    function's floor: the quantized products' operations at the int8 peak
+    plus the others' at the bf16 peak (f32 operands: the f32 peak), against
+    q, k and v read and out written once, and for ``quant_pv`` one more read
+    of v (its per-column scales span every row before the first product).
+    q's codes are per row and k's scale can be taken while pass 1 reads k,
+    so codes need not pass through memory. The design's bytes, printed
+    beside the bound and not in it, add what its code pass writes and the
+    attention reads back (codes with S and D padded to 64 and 32, their
+    scales): on ``route`` "int8_tma" the prep pass reads each quantized one
+    of k and v once more and writes its codes, which the attention streams
+    in place of it (q's codes are made in the attention kernel); on
+    "int8_wgmma" the pre-pass writes q's and k's codes too."""
     bh, sp, dp = b * h, -(-s // 64) * 64, -(-d // 32) * 32
     product = 2 * bh * s * s * d
     n8 = product * (bool(opts.get("quant_qk")) + bool(opts.get("quant_pv")))
     n16 = 2 * product - n8
-    operand = b * s * h * d * 2
+    operand = b * s * h * d * es
     nbytes = 4 * operand + (operand if opts.get("quant_pv") else 0)
     design = 4 * operand
-    if opts.get("quant_qk"):
-        design += 2 * (2 * bh * sp * dp + bh * sp * 4 + bh * 4)
-    if opts.get("quant_pv"):
-        design += 2 * (bh * dp * sp + bh * dp * 4)
-    t_ops = n8 / peaks["int8"] + n16 / peaks["bf16"]
+    if route == "int8_tma":
+        for on, scales in ((opts.get("quant_qk"), bh), (opts.get("quant_pv"), bh * dp)):
+            if on:  # the prep pass's read, its codes written and read back, its scales
+                design += operand + 2 * bh * sp * dp + 4 * scales
+    else:
+        if opts.get("quant_qk"):
+            design += 2 * (2 * bh * sp * dp + bh * sp * 4 + bh * 4)
+        if opts.get("quant_pv"):
+            design += 2 * (bh * dp * sp + bh * dp * 4)
+    peak16 = peaks["bf16"] if es == 2 else peaks["f32"]
+    t_ops = n8 / peaks["int8"] + n16 / peak16
     t_bytes = nbytes / peaks["bytes"]
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", n8, n16,
             nbytes, design)
+
+
+def route_delta(before: dict) -> str:
+    """The int8 launches since ``before`` (``route_launches``), by route and
+    form: which int8 kernel ran."""
+    from clip_embedder_tpu_torch.ops import flash
+
+    now = flash.flash_attention_packed.route_launches
+    moved = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    return ", ".join(f"{k} +{v}" for k, v in moved.items()) or "no int8 launch"
 
 
 def phase_flash_options(dev, peaks) -> dict:
@@ -735,66 +764,86 @@ def phase_flash_options(dev, peaks) -> dict:
     ``pair_exp``, ``group_mult``), none of which any path sets: each flag
     set against the plain version at SO400M's shape [8, 576, 16x72] in bf16
     and f32, quant_qk / quant_pv (and both) with PE-Core-bigG's rope [8,
-    1025, 16x96] and at the three mask forms' shapes, group_mult / pair_exp
-    (ignored on the card) bitwise against the default launch, the
-    pre-pass's int8 codes against the plain version's, then the int8
-    variants' times at SO400M batch 32 in bf16 beside the plain version and
-    the bound (no PyTorch call computes int8 attention: library null), and
-    their device time by launch."""
+    1025, 16x96] and at the three mask forms' shapes, on the int8 TMA route
+    each variant with and without fast_softmax / exp_bf16 at D = 64, 72,
+    96, 128 over ragged S (577, 1025) and on the first int8 route at D = 36,
+    group_mult / pair_exp (ignored on the card) bitwise against the default
+    launch, both int8 routes' codes against the plain version's, then the
+    int8 variants' times at batch 32 (SO400M and PE-Core-bigG with rope in
+    bf16 on the TMA route, SO400M in f32 on the first route) beside the
+    plain version and the bound (no PyTorch call computes int8 attention:
+    library null), their device time by launch and the route that ran."""
     import torch.nn.functional as F
 
     from clip_embedder_tpu_torch.ops import flash
     from clip_embedder_tpu_torch.ops.attention import causal_mask
     from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
 
+    counts = flash.flash_attention_packed.route_launches
+
+    def held(label, q, k, v, h, tol=2e-2, **kw):
+        before = dict(counts)
+        got = flash.flash_attention_packed(q, k, v, num_heads=h, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        return hold(f"{label} [{route_delta(before)}]", [got],
+                    [flash.flash_attention_packed_plain(q, k, v, num_heads=h, **kw)], tol, tol)
+
     say("[3] flash_attention_packed's options against the plain version (bf16 2e-2, f32 2e-5)")
     heads, seq, hdim = 16, 576, 72
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
         q, k, v = attn_inputs(8, heads, seq, hdim, dtype, dev, seed=12)
         for name, kw in FLASH_OPTIONS.items():
-            got = flash.flash_attention_packed(q, k, v, num_heads=heads, **kw)
-            torch.cuda.synchronize()
-            hold(f"flash_attention_packed B=8 S=576 16x72 {name} {dtype} "
-                 f"({option_route(hdim, dtype, kw)})", [got],
-                 [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw)], tol, tol)
+            held(f"flash_attention_packed B=8 S=576 16x72 {name} {dtype} "
+                 f"({option_route(hdim, dtype, kw)})", q, k, v, heads, tol, **kw)
     quants = ("quant_qk", "quant_pv", "quant_qk+quant_pv")
+    modes = {"": {}, "+fast": {"fast_softmax": True}, "+exp_bf16": {"exp_bf16": True},
+             "+fast+exp_bf16": {"fast_softmax": True, "exp_bf16": True}}
+    say("[3] the int8 routes' variants: each softmax mode, ragged S, the TMA route's head dims "
+        "and one the first route takes (bf16 2e-2)")
+    for b, s, h, d in ((4, 577, 16, 64), (4, 577, 16, 72), (2, 1025, 16, 96), (2, 1025, 8, 128),
+                       (4, 577, 16, 36)):
+        q, k, v = attn_inputs(b, h, s, d, torch.bfloat16, dev, seed=16)
+        for name in quants:
+            for mode, mkw in modes.items():
+                held(f"flash_attention_packed [{b}, {s}, {h}x{d}] {name}{mode} bf16", q, k, v, h,
+                     **FLASH_OPTIONS[name], **mkw)
     grid, pe_heads, pe_dim = 32, 16, 96
     pe_seq = grid * grid + 1
     rope = tuple(t.to(dev) for t in head_tiled_tables(
         axial_rope_table(grid, pe_dim, order="xy", prefix=1), pe_heads))
     q, k, v = attn_inputs(8, pe_heads, pe_seq, pe_dim, torch.bfloat16, dev, seed=13)
     for name in quants:
-        hold(f"flash_attention_packed+rope B=8 S=1025 16x96 {name} bf16",
-             [flash.flash_attention_packed(q, k, v, num_heads=pe_heads, rope=rope,
-                                           **FLASH_OPTIONS[name])],
-             [flash.flash_attention_packed_plain(q, k, v, num_heads=pe_heads, rope=rope,
-                                                 **FLASH_OPTIONS[name])], 2e-2, 2e-2)
-    codes = {"SO400M [8, 576, 16x72]": attn_inputs(8, heads, seq, hdim, torch.bfloat16, dev,
-                                                   seed=12) + [None],
-             "PE-Core-bigG with rope [8, 1025, 16x96]": [q, k, v, rope]}
+        for mode in ("", "+fast+exp_bf16"):
+            held(f"flash_attention_packed+rope B=8 S=1025 16x96 {name}{mode} bf16", q, k, v,
+                 pe_heads, rope=rope, **FLASH_OPTIONS[name], **modes[mode])
+    codes = {"SO400M [8, 576, 16x72] bf16": attn_inputs(8, heads, seq, hdim, torch.bfloat16, dev,
+                                                        seed=12) + [None],
+             "PE-Core-bigG with rope [8, 1025, 16x96] bf16": [q, k, v, rope],
+             "SO400M [8, 576, 16x72] f32": attn_inputs(8, heads, seq, hdim, torch.float32, dev,
+                                                       seed=12) + [None]}
     for label, (cq, ck, cv, crope) in codes.items():
         h = heads if crope is None else pe_heads
         got = flash.quant_codes(cq, ck, cv, num_heads=h, rope=crope)
         ref = flash.quant_codes_plain(cq, ck, cv, num_heads=h, rope=crope)
         agree = {n: float((got[n] == ref[n]).float().mean()) for n in ("q", "k", "v")}
         scales = all(torch.equal(got[n], ref[n]) for n in ("q_scale", "k_scale", "v_scale"))
-        say(f"  int8 codes, pre-pass against the plain version, {label} bf16: share equal q "
+        route = flash.kernel_route(cq.shape[-1] // h, cq.dtype, quant=True)
+        say(f"  int8 codes, {route} against the plain version, {label}: share equal q "
             f"{agree['q']:.8f}, k {agree['k']:.8f}, v {agree['v']:.8f} (of "
             f"{got['q'].numel()} each); scales equal: {scales}")
+        if min(agree.values()) < 1.0 or not scales:
+            raise AssertionError(f"{route}'s int8 codes differ from the plain version's")
     for form, (b, s, h, d) in (("shared causal", (5, 72, 20, 64)), ("key", (32, 256, 12, 64)),
                                ("full", (32, 77, 12, 64))):
         mask = (causal_mask(s, device=dev) if form == "shared causal" else
                 key_mask(b, s, dev) if form == "key" else full_mask(b, s, dev))
         mq, mk, mv = attn_inputs(b, h, s, d, torch.bfloat16, dev, seed=14)
         for name in quants:
-            got = flash.flash_attention_packed(mq, mk, mv, num_heads=h, mask=mask,
-                                               **FLASH_OPTIONS[name])
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"{form} mask {name}: non-finite output")
-            hold(f"flash_attention_packed {form} mask [{b}, {s}, {h}x{d}] {name} bf16", [got],
-                 [flash.flash_attention_packed_plain(mq, mk, mv, num_heads=h, mask=mask,
-                                                     **FLASH_OPTIONS[name])], 2e-2, 2e-2)
+            for mode in ("", "+fast"):
+                held(f"flash_attention_packed {form} mask [{b}, {s}, {h}x{d}] {name}{mode} bf16",
+                     mq, mk, mv, h, mask=mask, **FLASH_OPTIONS[name], **modes[mode])
     for label, (bq, bk, bv, brope, h) in (
             ("SO400M bf16", (*attn_inputs(8, heads, seq, hdim, torch.bfloat16, dev, seed=15),
                              None, heads)),
@@ -814,8 +863,7 @@ def phase_flash_options(dev, peaks) -> dict:
                 if not same:
                     raise AssertionError(f"{label} {kw} differs from the default launch")
 
-    say("[3] flash_attention_packed's options at batch 32, SO400M 16x72, bf16 (CUDA events, "
-        "median of 20)")
+    say("[3] flash_attention_packed's int8 options at batch 32 (CUDA events, median of 20)")
     b = 32
     q, k, v = attn_inputs(b, heads, seq, hdim, torch.bfloat16, dev, seed=6)
     t_exact = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads))
@@ -823,33 +871,52 @@ def phase_flash_options(dev, peaks) -> dict:
                                                          mxu_denom=False))
     qh, kh, vh = (t.unflatten(-1, (heads, hdim)).transpose(1, 2) for t in (q, k, v))
     t_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    say(f"  exact (TMA + wgmma, warp-specialized) {t_exact:.4f} ms; mxu_denom=False (the "
-        f"mma.sync kernel, cp.async tiles: the int8 kernel's class of design) {t_mma:.4f} ms; "
+    say(f"  SO400M [32, 576, 16x72] bf16: exact (TMA + wgmma, warp-specialized) {t_exact:.4f} "
+        f"ms; mxu_denom=False (the mma.sync kernel) {t_mma:.4f} ms; "
         f"F.scaled_dot_product_attention {t_sdpa:.4f} ms")
+    pq, pk, pv = attn_inputs(b, pe_heads, pe_seq, pe_dim, torch.bfloat16, dev, seed=6)
+    prope = tuple(t.to(dev) for t in head_tiled_tables(
+        axial_rope_table(grid, pe_dim, order="xy", prefix=1), pe_heads))
+    t_pe = cuda_ms(lambda: flash.flash_attention_packed(pq, pk, pv, num_heads=pe_heads,
+                                                        rope=prope))
+    say(f"  PE-Core-bigG [32, 1025, 16x96] with rope bf16: exact {t_pe:.4f} ms")
+    fq, fk, fv = attn_inputs(b, heads, seq, hdim, torch.float32, dev, seed=6)
+    cases = {"int8_tma": ("SO400M [32, 576, 16x72] bf16", q, k, v, heads, None, 2, t_exact),
+             "int8_tma PE": ("PE-Core-bigG [32, 1025, 16x96] rope bf16", pq, pk, pv, pe_heads,
+                             prope, 2, t_pe),
+             "int8_wgmma": ("SO400M [32, 576, 16x72] f32", fq, fk, fv, heads, None, 4, None)}
     out = {}
-    for name in FLASH_TIMED:
-        kw = FLASH_OPTIONS[name]
-        err = hold(f"flash_attention_packed B=32 {name} bf16",
-                   [flash.flash_attention_packed(q, k, v, num_heads=heads, **kw)],
-                   [flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw)],
-                   2e-2, 2e-2)
-        t_k = cuda_ms(lambda: flash.flash_attention_packed(q, k, v, num_heads=heads, **kw))
-        t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(q, k, v, num_heads=heads, **kw),
-                      iters=5)
-        bound, by, n8, n16, nbytes, design = int8_attn_bound(b, heads, seq, hdim, peaks, kw)
-        say(f"  {name}: {t_k:.4f} ms ({t_k / t_exact:.3f}x exact; "
-            f"{option_route(hdim, q.dtype, kw)}); plain {t_p:.4f} ms (median of 5); library "
-            f"none (no PyTorch call computes int8 attention); bound {bound:.4f} ms ({n8:.3e} "
-            f"int8 op, {n16:.3e} bf16 FLOP, {nbytes:.3e} B, {by}); this design moves "
-            f"{design:.3e} B with its scratch codes ({design / peaks['bytes'] * 1e3:.4f} ms)")
-        launch_breakdown(f"  {name}", lambda: flash.flash_attention_packed(
-            q, k, v, num_heads=heads, **kw))
-        out[f"flash_attention_packed[{name}]"] = {
-            "name": f"flash_attention_packed[{name}]", "route": "cuda",
-            "source": "clip_embedder_tpu_torch/csrc/flash_int8.cu",
-            "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err, "ms": t_k,
-            "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}  # no PyTorch call computes int8 attention
+    for key, (label, cq, ck, cv, h, crope, es, t_ref) in cases.items():
+        d = cq.shape[-1] // h
+        for name in FLASH_TIMED:
+            kw = FLASH_OPTIONS[name]
+            route = option_route(d, cq.dtype, kw)
+
+            def kernel():
+                return flash.flash_attention_packed(cq, ck, cv, num_heads=h, rope=crope, **kw)
+
+            err = held(f"flash_attention_packed {label} {name}", cq, ck, cv, h,
+                       2e-2 if es == 2 else 2e-5, rope=crope, **kw)
+            t_k = cuda_ms(kernel)
+            t_p = cuda_ms(lambda: flash.flash_attention_packed_plain(
+                cq, ck, cv, num_heads=h, rope=crope, **kw), iters=5)
+            bound, by, n8, n16, nbytes, design = int8_attn_bound(
+                b, h, cq.shape[1], d, peaks, kw, es=es, route=route)
+            ratio = f"{t_k / t_ref:.3f}x exact; " if t_ref else ""
+            say(f"  {label} {name}: {t_k:.4f} ms ({ratio}{route}); plain {t_p:.4f} ms (median "
+                f"of 5); library none (no PyTorch call computes int8 attention); bound "
+                f"{bound:.4f} ms ({n8:.3e} int8 op, {n16:.3e} {'bf16' if es == 2 else 'f32'} "
+                f"FLOP, {nbytes:.3e} B, {by}); this design moves {design:.3e} B with its codes "
+                f"({design / peaks['bytes'] * 1e3:.4f} ms)")
+            launch_breakdown(f"  {label} {name}", kernel)
+            row = f"flash_attention_packed[{name}]" if key == "int8_tma" else \
+                f"flash_attention_packed[{name}, {'PE-Core rope' if 'PE' in key else route}]"
+            out[row] = {
+                "name": row, "route": "cuda", "source": INT8_ROUTE_SOURCES[route],
+                "replaces": "clip_embedder_tpu/ops/flash.py:308", "max_abs_err": err, "ms": t_k,
+                "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                "library_ms": None,  # no PyTorch call computes int8 attention
+                "route_form": f"{route} {FLASH_TIMED[name]}"}
     return out
 
 
@@ -1508,6 +1575,9 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
         if after_embed != want or launches != (2 * depth_v + depth_t, 2 * depth_v + depth_t):
             raise AssertionError(f"kernel launches {after_embed}/{launches} are not one "
                                  "per layer per tower forward")
+    say(f"  int8 attention launches (no path sets quant_qk / quant_pv): {quant}")
+    if any(quant.values()):
+        raise AssertionError("the main path launched an int8 attention kernel")
 
     plain = VisionEmbedder(tower=clip.vision.tower, spec=vspec, config=clip.vision.config,
                            model_config=clip.vision.model_config,
@@ -1593,10 +1663,12 @@ def mask_launch_counts() -> dict:
 
 
 def quant_launch_counts() -> dict:
-    """The packed kernel's int8 launches, by what they quantize (qk, pv, both)."""
+    """The packed kernel's int8 launches, by what they quantize (qk, pv,
+    both) and by route and form ("int8_tma qk", ...)."""
     from clip_embedder_tpu_torch.ops import flash
 
-    return dict(flash.flash_attention_packed.quant_launches)
+    return {**flash.flash_attention_packed.quant_launches,
+            **flash.flash_attention_packed.route_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1604,7 +1676,7 @@ def reset_launch_counts() -> None:
 
     for fn in _wrappers().values():
         fn.launches = 0
-    for counts in ("mask_launches", "quant_launches"):
+    for counts in ("mask_launches", "quant_launches", "route_launches"):
         setattr(flash.flash_attention_packed, counts,
                 dict.fromkeys(getattr(flash.flash_attention_packed, counts), 0))
 
@@ -3548,7 +3620,7 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 # the sources whose SASS must hold int8 wgmma: those and kernel 2's int8 route
-SASS_CHECKED = INT8_SOURCES + ("flash_int8",)
+SASS_CHECKED = INT8_SOURCES + ("flash_int8", "flash_int8_tma")
 
 
 def int8_sass_report(libs) -> None:
@@ -3616,7 +3688,8 @@ def main(argv) -> int:
     say("[2] build")
     t = time.perf_counter()
     libs = kernels.build_all(INT8_SOURCES if int8_only else ("flash_packed",) if masks_only
-                             else ("flash_packed", "flash_int8") if options_only else None)
+                             else ("flash_packed", "flash_int8", "flash_int8_tma") if options_only
+                             else None)
     say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for stem, path in sorted(libs.items()):
@@ -3666,10 +3739,11 @@ def main(argv) -> int:
     record["flash_attention"]["launches"] = fixtures["flash_attention"]
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
-    # kernel 2's int8 options from the same run: its int8 launches by what
-    # they quantize (0: no path sets quant_qk or quant_pv)
-    for name, form in FLASH_TIMED.items():
-        record[f"flash_attention_packed[{name}]"]["launches"] = main_path["quant_launches"][form]
+    # kernel 2's int8 options from the same run: its int8 launches by route
+    # and what they quantize (0: no path sets quant_qk or quant_pv)
+    for rec in record.values():
+        if "route_form" in rec:
+            rec["launches"] = main_path["quant_launches"][rec.pop("route_form")]
     for name in INT8_WRAPPERS:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][

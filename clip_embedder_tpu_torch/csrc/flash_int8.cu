@@ -50,6 +50,7 @@
 // in flight during the softmax, and the code pass fused into the projection.
 
 #include "flash.cuh"
+#include "flash_int8.cuh"
 
 namespace clipk {
 namespace flash8 {
@@ -75,20 +76,7 @@ struct Codes {
   int s64, dp;
 };
 
-// x / s rounded half to even (rintf), clipped to [lo, 127]: the division is
-// IEEE's, as the plain version's is.
-__device__ __forceinline__ int8_t code(float x, float s, float lo) {
-  return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x, s)), lo), 127.0f);
-}
-
-// amax / 127, or 1 where amax is 0; `bits`: amax as Codes keeps it
-__device__ __forceinline__ float scale_of(float amax) {
-  return amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f);
-}
-
-__device__ __forceinline__ float scale_of(unsigned int bits) {
-  return scale_of(__uint_as_float(bits));
-}
+// (code() and scale_of(), which make every code and scale: flash_int8.cuh)
 
 // ---------------------------------------------------------------------------
 // pre-pass: two launches over (batch*head, 64-row chunks), 256 threads
@@ -484,12 +472,8 @@ __global__ void __launch_bounds__(kThreads)
   };
   if constexpr (PV) {
     const bool fast = a.fast != 0, ex = a.exp_bf16 != 0;
-    auto scale = [&](float pmax) {
-      return pmax == 0.0f ? 1.0f : ex ? round_bf16(__fdiv_rn(pmax, 127.0f))
-                                      : __fdiv_rn(pmax, 127.0f);
-    };
-    ps_a = scale(pexp<kF32>(arg(top_a, 0, fast), ex));
-    ps_b = scale(pexp<kF32>(arg(top_b, 1, fast), ex));
+    ps_a = p_scale(pexp<kF32>(arg(top_a, 0, fast), ex), ex);
+    ps_b = p_scale(pexp<kF32>(arg(top_b, 1, fast), ex), ex);
   }
 
   // pass 2: p, the denominator, p.v
@@ -529,10 +513,7 @@ __global__ void __launch_bounds__(kThreads)
             const float sc = half ? ps_b : ps_a;
             int8_t cd[2];
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const float r = ex ? round_bf16(__fdiv_rn(p[j], sc)) : __fdiv_rn(p[j], sc);
-              cd[j] = (int8_t)fminf(fmaxf(rintf(r), 0.0f), 127.0f);
-            }
+            for (int j = 0; j < 2; ++j) cd[j] = (int8_t)p_code(p[j], sc, ex);
             *reinterpret_cast<uint16_t*>(pt + ((key / 16) * 64 + lr) * 16 + key % 16) =
                 (uint16_t)((uint8_t)cd[0] | ((uint16_t)(uint8_t)cd[1] << 8));
             if (half) l_b += p[0] + p[1]; else l_a += p[0] + p[1];

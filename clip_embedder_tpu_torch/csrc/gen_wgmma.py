@@ -19,6 +19,11 @@ each shape is its own asm statement; this script writes them out.
   transpose); N = 128 (the int8 MLPs' products, ``int8_wgmma.cuh``) and
   32, 64, 96 (``flash_int8.cu``: q.k^T over 64 keys, p.v over the head dim
   rounded up to 32).
+* ``WgmmaS8RS<N>``: m64nNk32, s8 x s8 -> s32, A (64 x 32) in registers (the
+  ``mma.sync`` m16n8k32 A fragment of each warp's 16 rows: 4 codes a
+  register), B K-major in shared memory; N = 32, 64, 96, 128
+  (``flash_int8_tma.cu``: p.v over the head dim rounded up to 32, p's codes
+  straight from the softmax's registers).
 """
 
 from pathlib import Path
@@ -33,6 +38,8 @@ HEAD = """\
 // K-major in shared memory.
 // WgmmaS8<N>::run(d, desc_a, desc_b, scale_d): d (64 x N s32) = A (64 x 32
 // s8) . B (32 x N s8) + (scale_d ? d : 0), A and B K-major in shared memory.
+// WgmmaS8RS<N>::run(d, a, desc_b, scale_d): the same with A (64 x 32 s8) in
+// registers, 4 codes a register.
 #pragma once
 
 #include <cstdint>
@@ -47,6 +54,9 @@ struct WgmmaSS;
 
 template <int N>
 struct WgmmaS8;
+
+template <int N>
+struct WgmmaS8RS;
 """
 
 
@@ -118,9 +128,29 @@ struct WgmmaS8<{n}> {{
 """
 
 
+def s8rs(n: int) -> str:
+    nd = n // 2
+    a0, desc, scale = nd, nd + 4, nd + 5
+    return f"""
+template <>
+struct WgmmaS8RS<{n}> {{
+  __device__ __forceinline__ static void run(int (&d)[{nd}], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 "
+        "{{{regs(nd, 0)}}}, {{{regs(4, a0)}}}, %{desc}, p;\\n}}\\n"
+        : {outs(nd, "r")}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }}
+}};
+"""
+
+
 def main() -> None:
     body = HEAD + "".join(rs(n) for n in (*range(8, 65, 8), 96, 128)) + "".join(
-        ss(n) for n in (64, 128)) + "".join(s8(n) for n in (32, 64, 96, 128))
+        ss(n) for n in (64, 128)) + "".join(s8(n) for n in (32, 64, 96, 128)) + "".join(
+        s8rs(n) for n in (32, 64, 96, 128))
     body += "\n}  // namespace clipk\n"
     (Path(__file__).resolve().parent / "wgmma.cuh").write_text(body)
 

@@ -57,9 +57,11 @@ The wrappers launch the CUDA kernels for tensors on the card and run the
 ``*_plain`` versions for tensors on the CPU. On the card the head dim and
 dtype pick the kernel (``kernel_route``): bf16 with D a multiple of 8 the
 TMA + wgmma kernel, other bf16 head dims the mma.sync one, f32 the FMA one;
-a quantized call (``quant_qk`` or ``quant_pv``) the int8 kernel of
-``csrc/flash_int8.cu``, and ``mxu_denom=False`` where D is not a multiple of
-128 the mma.sync one (the TMA kernel's denominator is its ones column of v).
+a quantized call (``quant_qk`` or ``quant_pv``) in bf16 with D a multiple of
+8 the int8 TMA kernel of ``csrc/flash_int8_tma.cu``, any other the int8
+kernel of ``csrc/flash_int8.cu``; and ``mxu_denom=False`` where D is not a
+multiple of 128 the mma.sync one (the TMA kernel's denominator is its ones
+column of v).
 """
 
 from __future__ import annotations
@@ -84,26 +86,38 @@ def head_group(num_heads: int, d: int) -> int | None:
 def kernel_route(d: int, dtype: torch.dtype, *, quant: bool = False,
                  mxu_denom: bool = True) -> str | None:
     """Which kernel runs head dim ``d`` in ``dtype`` (the sources' ``launch``
-    gates, by shape): ``"int8_wgmma"`` for a quantized call (``quant``:
-    ``quant_qk`` or ``quant_pv``, ``csrc/flash_int8.cu``); else, in
-    ``csrc/flash.cuh``, ``"fma_f32"`` for f32, and for bf16 ``"tma_wgmma"``
-    where d is a multiple of 8 (TMA moves 16-byte rows) and the denominator
-    is the one its ones column gives (``mxu_denom``, or d a multiple of
-    128), else ``"mma_sync"``; None for what no kernel takes (d outside
-    1..128, or another dtype)."""
+    gates, by shape): for a quantized call (``quant``: ``quant_qk`` or
+    ``quant_pv``) ``"int8_tma"`` in bf16 where d is a multiple of 8
+    (``csrc/flash_int8_tma.cu``), else ``"int8_wgmma"``
+    (``csrc/flash_int8.cu``); otherwise, in ``csrc/flash.cuh``,
+    ``"fma_f32"`` for f32, and for bf16 ``"tma_wgmma"`` where d is a
+    multiple of 8 (TMA moves 16-byte rows) and the denominator is the one
+    its ones column gives (``mxu_denom``, or d a multiple of 128), else
+    ``"mma_sync"``; None for what no kernel takes (d outside 1..128, or
+    another dtype)."""
     if not 1 <= d <= MAX_HEAD_DIM or dtype not in cuda.DTYPE_CODES:
         return None
+    tma = dtype == torch.bfloat16 and d % 8 == 0
     if quant:
-        return "int8_wgmma"
+        return "int8_tma" if tma else "int8_wgmma"
     if dtype == torch.float32:
         return "fma_f32"
-    return "tma_wgmma" if d % 8 == 0 and (mxu_denom or d % 128 == 0) else "mma_sync"
+    return "tma_wgmma" if tma and (mxu_denom or d % 128 == 0) else "mma_sync"
+
+
+def frag_pos(key: torch.Tensor) -> torch.Tensor:
+    """Where the int8 TMA kernel keeps key ``key`` in v's transposed codes
+    (``csrc/flash_int8_tma.cu`` ``frag_pos``): the keys of each 32 in the
+    order a thread's q·kᵀ accumulator holds them (thread t of a quad: keys
+    8m + 2t and 8m + 2t + 1 of n8 tile m), which is s8 wgmma's A fragment
+    order (4 codes a register, at 4t and 16 + 4t) of the same p."""
+    return (key & ~15) + 4 * ((key & 7) >> 1) + 2 * ((key >> 3) & 1) + (key & 1)
 
 
 def _tma_operands(route: str | None, *ts):
-    """The operands as the TMA kernel reads them: 16-byte aligned (a view
+    """The operands as the TMA kernels read them: 16-byte aligned (a view
     that starts mid-allocation is copied)."""
-    if route != "tma_wgmma":
+    if route not in ("tma_wgmma", "int8_tma"):
         return ts
     return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
@@ -324,6 +338,45 @@ def _launch_int8(q, k, v, num_heads: int, mask, rope, out, *, fast_softmax: bool
     return scratch
 
 
+def _launch_int8_tma(q, k, v, num_heads: int, mask, rope, out, *, fast_softmax: bool = False,
+                     exp_bf16: bool = False, denom_rounded: int = 0, quant_qk: bool = True,
+                     quant_pv: bool = True, dump: bool = False) -> tuple:
+    """Launch ``csrc/flash_int8_tma.cu`` on checked, aligned bf16 operands:
+    its prep pass, then the attention into ``out``. Returns its scratch (S64,
+    D32: S and D rounded up to 64 and 32; None for what is not made): k's
+    codes [B·H, S64/64, D32/16, 64, 16], each 64-key tile as q·kᵀ reads it,
+    with their scale per (batch, head); v's codes transposed, [B·H, S64/64,
+    4, D32, 16] (each tile's keys in 16-key chunks, each 32 in ``frag_pos``
+    order), with their column scales [B·H, D32]; with ``dump`` (quant_qk)
+    q's codes [B·H, S64, D32] and row scales [B·H, S64] as the attention
+    kernel made them."""
+    b, s, hd = q.shape
+    d = hd // num_heads
+    bh, sp, dp = b * num_heads, -(-s // 64) * 64, -(-d // 32) * 32
+    m, sb, sr = mask
+
+    def buf(on, dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=q.device) if on else None
+
+    scratch = (buf(quant_qk, torch.int8, bh, sp // 64, dp // 16, 64, 16),
+               buf(quant_qk, torch.float32, bh),
+               buf(quant_pv, torch.int8, bh, sp // 64, 4, dp, 16),
+               buf(quant_pv, torch.float32, bh, dp),
+               buf(dump, torch.int8, bh, sp, dp), buf(dump, torch.float32, bh, sp))
+    sin, cos = rope if rope is not None else (None, None)
+    # rope: the kernel's pre-pass writes the rotated q and k here
+    qr, kr = (torch.empty_like(q), torch.empty_like(k)) if rope is not None else (None, None)
+    fn = cuda.kernel("flash_int8_tma", "flash_int8_tma_launch",
+                     (cuda.VOID_P,) * 4 + (cuda.LONG,) * 2 + (cuda.VOID_P,) * 11
+                     + (cuda.INT,) * 4 + (cuda.FLOAT,) + (cuda.INT,) * 5 + (cuda.VOID_P,))
+    cuda.launch(fn, "flash_attention_packed", q, cuda.ptr(q), cuda.ptr(k), cuda.ptr(v),
+                cuda.ptr(m), sb, sr, cuda.ptr(sin), cuda.ptr(cos), cuda.ptr(qr), cuda.ptr(kr),
+                *(cuda.ptr(t) for t in scratch), cuda.ptr(out), b, s, num_heads, d,
+                float(1.0 / d ** 0.5), int(fast_softmax), int(exp_bf16), denom_rounded,
+                int(quant_qk), int(quant_pv))
+    return scratch
+
+
 def _card_operands(what: str, q, k, v, num_heads: int, mask, rope):
     """The checks of a launch on the card: (the packed mask and its strides,
     the rope tables as the pre-pass reads them)."""
@@ -364,15 +417,28 @@ def quant_codes_plain(q, k, v, *, num_heads: int, rope=None) -> dict:
 
 
 def quant_codes(q, k, v, *, num_heads: int, rope=None) -> dict:
-    """``quant_codes_plain``'s codes and scales as the int8 kernel's
-    pre-pass writes them on the card (its scratch, cut to S and D, v's codes
-    turned back to [B·H, S, D]): for showing that both divide and round
-    alike. CPU tensors run ``quant_codes_plain``."""
+    """``quant_codes_plain``'s codes and scales as the int8 route of these
+    operands (``kernel_route``) makes them on the card, cut to S and D, v's
+    codes turned back to [B·H, S, D]: ``"int8_wgmma"``'s pre-pass scratch;
+    ``"int8_tma"``'s prep pass (k, v) and attention kernel (q, written back
+    from the same arithmetic by a launch with both halves quantized). For
+    showing that both divide and round as the plain version does. CPU
+    tensors run ``quant_codes_plain``."""
     if q.device.type == "cpu":
         return quant_codes_plain(q, k, v, num_heads=num_heads, rope=rope)
     mask, tables = _card_operands("quant_codes", q, k, v, num_heads, None, rope)
     _, s, hd = q.shape
     d = hd // num_heads
+    if kernel_route(d, q.dtype, quant=True) == "int8_tma":
+        q, k, v = _tma_operands("int8_tma", q, k, v)
+        kc, ksc, vt, vsc, qc, qsc = _launch_int8_tma(q, k, v, num_heads, mask, tables,
+                                                     torch.empty_like(q), dump=True)
+        bh, sp, dp = qc.shape
+        kc = kc.permute(0, 1, 3, 2, 4).reshape(bh, sp, dp)  # [B·H, S64, D32]
+        vt = vt.permute(0, 3, 1, 2, 4).reshape(bh, dp, sp)  # [B·H, D32, S64], frag_pos order
+        keys = frag_pos(torch.arange(s, device=q.device))
+        return {"q": qc[:, :s, :d], "q_scale": qsc[:, :s], "k": kc[:, :s, :d], "k_scale": ksc,
+                "v": vt[:, :d].index_select(2, keys).transpose(1, 2), "v_scale": vsc[:, :d]}
     qc, qsc, kc, kmax, vt, vmax = _launch_int8(q, k, v, num_heads, mask, tables, None)
     return {"q": qc[:, :s, :d], "q_scale": qsc[:, :s], "k": kc[:, :s, :d],
             "k_scale": _scale(kmax.view(torch.float32)), "v": vt[:, :d, :s].transpose(1, 2),
@@ -405,11 +471,17 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
         return out
     denom_rounded = int(mxu_denom and not quant_pv and d % 128 != 0)
     if quant_qk or quant_pv:
-        _launch_int8(q, k, v, num_heads, mask, tables, out, fast_softmax=fast_softmax,
-                     exp_bf16=exp_bf16, denom_rounded=denom_rounded, quant_qk=quant_qk,
-                     quant_pv=quant_pv)
-        flash_attention_packed.quant_launches[
-            "both" if quant_qk and quant_pv else "qk" if quant_qk else "pv"] += 1
+        route = kernel_route(d, q.dtype, quant=True)
+        launch = _launch_int8
+        if route == "int8_tma":
+            q, k, v = _tma_operands(route, q, k, v)
+            launch = _launch_int8_tma
+        launch(q, k, v, num_heads, mask, tables, out, fast_softmax=fast_softmax,
+               exp_bf16=exp_bf16, denom_rounded=denom_rounded, quant_qk=quant_qk,
+               quant_pv=quant_pv)
+        form = "both" if quant_qk and quant_pv else "qk" if quant_qk else "pv"
+        flash_attention_packed.quant_launches[form] += 1
+        flash_attention_packed.route_launches[f"{route} {form}"] += 1
     else:
         q, k, v = _tma_operands(kernel_route(d, q.dtype, mxu_denom=mxu_denom), q, k, v)
         m, sb, sr = mask
@@ -431,10 +503,13 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
 
 
 # kernel launches, for showing a run went through it; the launches with a
-# mask also by its form, the quantized ones by what they quantize
+# mask also by its form, the quantized ones by what they quantize, and by
+# the int8 route that ran them too ("int8_tma qk", ...)
 flash_attention_packed.launches = 0
 flash_attention_packed.mask_launches = {"shared": 0, "key": 0, "full": 0}
 flash_attention_packed.quant_launches = {"qk": 0, "pv": 0, "both": 0}
+flash_attention_packed.route_launches = {
+    f"{route} {form}": 0 for route in ("int8_tma", "int8_wgmma") for form in ("qk", "pv", "both")}
 
 
 # -- kernel 3: the [B, H, S, D] layout ---------------------------------------

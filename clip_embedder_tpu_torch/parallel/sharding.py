@@ -135,9 +135,9 @@ def shard_params(params: dict, specs: dict, rank: int, n: int, *, path: str = ""
     """Model rank ``rank``'s local tree of ``params`` over ``n`` ranks: each
     "col"/"row" leaf narrowed to its ``1/n`` slice of ``spec.dim`` (a view),
     every replicated leaf as it is. A dimension that ``n`` does not divide
-    raises ``ConfigError`` naming the leaf and its width (GSPMD would pad
-    it instead). A ``Sharded`` leaf split the same way gives its part
-    ``rank``."""
+    raises ``ConfigError`` naming the leaf and its width (JAX's
+    ``device_put`` refuses such a sharding too). A ``Sharded`` leaf split
+    the same way gives its part ``rank``."""
     out = {}
     for k, v in params.items():
         spec, where = specs[k], f"{path}{k}"

@@ -17,9 +17,16 @@ every rank too.
 
 PE-Core's rope tables are head-tiled [S, H·D]; each rank gets the columns
 of its heads. The pooler attention (SigLIP/PE MAP pool, CoCa's attentional
-pooler) shards by heads like a block's, the MAP MLP like any MLP. Heads or
-widths that the ranks do not divide raise ``ConfigError`` (GSPMD would pad
-them).
+pooler) shards by heads like a block's, the MAP MLP like any MLP.
+
+Heads that the ranks do not divide (12 heads over 8 ranks: ViT-B's 768
+columns divide, its heads do not) are taken as the JAX package takes them:
+GSPMD splits the H·D columns of q/k/v evenly, whatever the heads. The
+ranks' q/k/v columns then come together on the activations' device, the
+whole attention runs there (eager), and each rank takes back its columns
+of the result for its row-parallel out-projection. A width that the ranks
+do not divide (H·D, an MLP's hidden) raises ``ConfigError``, as JAX's
+``device_put`` of such a sharding raises.
 """
 
 from __future__ import annotations
@@ -28,11 +35,11 @@ from collections.abc import Mapping
 
 import torch
 
-from ..errors import ConfigError
 from ..models.text_transformer import TextTransformer
 from ..models.vit import ViT, check_ported
-from ..ops.attention import multi_head_attention
-from ..ops.layers import ACTIVATIONS, layer_norm, mlp, promote
+from ..ops.attention import _split_heads, attention_core, multi_head_attention
+from ..ops.layers import ACTIVATIONS, layer_norm, linear, mlp, promote
+from ..ops.rope import apply_rope
 from ..weights import ParamTree, unstack
 from .mesh import tree_to
 from .sharding import shard_params, tp_param_specs
@@ -98,30 +105,55 @@ def reduce_ranks(parts: list[torch.Tensor], bias: torch.Tensor | None,
     return acc.to(like.dtype)
 
 
-def _local_heads(heads: int, n: int, what: str) -> int:
-    if heads % n:
-        raise ConfigError(f"tensor_parallel over {n} ranks: {what} has {heads} heads, "
-                          f"which {n} does not divide")
-    return heads // n
-
-
 class TPAttention:
-    """One attention sharded by heads over a model row: ``ranks[r]`` is
+    """One attention of ``heads`` heads over a model row: ``ranks[r]`` is
     rank r's {"q","k","v","out"} tree (``out`` without its bias), ``pre_ln``
-    its LayerNorm ({r: tree} per rank, or None)."""
+    its LayerNorm ({r: tree} per rank, or None). Where the ranks divide the
+    heads, each runs its own heads' attention; otherwise the attention core
+    runs whole on the activations' device (``_gathered``)."""
 
     def __init__(self, ranks, devices, *, heads: int, bias, pre_ln=None, ln_eps=1e-6):
         self.ranks, self.devices, self.heads = ranks, devices, heads
         self.bias, self.pre_ln, self.ln_eps = bias, pre_ln, ln_eps
 
     def __call__(self, x, *, kv=None, mask=None, rope=None) -> torch.Tensor:
+        n = len(self.devices)
+        if self.heads % n:
+            return self._gathered(x, kv, mask, rope)
         parts = []
         for r, (d, p) in enumerate(zip(self.devices, self.ranks)):
             parts.append(multi_head_attention(
-                p, x.to(d), num_heads=self.heads, kv=None if kv is None else kv.to(d),
+                p, x.to(d), num_heads=self.heads // n, kv=None if kv is None else kv.to(d),
                 mask=None if mask is None else mask.to(d), impl="eager",
                 pre_ln=None if self.pre_ln is None else self.pre_ln[r], ln_eps=self.ln_eps,
                 rope=None if rope is None else rope[r]))
+        return reduce_ranks(parts, self.bias, x)
+
+    def _gathered(self, x, kv, mask, rope) -> torch.Tensor:
+        """Heads the ranks do not divide: each rank projects its even share
+        of the q/k/v columns (its local tree), the shares are joined on
+        ``x``'s device, rope (the ranks' table columns joined) and the
+        eager core run on all heads there, and each rank's out-projection
+        takes its share of the result's columns."""
+        cols = {"q": [], "k": [], "v": []}
+        for r, (d, p) in enumerate(zip(self.devices, self.ranks)):
+            xr = x.to(d)
+            if self.pre_ln is not None:
+                xr = layer_norm(self.pre_ln[r], xr, eps=self.ln_eps)
+            src = xr if kv is None else kv.to(d)
+            for name, inp in (("q", xr), ("k", src), ("v", src)):
+                cols[name].append(linear(p[name], inp).to(x.device))
+        q, k, v = (torch.cat(cols[name], dim=-1) for name in "qkv")
+        if rope is not None:
+            tables = (torch.cat([t[i].to(x.device) for t in rope], dim=-1) for i in range(2))
+            sin, cos = tables
+            q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        out = attention_core(*(_split_heads(t, self.heads) for t in (q, k, v)), mask=mask)
+        b, h, s, dh = out.shape
+        out = out.transpose(1, 2).reshape(b, s, h * dh)
+        w = out.shape[-1] // len(self.devices)
+        parts = [linear(p["out"], out[..., r * w:(r + 1) * w].to(d))
+                 for r, (d, p) in enumerate(zip(self.devices, self.ranks))]
         return reduce_ranks(parts, self.bias, x)
 
 
@@ -164,11 +196,10 @@ class TPBlock:
 
 def tp_blocks(tree: dict, specs: dict, devices, *, layers: int, heads: int,
               activation: str, ln_eps: float) -> list[TPBlock]:
-    local_heads = _local_heads(heads, len(devices), "the blocks' attention")
     ranks = rank_trees(tree["blocks"], specs["blocks"], devices, path="blocks.")
     full = _replicated(tree["blocks"], specs["blocks"])
     return [TPBlock(unstack(full, i), [unstack(r, i) for r in ranks], devices,
-                    heads=local_heads, activation=activation, ln_eps=ln_eps)
+                    heads=heads, activation=activation, ln_eps=ln_eps)
             for i in range(layers)]
 
 
@@ -200,8 +231,8 @@ class TPViT(ViT):
                                 activation=cfg.activation, ln_eps=cfg.ln_eps)
         if pool is not None:
             ranks = rank_trees(pool, specs["attn_pool"], devices, path="attn_pool.")
-            heads = _local_heads(cfg.pool_heads or cfg.heads, len(devices), "the pooler")
-            self.pool_attn = TPAttention([r["attn"] for r in ranks], devices, heads=heads,
+            self.pool_attn = TPAttention([r["attn"] for r in ranks], devices,
+                                         heads=cfg.pool_heads or cfg.heads,
                                          bias=pool["attn"]["out"].get("b"))
             if "mlp" in pool:
                 self.pool_mlp = TPMlp([r["mlp"] for r in ranks], devices, activation=self.act,

@@ -270,13 +270,18 @@ MODES = {"exact": {}, "fast": {"fast_softmax": True}, "exp_bf16": {"exp_bf16": T
 
 def _held_int8(q, k, v, h, quant, **kw):
     """The int8 kernel against the plain version: one launch, counted as
-    quantized (the plain version is never its fallback)."""
+    quantized and on the route ``kernel_route`` names (the plain version is
+    never its fallback)."""
+    route = flash.kernel_route(q.shape[-1] // h, q.dtype, quant=True)
+    counts = flash.flash_attention_packed.route_launches
     before = (flash.flash_attention_packed.launches,
-              flash.flash_attention_packed.quant_launches[quant])
+              flash.flash_attention_packed.quant_launches[quant], dict(counts))
     got = flash.flash_attention_packed(q, k, v, num_heads=h, **QUANT[quant], **kw)
     torch.cuda.synchronize()
     assert (flash.flash_attention_packed.launches,
             flash.flash_attention_packed.quant_launches[quant]) == (before[0] + 1, before[1] + 1)
+    assert {n: c - before[2][n] for n, c in counts.items() if c != before[2][n]} == {
+        f"{route} {quant}": 1}
     ref = flash.flash_attention_packed_plain(q, k, v, num_heads=h, **QUANT[quant], **kw)
     assert torch.isfinite(got).all()
     # f32: the codes agree exactly, only sums' order differs; bf16: the
@@ -286,15 +291,20 @@ def _held_int8(q, k, v, h, quant, **kw):
 
 
 @pytest.mark.parametrize("b,h,s,d", [(2, 16, 61, 72), (2, 2, 64, 64), (1, 4, 130, 128),
-                                     (2, 3, 33, 40)])
+                                     (2, 3, 33, 40), (2, 4, 577, 72), (1, 2, 1025, 96),
+                                     (2, 4, 100, 8), (2, 4, 70, 36)])
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", sorted(QUANT))
 def test_flash_int8_kernel_matches_plain(dev, b, h, s, d, mode, dtype, quant):
-    """quant_qk / quant_pv / both on the int8 kernel (csrc/flash_int8.cu):
-    SO400M's head dim over a ragged S, one 64-key tile, D = 128 over three
-    tiles, D = 40 (padded to 64 in the codes), every softmax mode."""
-    assert flash.kernel_route(d, dtype, quant=True) == "int8_wgmma"
+    """quant_qk / quant_pv / both on the int8 kernels, every softmax mode:
+    bf16 with D a multiple of 8 on the TMA one (csrc/flash_int8_tma.cu),
+    f32 and D = 36 on the first one (csrc/flash_int8.cu). SO400M's head dim
+    over a ragged S and over 577 tokens, one 64-key tile, D = 128 over three
+    tiles, D = 40 and 8 (codes padded to 64 and 32), PE-Core's 96 over
+    1025 tokens."""
+    want = "int8_tma" if dtype == torch.bfloat16 and d % 8 == 0 else "int8_wgmma"
+    assert flash.kernel_route(d, dtype, quant=True) == want
     q, k, v = _packed(b, h, s, d, dtype, dev, seed=31)
     _held_int8(q, k, v, h, quant, **MODES[mode])
 
@@ -302,17 +312,19 @@ def test_flash_int8_kernel_matches_plain(dev, b, h, s, d, mode, dtype, quant):
 @pytest.mark.parametrize("form", ["causal", "key", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", sorted(QUANT))
-def test_flash_int8_kernel_masks(dev, form, dtype, quant):
-    """Every mask form of packed_mask on the int8 kernel, at CoCa text's 77
-    tokens: the shared causal mask, BERT's key rows (a row with every key
-    masked) and CoCa's full blocks; counted by form too."""
+@pytest.mark.parametrize("fast", [False, True])
+def test_flash_int8_kernel_masks(dev, form, dtype, quant, fast):
+    """Every mask form of packed_mask on the int8 kernels, at CoCa text's 77
+    tokens, with and without fast_softmax: the shared causal mask, BERT's
+    key rows (a row with every key masked) and CoCa's full blocks; counted
+    by form too."""
     b, h, s, d = 4, 12, 77, 64
     mask = {"causal": lambda: causal_mask(s, device=dev), "key": lambda: _key_mask(b, s, dev),
             "full": lambda: _full_mask(b, s, dev)}[form]()
     q, k, v = _packed(b, h, s, d, dtype, dev, seed=32)
     kind = "shared" if form == "causal" else form
     before = flash.flash_attention_packed.mask_launches[kind]
-    _held_int8(q, k, v, h, quant, mask=mask)
+    _held_int8(q, k, v, h, quant, mask=mask, fast_softmax=fast)
     assert flash.flash_attention_packed.mask_launches[kind] == before + 1
 
 
@@ -327,12 +339,15 @@ def test_flash_int8_kernel_rope(dev, dtype, quant):
     _held_int8(q, k, v, h, quant, rope=(sin, cos))
 
 
+@pytest.mark.parametrize("d", [72, 128, 36])
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_int8_codes_match_plain(dev, rope, dtype):
-    """The pre-pass divides and rounds as the plain version does: every code
-    and scale of q, k and v equal."""
-    b, h, s, d = 2, 16, 65, 72
+def test_flash_int8_codes_match_plain(dev, d, rope, dtype):
+    """Both int8 routes divide and round as the plain version does: every
+    code and scale of q, k and v equal (the TMA route's q codes written back
+    by its attention kernel, its k and v codes by its prep pass, v's keys
+    put back in order)."""
+    b, h, s = 2, 16 if d < 128 else 4, 65
     tables = None
     if rope:
         tables = tuple(t.to(dev) for t in head_tiled_tables(

@@ -166,13 +166,17 @@ def test_plain_matches_jax_kernel_where_the_schedule_options_act(name):
 
 
 def test_option_routes_and_checks():
-    """A quantized call routes to the int8 kernel whatever its dtype and head
-    dim; mxu_denom=False at a head dim that is no multiple of 128 leaves the
-    TMA kernel; a group_mult of 1 or less is ignored, as in the JAX kernel;
-    the schedule options change no value and a CPU call counts no launch."""
+    """A quantized call routes to an int8 kernel whatever its dtype and head
+    dim (bf16 with D a multiple of 8 to the TMA one, the rest to the first
+    design); mxu_denom=False at a head dim that is no multiple of 128 leaves
+    the TMA kernel; a group_mult of 1 or less is ignored, as in the JAX
+    kernel; the schedule options change no value and a CPU call counts no
+    launch."""
     for dtype in (torch.float32, torch.bfloat16):
         for d in (8, 36, 72, 96, 128):
-            assert flash.kernel_route(d, dtype, quant=True) == "int8_wgmma"
+            tma = dtype == torch.bfloat16 and d % 8 == 0
+            assert flash.kernel_route(d, dtype, quant=True) == (
+                "int8_tma" if tma else "int8_wgmma")
         assert flash.kernel_route(129, dtype, quant=True) is None
     assert flash.kernel_route(72, torch.bfloat16, mxu_denom=False) == "mma_sync"
     assert flash.kernel_route(128, torch.bfloat16, mxu_denom=False) == "tma_wgmma"
@@ -187,6 +191,37 @@ def test_option_routes_and_checks():
     flash.flash_attention_packed(q, q, q, num_heads=2, quant_qk=True, quant_pv=True)
     assert (flash.flash_attention_packed.launches,
             flash.flash_attention_packed.quant_launches) == before
+
+
+def test_int8_route_by_dtype_and_head_dim():
+    """Every head dim the packed wrapper takes keeps an int8 route: bf16 with
+    D a multiple of 8 the TMA kernel (csrc/flash_int8_tma.cu), f32 and any
+    other D the first design (csrc/flash_int8.cu); quantized or not, the
+    same shapes reach TMA."""
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        want = "int8_tma" if d % 8 == 0 else "int8_wgmma"
+        assert flash.kernel_route(d, torch.bfloat16, quant=True) == want
+        assert flash.kernel_route(d, torch.float32, quant=True) == "int8_wgmma"
+        assert (want == "int8_tma") == (flash.kernel_route(d, torch.bfloat16) == "tma_wgmma")
+    assert flash.kernel_route(20, torch.bfloat16, quant=True) == "int8_wgmma"
+    assert flash.kernel_route(72, torch.float32, quant=True) == "int8_wgmma"
+
+
+def test_int8_tma_key_order_is_the_accumulator_fragment():
+    """v's codes keep each 32 keys in ``frag_pos`` order: thread t of a quad
+    holds keys 8m + 2t + (0, 1) of q·kᵀ's n8 tile m, and s8 wgmma's A
+    fragment takes its 4 codes a register at 4t (tiles 0-1) and 16 + 4t
+    (tiles 2-3) of each 32, so those keys land where its p codes go; a
+    permutation within each 32 keys (p·v sums over keys in any order)."""
+    keys = torch.arange(4 * 64)
+    pos = flash.frag_pos(keys)
+    assert torch.equal(pos.sort().values, keys)
+    assert torch.equal(pos // 32, keys // 32)
+    for m in range(4):
+        for t in range(4):
+            for j in range(2):
+                key = 8 * m + 2 * t + j
+                assert int(pos[key]) == 16 * (m // 2) + 4 * t + 2 * (m % 2) + j
 
 
 def test_quantized_plain_is_exact_on_representable_inputs():

@@ -7,8 +7,9 @@ on a mesh of eight ``"cpu"`` entries, 4 x 2. Weights cross through the
 port's ``params_from_numpy`` (towers) or a model dir both packages load
 (embedders). The cases of tests/test_parallel.py but the train ones, at
 its small dims, plus what the port adds: the row-parallel biases and the
-residual applied once, PE-Core's rope over the model ranks, and the
-``ConfigError`` on widths the ranks do not divide.
+residual applied once, PE-Core's rope over the model ranks, heads the ranks
+do not divide (on a 1 x 8 mesh), and the ``ConfigError`` on widths the
+ranks do not divide, which JAX refuses too.
 """
 
 import dataclasses
@@ -258,17 +259,42 @@ def test_tensor_parallel_applies_row_bias_and_residual_once(mesh):
         np.testing.assert_allclose(blocks[0](h, impl="eager").numpy(), ref.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("jcfg", [VCFG, SIGLIP_LS], ids=["clip", "map_pool_layer_scale"])
+def test_tensor_parallel_takes_heads_the_ranks_do_not_divide(jcfg):
+    """4 heads over 8 model ranks (ViT-B's 12 heads over 8, in small): the
+    widths divide, the heads do not. GSPMD splits the H·D columns evenly;
+    the port joins the ranks' q/k/v columns and runs the attention whole,
+    in the blocks and in the MAP pooler, and matches the unsharded forward
+    and the JAX package's TP forward on a 1 x 8 mesh."""
+    params = _with_biases(_jax_params(jvit.init, jcfg, 2), 3)
+    x = np.array(jax.random.uniform(jax.random.key(3), (4, 32, 32, 3)))
+    cfg = _port_cfg(tvit.ViTCfg, jcfg)
+    tree = params_from_numpy(params, device="cpu", dtype=torch.float32)
+    row = _tp_row(get_mesh(devices=["cpu"] * 8, model_parallel=8))
+    assert len(row) == 8 and cfg.heads % len(row)
+    with torch.inference_mode():
+        expect = tvit.ViT(cfg, tree)(torch.from_numpy(x)).numpy()
+        got = tp.TPViT(cfg, tree, row)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, expect, atol=ATOL)
+    jgot = _jax_tp(jget_mesh(model_parallel=8), params, lambda p, xx: jvit.apply(p, xx, jcfg), x)
+    np.testing.assert_allclose(got, jgot, atol=ATOL)
+
+
 def test_tensor_parallel_refuses_indivisible_widths():
-    params = params_from_numpy(_jax_params(jvit.init, VCFG, 0), device="cpu",
-                               dtype=torch.float32)
-    cfg = _port_cfg(tvit.ViTCfg, VCFG)
-    with pytest.raises(ConfigError, match="4 heads, which 8 does not divide"):
-        tp.TPViT(cfg, params, ["cpu"] * 8)
+    """A width the model ranks do not divide (an MLP hidden of 130 over 4):
+    the port raises ConfigError naming the leaf, and the JAX package's
+    device_put of its tp_param_specs refuses the same sharding."""
     odd = dataclasses.replace(VCFG, mlp_hidden=130)
-    params = params_from_numpy(_jax_params(jvit.init, odd, 0), device="cpu",
-                               dtype=torch.float32)
+    jparams = _jax_params(jvit.init, odd, 0)
+    params = params_from_numpy(jparams, device="cpu", dtype=torch.float32)
     with pytest.raises(ConfigError, match=r"blocks\.mlp\.fc\.[wb] has width 130"):
         tp.TPViT(_port_cfg(tvit.ViTCfg, odd), params, ["cpu"] * 4)
+    jmesh4 = jget_mesh(model_parallel=4)
+    shardings = jax.tree.map(lambda sp: NamedSharding(jmesh4, sp),
+                             jtp_param_specs(jparams, tower="vit"),
+                             is_leaf=lambda sp: isinstance(sp, P))
+    with pytest.raises(ValueError, match="divisible"):
+        jax.device_put(jparams, shardings)
 
 
 # -- sharded embedders ---------------------------------------------------------

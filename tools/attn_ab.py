@@ -22,7 +22,10 @@ bf16:
   text's per-batch full mask [32, 77, 12x64];
 * kernel 3 at SO400M's head layout [32, 16, 576, 72] (the yardstick);
 * ``F.scaled_dot_product_attention`` at SO400M's shape, a control that no
-  tree changes.
+  tree changes;
+* kernel 2's int8 options, ``quant_qk``, ``quant_pv`` and both, at SO400M's
+  shape and at PE-Core-bigG's with its rope, where the tree's wrapper takes
+  them (on whichever int8 route the tree's ``kernel_route`` picks).
 
 Each kernel's output is held against the tree's plain version (2e-2). The
 table goes to stdout with the card's name and power limit, and with
@@ -39,7 +42,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("flash_packed", "flash_bhsd")
+SOURCES = ("flash_packed", "flash_bhsd", "flash_int8", "flash_int8_tma")  # those a tree has
 
 
 def helpers():
@@ -93,6 +96,16 @@ def time_tree(tree: str) -> dict:
     q, k, v = cs.attn_inputs(32, 12, 77, 64, torch.bfloat16, dev, seed=9)
     packed(q, k, v, 12, name="k2 full mask", mask=cs.full_mask(32, 77, dev))
 
+    if "quant_qk" in inspect.signature(flash.flash_attention_packed).parameters:
+        for label, (b, h, seq, d), tables in (("SO400M", (32, 16, 576, 72), None),
+                                             ("PE-Core rope", (32, 16, 1025, 96), rope)):
+            q, k, v = cs.attn_inputs(b, h, seq, d, torch.bfloat16, dev, seed=6)
+            for name, kw in (("quant_qk", {"quant_qk": True}), ("quant_pv", {"quant_pv": True}),
+                             ("both", {"quant_qk": True, "quant_pv": True})):
+                packed(q, k, v, h, name=f"k2 {label} {name}", rope=tables, **kw)
+                rows[f"k2 {label} {name}"]["route"] = flash.kernel_route(d, torch.bfloat16,
+                                                                        quant=True)
+
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn((32, 16, 576, 72), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -135,7 +148,9 @@ def main(argv) -> int:
     print("ms, median of 20 | " + " | ".join(r["tree"] for r in runs))
     for n in names:
         cells = [r["rows"].get(n) for r in runs]
-        print(f"{n} | " + " | ".join("-" if c is None else f"{c['ms']:.4f}" for c in cells))
+        routes = sorted({c["route"] for c in cells if c is not None and "route" in c})
+        print(f"{n}{' (' + ', '.join(routes) + ')' if routes else ''} | "
+              + " | ".join("-" if c is None else f"{c['ms']:.4f}" for c in cells))
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
