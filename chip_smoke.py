@@ -42,11 +42,16 @@ card, in phases, and fail loudly if any phase fails.
    their attention takes ``flash_attention``, kernel 3); ``golden_siglip``
    under ``quantize="int8"`` and ``"int8_all"`` against the same on the CPU;
 5. main path — ViT-SO400M-16-SigLIP2-384 (vision + SigLIP text tower) at
-   full width and depth with seeded random bf16 weights through ``Clip``:
+   full width and depth with seeded random bf16 weights through ``Clip``
+   (the vision config from ``models/zoo.py``, held equal to the one the
+   open_clip config resolves to):
    ``embed_images`` on a mixed-size batch of the JPEGs under ``assets/img``
-   and ``classify``; unit norms, launch counts (27 per tower forward per
-   kernel), kernel-vs-plain cosine, images/s at batch 32 and the p50 latency
-   of one image;
+   and ``classify``, cold (each bucket's first call: the graph's warm-up
+   forward and a replay) and then warm; unit norms, launch counts (27 per
+   tower forward run, per kernel: 54 a vision call cold, 27 warm), one
+   replay under the profiler,
+   kernel-vs-plain cosine, images/s at batch 32 and the p50 latency of one
+   image;
 6. int8 paths — the same ``Clip`` with phase 5's weights quantized on the
    card, under ``quantize="int8"`` and ``"int8_all"``: unit norms, the int8
    kernels' launch counts, the kernel path against the same ``Clip`` with
@@ -124,6 +129,34 @@ card, in phases, and fail loudly if any phase fails.
    held against the eager impl at cosine 0.999 and printed against the
    trained tree's own f32 forward; a q that requires grad refused by kernel
    2's wrapper.
+14. captured forwards (``utils.captured``) — phase 5's SO400M (bf16 and
+   ``int8_all``, both towers), PE-Core-bigG (bf16 and ``int8``), BiomedCLIP's
+   BERT text tower and phase 10's four vision towers, at full width and
+   depth: each tower's rows (the card replays one CUDA graph a batch
+   bucket) against its eager forward, the tower module called directly,
+   at cosine 1 - 1e-6 (bitwise equality printed), the launch counts of the
+   first call twice one eager forward's (the warm-up and the replay), of
+   the next call one eager forward's; two batches in turn, and
+   the first call's rows unchanged after the later replays; two threads of
+   50 calls each; a new bucket captured while another thread runs eager
+   forwards; the graphs and their capture seconds per bucket; images/s
+   at batch 32, the p50 of one image, texts/s and the idle share, captured
+   against eager; for SO400M and PE-Core the reserved memory with and
+   without the layer.
+
+From phase 4 on, every ``embed_images`` / ``embed_texts`` / ``classify``,
+and phase 12's DP shards, run through the captured layer on the card (a
+graph's replay adds the launches its capture recorded; a bucket's first
+call also counts its warm-up forward's); each plain path (eager attention,
+the plain int8 wrappers) calls the tower modules directly (``eager_rows``),
+as a graph captured with the kernels would replay them. Before any launch
+count is read, every graph captured so far is held to the kernels it
+holds (``hold_graphs``: its kernel nodes, from CUDA's driver API, by the
+source each kernel's name carries), so that what a replay adds to the
+counts is what it launches; phase 5 also profiles one replay of a
+graph. Phases 6-13 warm a call's buckets first (``warm``, as
+``serving.warmup`` does), so that their counted calls run one forward
+each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -133,11 +166,13 @@ repo beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -1345,6 +1380,8 @@ def phase_fixtures(device) -> dict:
         if device == "cuda" and not (n1[0] > n0[0] and n1[1] > n0[1]):
             raise AssertionError(f"{name} did not go through ln_qkv and flash_attention")
     counts = launch_counts()
+    say(f"  launches of the fixtures' run (each bucket's first call runs its forward twice: "
+        f"the warm-up and the replay): {counts}")
     if counts["flash_attention_packed"]:
         raise AssertionError("the fixtures' 4 x 16 heads went through the packed kernel")
     phase_fixtures_quantized(device)
@@ -1423,7 +1460,7 @@ def set_layer_scale(params, value: float) -> None:
 
 def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=None,
                model=SO400M_SIGLIP2_384, preprocess=SIGLIP_PREPROCESS, tokenizer="golden_siglip",
-               layer_scale=None):
+               layer_scale=None, vision=None):
     """A ``Clip`` of ``model`` (ViT-SO400M-16-SigLIP2-384 unless given) with
     seeded random weights, resolved through the port's config → build
     (``layers``/``vocab_size`` cut it for a CPU rehearsal), with the
@@ -1431,7 +1468,8 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=
     under 512); ``quantize`` converts those same weights on the device, as
     ``from_local_dir(..., quantize=...)`` converts loaded ones;
     ``layer_scale`` sets the vision tower's layer scales (``set_layer_scale``)
-    first."""
+    first; ``vision``, a ``TowerSpec``, replaces the vision tower's config
+    that ``model`` resolves to."""
     import copy
 
     from clip_embedder_tpu_torch import Clip, TextEmbedder, VisionEmbedder
@@ -1459,7 +1497,7 @@ def build_clip(device, dtype, *, layers=None, vocab_size=None, seed=0, quantize=
     model_config = ModelConfig.from_file(fixture / "model_config.json")
     tok = Tokenizer.from_file(fixture / "tokenizer.json")
     pad_id = configure_tokenizer(tok, model_config, config.model_cfg.text_cfg.context_length)
-    vspec = resolve_vision(config.model_cfg)
+    vspec = vision or resolve_vision(config.model_cfg)
     tspec = with_tokenizer_pad_id(resolve_text(config.model_cfg), pad_id)
     gen = torch.Generator(device=device).manual_seed(seed)
     vparams = _family_init(vspec.family)(vspec.cfg, generator=gen, device=device, dtype=dtype)
@@ -1491,6 +1529,45 @@ def mixed_batch(n: int) -> list:
             batch.append(np.asarray(im.convert("RGB").resize(sizes[i % len(sizes)])))
         i += 1
     return batch[:n]
+
+
+def eager_rows(emb, images, attn_impl=None) -> torch.Tensor:
+    """``emb.embed_images_device(images)``'s rows ([n, D] on the device)
+    with the tower module called directly, eager, as ``embed_images_device``
+    called it before the captured layer (``utils.captured``): the reference
+    that layer is held to, and the plain path's runner (under
+    ``plain_int8_wrappers``, which a graph captured with the kernels would
+    not follow)."""
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    arrays = [to_rgb_array(im) for im in images]
+    with torch.inference_mode():
+        pixels = emb.preprocessor(arrays)
+        rows = emb.tower(pixels, attn_impl=attn_impl or emb.attn_impl, channels_first=True)
+    return rows[: len(arrays)]
+
+
+def eager_text_rows(emb, texts, attn_impl=None) -> torch.Tensor:
+    """``eager_rows`` for a text embedder: ``embed_texts``' rows, the tower
+    called directly."""
+    from clip_embedder_tpu_torch.ops.preprocess import bucket_batch
+    from clip_embedder_tpu_torch.text import pad_batch, tower_kwargs
+
+    ids, mask = emb.tokenize(texts)
+    ids, mask = pad_batch(ids, mask, bucket_batch(len(texts)), emb.pad_id)
+    with torch.inference_mode():
+        rows = emb.tower(torch.from_numpy(ids).to(emb.device),
+                         attn_impl=attn_impl or emb.attn_impl,
+                         **tower_kwargs(emb.spec, mask, emb.device))
+    return rows[: len(texts)]
+
+
+def eager_images(emb, images, attn_impl=None) -> np.ndarray:
+    return eager_rows(emb, images, attn_impl).float().cpu().numpy()
+
+
+def eager_texts(emb, texts, attn_impl=None) -> np.ndarray:
+    return eager_text_rows(emb, texts, attn_impl).float().cpu().numpy()
 
 
 def kernel_group(name: str) -> str:
@@ -1535,12 +1612,28 @@ def device_breakdown(fn) -> dict:
 
 def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
                     batch=32, timed=True) -> dict:
+    import dataclasses
+
     from clip_embedder_tpu_torch import VisionEmbedder
+    from clip_embedder_tpu_torch.models import zoo
+    from clip_embedder_tpu_torch.models.build import TowerSpec, resolve_vision
     from clip_embedder_tpu_torch.utils.images import to_rgb_array
 
-    say(f"[5] main path: ViT-SO400M-16-SigLIP2-384, {dtype}, random weights (seed 0)")
+    say(f"[5] main path: ViT-SO400M-16-SigLIP2-384, {dtype}, random weights (seed 0), the "
+        "vision tower's config from models/zoo.py")
     t0 = time.perf_counter()
-    clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size)
+    vcfg = zoo.so400m_siglip2_384()
+    if layers is not None:
+        vcfg = dataclasses.replace(vcfg, layers=layers)
+    clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                    vision=TowerSpec("vit", vcfg))
+    resolved = resolve_vision(clip.vision.config.model_cfg).cfg
+    diff = {f.name: (getattr(vcfg, f.name), getattr(resolved, f.name))
+            for f in dataclasses.fields(vcfg) if getattr(vcfg, f.name) != getattr(resolved, f.name)}
+    say(f"  models/zoo.py against the open_clip config's resolution: fields that differ "
+        f"(zoo, resolved) {diff} (proj_bias is read only with use_proj)")
+    if set(diff) - ({"proj_bias"} if not vcfg.use_proj else set()):
+        raise AssertionError("models/zoo.py's SO400M config is not the open_clip config's")
     say(f"  built vision {vspec.cfg.layers}x{vspec.cfg.width} ({vspec.cfg.seq_len} tokens, "
         f"{vspec.cfg.heads}x{vspec.cfg.head_dim} heads), text {tspec.cfg.layers}x"
         f"{tspec.cfg.width} (vocab {tspec.cfg.vocab_size}, ctx {tspec.cfg.context_length}) "
@@ -1548,21 +1641,29 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     images = mixed_batch(batch)
     depth_v, depth_t = vspec.cfg.layers, tspec.cfg.layers
 
-    reset_launch_counts()
-    embs = clip.vision.embed_images(images)
-    n = launch_counts()
-    after_embed = (n["ln_qkv"], n["flash_attention_packed"])
-    results = clip.classify(images[0], LABELS)
-    n = launch_counts()
-    launches = (n["ln_qkv"], n["flash_attention_packed"])
-    quant = quant_launch_counts()
+    # the main path driven cold (each bucket's first call captures its graph:
+    # the warm-up forward, the capture and a replay, two forwards on the
+    # device) and then warm (replays: one forward a call)
+    runs = {}
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        embs = clip.vision.embed_images(images)
+        n = launch_counts()
+        after_embed = (n["ln_qkv"], n["flash_attention_packed"])
+        results = clip.classify(images[0], LABELS)
+        n = launch_counts()
+        runs[run] = (after_embed, (n["ln_qkv"], n["flash_attention_packed"]),
+                     {k: v for k, v in quant_launch_counts().items() if v})
+    launches = runs["cold"][1]
+    quant = {**runs["cold"][2], **runs["warm"][2]}
 
     norms = np.linalg.norm(embs, axis=-1)
     say(f"  embed_images: {embs.shape}, finite={bool(np.isfinite(embs).all())}, "
         f"norms in [{norms.min():.6f}, {norms.max():.6f}]")
     say(f"  classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
-    say(f"  launches: after embed_images ln_qkv={after_embed[0]} "
-        f"flash={after_embed[1]}; after classify ln_qkv={launches[0]} flash={launches[1]}")
+    for run, (a, n, _) in runs.items():
+        say(f"  launches, {run}: after embed_images ln_qkv={a[0]} flash={a[1]}; "
+            f"after classify ln_qkv={n[0]} flash={n[1]}")
     if embs.shape != (batch, vspec.cfg.embed_dim) or not np.isfinite(embs).all():
         raise AssertionError("embed_images returned bad embeddings")
     if np.abs(norms - 1).max() > 1e-2:
@@ -1571,19 +1672,18 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     if not (np.isfinite(probs).all() and probs == sorted(probs, reverse=True)):
         raise AssertionError("classify returned bad probabilities")
     if device == "cuda":
-        want = (depth_v, depth_v)
-        if after_embed != want or launches != (2 * depth_v + depth_t, 2 * depth_v + depth_t):
-            raise AssertionError(f"kernel launches {after_embed}/{launches} are not one "
-                                 "per layer per tower forward")
+        for run, times in (("cold", 2), ("warm", 1)):
+            a, n, _ = runs[run]
+            if a != (times * depth_v,) * 2 or n != (times * (2 * depth_v + depth_t),) * 2:
+                raise AssertionError(f"{run} run: kernel launches {a}/{n} are not {times} per "
+                                     "layer per tower forward")
     say(f"  int8 attention launches (no path sets quant_qk / quant_pv): {quant}")
     if any(quant.values()):
         raise AssertionError("the main path launched an int8 attention kernel")
+    if device == "cuda":
+        hold_replay("embed_images", clip.vision.tower, batch)
 
-    plain = VisionEmbedder(tower=clip.vision.tower, spec=vspec, config=clip.vision.config,
-                           model_config=clip.vision.model_config,
-                           model_dir=clip.vision.model_dir, device=device, dtype=dtype,
-                           attn_impl="eager")
-    cos = cosines(embs, plain.embed_images(images))
+    cos = cosines(embs, eager_images(clip.vision, images, "eager"))
     say(f"  kernel vs eager (bf16, same weights): min cosine {cos.min():.6f} (need >= 0.999)")
     if cos.min() < 0.999:
         raise AssertionError("the kernel path disagrees with the eager path")
@@ -1604,20 +1704,23 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     return out
 
 
-def time_embedder(emb, arrays, label) -> dict:
+def time_embedder(emb, arrays, label, run=None) -> dict:
     """images/s at the batch of ``arrays`` (median of 5 calls) and the p50
-    latency of one image (median of 20), host clock."""
-    emb.embed_images(arrays)  # warm-up
+    latency of one image (median of 20), host clock, of ``emb.embed_images``
+    (or of ``run``, which returns the rows on the host as it does)."""
+    run = run or emb.embed_images
+    run(arrays)  # warm-up
+    run(arrays[:1])
     times = []
     for _ in range(5):
         t = time.perf_counter()
-        emb.embed_images(arrays)
+        run(arrays)
         times.append(time.perf_counter() - t)
     ips = len(arrays) / statistics.median(times)
     lat = []
     for _ in range(20):
         t = time.perf_counter()
-        emb.embed_images(arrays[:1])
+        run(arrays[:1])
         lat.append(time.perf_counter() - t)
     p50 = statistics.median(lat) * 1e3
     say(f"  {label}: {ips:.2f} images/s at batch {len(arrays)} (median of 5, host clock, "
@@ -1625,8 +1728,9 @@ def time_embedder(emb, arrays, label) -> dict:
     return {"images_per_s": ips, "p50_ms": p50}
 
 
-def profile_embedder(emb, arrays, label) -> dict:
-    bd = device_breakdown(lambda: emb.embed_images(arrays))
+def profile_embedder(emb, arrays, label, run=None) -> dict:
+    run = run or emb.embed_images
+    bd = device_breakdown(lambda: run(arrays))
     groups = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
         bd["groups_ms"].items(), key=lambda kv: -kv[1]))
     say(f"  {label} batch {len(arrays)} under torch.profiler: device ms by kernel group: "
@@ -1652,6 +1756,11 @@ def _wrappers() -> dict:
 
 
 def launch_counts() -> dict:
+    """Each wrapper's launch count. On the card every graph captured so far
+    is first held to the kernels it holds (``hold_graphs``): a replay adds
+    its capture's launches to the counts, and those are its kernel nodes."""
+    if torch.cuda.is_available():
+        hold_graphs()
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
@@ -1679,6 +1788,196 @@ def reset_launch_counts() -> None:
     for counts in ("mask_launches", "quant_launches", "route_launches"):
         setattr(flash.flash_attention_packed, counts,
                 dict.fromkeys(getattr(flash.flash_attention_packed, counts), 0))
+
+
+# The port's kernels as the profiler names them: the build puts every kernel
+# of csrc/<stem>.cu in a namespace src_<stem> (ops.cuda.nvcc_flags). A
+# wrapper call runs its source's main kernel once, beside its helpers (the
+# LayerNorm pass of ln_qkv's mma.sync route, the rope pass, kernel 2's int8
+# preparation, the int8 row passes); int8_mlp's is its fc1 product (mode 1,
+# kAct, in csrc/int8_wgmma.cuh). A name may come mangled (a graph's kernel
+# node) or demangled (the profiler).
+KACT = r"gemm_kernel(?:<[^,<>]+, ?1,|I[^L]*Li1E)"  # mode 1, demangled or mangled
+MAIN_KERNELS = {
+    "flash_packed": ("flash_attention_packed", r"flash_(bf16|tma|f32)_kernel"),
+    "flash_int8": ("flash_attention_packed", r"attn_kernel"),
+    "flash_int8_tma": ("flash_attention_packed", r"attn_kernel"),
+    "flash_bhsd": ("flash_attention", r"flash_(bf16|tma|f32)_kernel"),
+    "ln_qkv": ("ln_qkv", r"qkv_(gemm_)?kernel"),
+    "ln_qkv_int8": ("ln_qkv_int8", r"gemm_kernel"),
+    "int8_linear": ("int8_linear_fused", r"gemm_kernel"),
+    "int8_mlp": ("int8_mlp", KACT),
+    "int8_mlp_streamed": ("int8_mlp_streamed", KACT),
+}
+
+
+def device_launches(prof) -> dict:
+    """The port's launches the device ran under the profile ``prof``, by
+    wrapper (``port_launches``), and the marker kernels it recorded
+    ("markers": ``torch.cuda._sleep``'s)."""
+    events = prof.key_averages()
+    n = port_launches([e.key for e in events for _ in range(e.count)])
+    n["markers"] = sum(e.count for e in events if "spin_kernel" in e.key)
+    return n
+
+
+def replay_under_profiler(graph, attempts: int = 4) -> dict | None:
+    """One replay of a captured graph under torch.profiler: the port's
+    launches the device ran (``device_launches``). Each session opens and
+    closes with a marker kernel 50 ms from its ends: on an H100 with torch
+    2.11 the profiler recorded no kernel of a session's first moments in 4
+    of 240 short sessions, and lost a marker in every session of a 0.4 s
+    PE-Core block, four in a row, and in every session late in
+    ``chip_smoke.py`` (phase 14); an attempt waits a second more than the
+    last. None if each of ``attempts`` sessions lost a marker."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        time.sleep(attempt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            graph.replay()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        ran = device_launches(prof)
+        if ran.pop("markers") == 2:
+            return ran
+    return None
+
+
+def hold_replay(what, tower, bucket: int) -> dict:
+    """The batch-``bucket`` graph of ``tower``: the port's launches among
+    its kernel nodes against those one replay ran under the profiler
+    (``replay_under_profiler``; "not measured" when it lost the sessions)."""
+    from clip_embedder_tpu_torch.utils import captured
+
+    g = next(g for key, g in captured.graphs_of(tower).graphs.items()
+             if bucket_of(key) == bucket)
+    nodes = port_launches(graph_kernel_names(g.graph))
+    ran = replay_under_profiler(g.graph)
+    shown = {k: v for k, v in nodes.items() if v}
+    say(f"  {what}: the batch-{bucket} graph holds the launches {shown}; one replay under "
+        f"torch.profiler ran " + ("the same" if ran == nodes else
+                                  "not measured (the profiler lost a marker in each of 4 "
+                                  "sessions)" if ran is None else
+                                  str({k: v for k, v in ran.items() if v})))
+    if ran is not None and ran != nodes:
+        raise AssertionError(f"{what}: a replay ran {ran}, its graph holds {nodes}")
+    return {"graph": nodes, "replay": ran}
+
+
+def graph_kernel_names(graph) -> list[str]:
+    """The names of the kernel nodes of a captured ``torch.cuda.CUDAGraph``
+    (``utils.captured`` keeps its ``cudaGraph_t``): every kernel a replay
+    launches, from CUDA's driver API."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), *((f, ctypes.c_uint) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")), ("params", ctypes.c_void_p),
+            ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(code, what):
+        if code != 0:
+            raise RuntimeError(f"{what} returned CUresult {code}")
+
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.kern:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                  "cuKernelGetName")
+        else:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
+                  "cuFuncGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def kernel_source(name: str) -> str | None:
+    """The csrc stem in a kernel's name, demangled (``src_<stem>::``) or
+    mangled (``<length>src_<stem>``); None for a kernel not the port's."""
+    import re
+
+    m = re.search(r"\bsrc_(\w+?)::", name)
+    if m:
+        return m.group(1)
+    m = re.search(r"(\d+)src_", name)
+    return name[m.end(1) + 4: m.end(1) + int(m.group(1))] if m else None
+
+
+def port_launches(names) -> dict:
+    """The launches a list of kernel names holds, by wrapper: its sources'
+    main kernels (``MAIN_KERNELS``), with the packed kernel's rope passes
+    ("rope")."""
+    import re
+
+    n = dict.fromkeys(_wrappers(), 0)
+    n["rope"] = 0
+    for name in names:
+        src = kernel_source(name)
+        if src not in MAIN_KERNELS:
+            continue
+        wrapper, main = MAIN_KERNELS[src]
+        if re.search(main, name):
+            n[wrapper] += 1
+        elif src == "flash_packed" and "rope_kernel" in name:
+            n["rope"] += 1
+    return n
+
+
+_held_graphs = weakref.WeakSet()
+
+
+def hold_graphs() -> None:
+    """Every captured graph not yet held (``utils.captured.graph_sets``)
+    against the kernels it holds: for each wrapper, its main kernels among
+    the graph's kernel nodes must be the launches its capture recorded,
+    which each replay adds to the wrapper's count."""
+    from clip_embedder_tpu_torch.utils import captured
+
+    names = {id(fn): name for name, fn in _wrappers().items()}
+    for graphs in captured.graph_sets():
+        for key, g in list(graphs.graphs.items()):
+            if g in _held_graphs:
+                continue
+            nodes = port_launches(graph_kernel_names(g.graph))
+            del nodes["rope"]
+            tally = dict.fromkeys(nodes, 0)
+            for (wrapper, counter, _form), k in g.launches.items():
+                if counter == "launches":
+                    tally[names[id(wrapper)]] += k
+            if nodes != tally:
+                raise AssertionError(f"the graph of {key} holds the kernels {nodes}; its "
+                                     f"capture recorded {tally}")
+            _held_graphs.add(g)
+
+
+def warm(*calls) -> None:
+    """Each call once, before a counted block: a bucket's first call on the
+    card captures its graph (``utils.captured``: a warm-up forward, the
+    capture, a replay), as ``serving.warmup`` does before a server takes
+    requests, so that the counted calls each run the forward once."""
+    for call in calls:
+        call()
 
 
 def expected_int8_launches(mode, depth_v, depth_t, *, streamed=False) -> dict:
@@ -1737,6 +2036,7 @@ def phase_int8_paths(device, dtype=torch.bfloat16, *, layers=None, vocab_size=No
                                         quantize=mode)
         say(f"  built and quantized in {time.perf_counter() - t0:.1f} s")
         images = mixed_batch(batch)
+        warm(lambda: clip.vision.embed_images(images), lambda: clip.classify(images[0], LABELS))
         reset_launch_counts()
         embs = clip.vision.embed_images(images)
         results = clip.classify(images[0], LABELS)
@@ -1758,7 +2058,7 @@ def phase_int8_paths(device, dtype=torch.bfloat16, *, layers=None, vocab_size=No
                 raise AssertionError(f"quantize={mode}: launches {counts}, expected {want}")
 
         with plain_int8_wrappers():
-            cos = cosines(embs, clip.vision.embed_images(images))
+            cos = cosines(embs, eager_images(clip.vision, images))
         say(f"  kernel path vs plain path (quantize={mode}, same weights): min cosine "
             f"{cos.min():.6f} (need >= 0.999)")
         if cos.min() < 0.999:
@@ -1814,17 +2114,13 @@ def hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=LABELS) -> 
     tower on ``images`` (``embs`` is its kernel run), the text tower on
     ``texts`` (PE-Core's: the labels, whose kernels run at the text tower's
     own shapes: 20 x 64 heads, the causal mask, W = 1280, MLP 5120)."""
-    from clip_embedder_tpu_torch import TextEmbedder, VisionEmbedder
-
     kernel = {"vision": clip.vision.embed_images, "text": clip.text.embed_texts}
+    # the plain path calls the towers directly (a captured graph would replay
+    # the kernels); so does the per-block look, whose hooks a replay skips
+    eager = {"vision": lambda xs, impl=None: eager_images(clip.vision, xs, impl),
+             "text": lambda xs, impl=None: eager_texts(clip.text, xs, impl)}
     if mode is None:
-        common = {"config": clip.vision.config, "model_config": clip.vision.model_config,
-                  "model_dir": clip.vision.model_dir, "device": clip.vision.device,
-                  "dtype": clip.vision.dtype, "attn_impl": "eager"}
-        plain = {"vision": VisionEmbedder(tower=clip.vision.tower, spec=vspec,
-                                          **common).embed_images,
-                 "text": TextEmbedder(tower=clip.text.tower, spec=tspec,
-                                      tokenizer=clip.text.tokenizer, **common).embed_texts}
+        plain = {name: functools.partial(run, impl="eager") for name, run in eager.items()}
         what = "eager"
     else:
         def plain_of(fn):
@@ -1832,7 +2128,7 @@ def hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=LABELS) -> 
                 with plain_int8_wrappers():
                     return fn(xs)
             return run
-        plain = {name: plain_of(fn) for name, fn in kernel.items()}
+        plain = {name: plain_of(fn) for name, fn in eager.items()}
         what = "the plain int8 wrappers"
     runs = {"vision": (clip.vision.tower, embs, images),
             "text": (clip.text.tower, kernel["text"](texts), texts)}
@@ -1841,7 +2137,7 @@ def hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=LABELS) -> 
         say(f"  {name}: kernel path vs {what} (same weights): min cosine {cos.min():.6f}, "
             f"mean {cos.mean():.6f} (need >= 0.999)")
         if cos.min() < 0.999:
-            per = per_block_cosines(tower, lambda: kernel[name](inputs[:2]),
+            per = per_block_cosines(tower, lambda: eager[name](inputs[:2]),
                                     lambda: plain[name](inputs[:2]))
             say("  per-block least token cosine, kernel vs plain: "
                 + ", ".join(f"{c:.6f}" for c in per))
@@ -1872,6 +2168,7 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
             f"heads, rope_2d={v.rope_2d}, MLP {v.mlp_hidden}, pool {v.pool}), text {t.layers}x"
             f"{t.width} ({t.heads} heads, ctx {t.context_length}) in "
             f"{time.perf_counter() - t0:.1f} s; attn_impl={clip.vision.attn_impl}")
+        warm(lambda: clip.vision.embed_images(images), lambda: clip.classify(images[0], LABELS))
         reset_launch_counts()
         embs = clip.vision.embed_images(images)
         results = clip.classify(images[0], LABELS)
@@ -1981,13 +2278,15 @@ def tower_launches(family: str, mode, depth: int) -> dict:
     return n
 
 
-def time_texts(text, texts, label) -> dict:
-    """texts/s at the batch of ``texts`` (median of 5 calls, host clock)."""
-    text.embed_texts(texts)  # warm-up
+def time_texts(text, texts, label, run=None) -> dict:
+    """texts/s at the batch of ``texts`` (median of 5 calls, host clock) of
+    ``text.embed_texts`` (or of ``run``)."""
+    run = run or text.embed_texts
+    run(texts)  # warm-up
     times = []
     for _ in range(5):
         t = time.perf_counter()
-        text.embed_texts(texts)
+        run(texts)
         times.append(time.perf_counter() - t)
     tps = len(texts) / statistics.median(times)
     say(f"  {label}: {tps:.2f} texts/s at batch {len(texts)} (median of 5, host clock, "
@@ -2026,8 +2325,10 @@ def phase_masked_towers(device, dtype=torch.bfloat16, *, layers=None, vocab_size
                 f"{v.head_dim} heads, pool {v.pool}), text {tspec.family} {t.layers}x{t.width} "
                 f"({t.heads} heads, ctx {t.context_length}, pad id {t.pad_id}) in "
                 f"{time.perf_counter() - t0:.1f} s; attn_impl={clip.vision.attn_impl}")
-            reset_launch_counts()
+            warm(lambda: clip.vision.embed_images(images), lambda: clip.text.embed_texts(texts),
+                 lambda: clip.classify(images[0], LABELS))
             calls = {}
+            reset_launch_counts()
             embs = clip.vision.embed_images(images)
             calls["embed_images"] = (launch_counts(), mask_launch_counts())
             reset_launch_counts()
@@ -2062,7 +2363,10 @@ def phase_masked_towers(device, dtype=torch.bfloat16, *, layers=None, vocab_size
                         raise AssertionError(f"{label}: {what} launched {n} (masked {m}), "
                                              f"expected {wn} (masked {wm})")
             hold_towers(clip, vspec, tspec, embs, images, mode, label, texts=texts)
-            out[label] = {"launches": n_cls, "mask_launches": m_cls, "form": form}
+            # the launches of embed_texts: every one carries the mask
+            # (its masked count, checked above, is the text tower's depth)
+            out[label] = {"launches": n_cls, "mask_launches": m_cls, "form": form,
+                          "text_launches": calls["embed_texts"][0]}
             if timed:
                 out[label].update(time_embedder(clip.vision, arrays, label))
                 out[label].update(time_texts(clip.text, texts, label))
@@ -2280,14 +2584,17 @@ def phase_serving(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     server = ClipServer(clip, max_batch=32)
     try:
         say(f"  serving on {server.address}")
+        # the buckets warmed above
         reset_launch_counts()
         served = {
             "image": http(server, "/v1/embed/image", jpgs[0], "image/jpeg"),
             "images": http(server, "/v1/embed/image", {"images_b64": b64[:batch]}),
             "text": http(server, "/v1/embed/text", {"texts": [LABELS[0]]}),
             "texts": http(server, "/v1/embed/text", {"texts": many}),
-            "classify": http(server, "/v1/classify", {"image_b64": b64[1], "labels": LABELS}),
-            "rank": http(server, "/v1/rank", {"images_b64": b64[:hold], "text": LABELS[1]}),
+            "classify": http(server, "/v1/classify", {"image_b64": b64[1],
+                                                      "labels": LABELS}),
+            "rank": http(server, "/v1/rank", {"images_b64": b64[:hold],
+                                              "text": LABELS[1]}),
         }
         counts = launch_counts()
         health = http(server, "/healthz")
@@ -2541,8 +2848,10 @@ def phase_families(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
                 f"({t.heads} heads, ctx {t.context_length}) in "
                 f"{time.perf_counter() - t0:.1f} s; attn_impl vision="
                 f"{clip.vision.attn_impl} text={clip.text.attn_impl}")
-            reset_launch_counts()
+            warm(lambda: clip.vision.embed_images(images), lambda: clip.text.embed_texts(texts),
+                 lambda: clip.classify(images[0], LABELS))
             calls = {}
+            reset_launch_counts()
             embs = clip.vision.embed_images(images)
             calls["embed_images"] = launch_counts()
             masked = mask_launch_counts()
@@ -2962,6 +3271,8 @@ def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, ba
             say(f"  second load (from the npz) in {rec['reload_s']:.2f} s")
 
             # against the mirrors in f32, on the same pixels and ids
+            warm(lambda: clip.vision.embed_images(images), lambda: clip.text.embed_texts(texts),
+                 lambda: clip.classify(images[0], LABELS))
             reset_launch_counts()
             embs = clip.vision.embed_images(images)
             n_img = launch_counts()
@@ -3007,13 +3318,15 @@ def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, ba
             else:
                 qclip, qtext = None, TextEmbedder.from_local_dir(d, device=device, dtype=dtype,
                                                                  quantize=qmode)
-            reset_launch_counts()
             qn = {}
             if qclip is not None:
+                warm(lambda: qclip.vision.embed_images(images))
+                reset_launch_counts()
                 qe = qclip.vision.embed_images(images)
                 qn["embed_images"] = launch_counts()
-                reset_launch_counts()
                 say(f"  {qmode}: images against bf16 min cosine {cosines(qe, embs).min():.6f}")
+            warm(lambda: qtext.embed_texts(texts))
+            reset_launch_counts()
             qt = qtext.embed_texts(texts)
             qn["embed_texts"] = launch_counts()
             say(f"  {qmode}: texts against bf16 min cosine {cosines(qt, temb).min():.6f}; "
@@ -3028,7 +3341,7 @@ def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, ba
                             texts=texts)
             else:
                 with plain_int8_wrappers():
-                    qp = qtext.embed_texts(texts)
+                    qp = eager_texts(qtext, texts)
                 c = cosines(qt, qp).min()
                 say(f"  text: kernel path vs the plain int8 wrappers (same weights): min "
                     f"cosine {c:.6f} (need >= 0.999)")
@@ -3137,6 +3450,7 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     dp = get_mesh(devices=[entry] * 2)
     images = mixed_batch(batch)
     sharded = ShardedVisionEmbedder(clip.vision, dp)
+    warm(lambda: sharded.embed_images(images))
     reset_launch_counts()
     embs = sharded.embed_images(images)
     counts = launch_counts()
@@ -3159,6 +3473,7 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     clip_q, _, _ = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
                               quantize="int8_all")
     sharded_q = ShardedVisionEmbedder(clip_q.vision, dp)
+    warm(lambda: sharded_q.embed_images(images))
     reset_launch_counts()
     embs_q = sharded_q.embed_images(images)
     counts_q = launch_counts()
@@ -3207,6 +3522,7 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     # 4. the sharded text embedder
     texts = captions(batch, 12)
     sharded_t = ShardedTextEmbedder(clip.text, dp)
+    warm(lambda: sharded_t.embed_texts(texts))
     reset_launch_counts()
     tembs = sharded_t.embed_texts(texts)
     counts_t = launch_counts()
@@ -3293,13 +3609,14 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     try:
         if server.mesh is not dp:
             raise AssertionError("server.mesh is not the mesh it was given")
-        reset_launch_counts()
+        reset_launch_counts()  # the buckets warmed above
         served = {
             "image": http(server, "/v1/embed/image", jpgs[0], "image/jpeg"),
             "images": http(server, "/v1/embed/image", {"images_b64": b64[:batch]}),
             "text": http(server, "/v1/embed/text", {"texts": [LABELS[0]]}),
             "texts": http(server, "/v1/embed/text", {"texts": texts}),
-            "classify": http(server, "/v1/classify", {"image_b64": b64[1], "labels": LABELS}),
+            "classify": http(server, "/v1/classify", {"image_b64": b64[1],
+                                                      "labels": LABELS}),
             "rank": http(server, "/v1/rank", {"images_b64": b64[:8], "text": LABELS[1]}),
         }
         counts_s = launch_counts()
@@ -3566,6 +3883,7 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
         export_s = time.perf_counter() - t
         clip = Clip.from_local_dir(d, device=device, dtype=serve_dtype)
         eager = Clip.from_local_dir(d, device=device, dtype=serve_dtype, attn_impl="eager")
+    warm(lambda: clip.vision.embed_images(images), lambda: clip.text.embed_texts(LABELS))
     reset_launch_counts()
     embs = {"images": clip.vision.embed_images(images)}
     n_img = launch_counts()
@@ -3618,6 +3936,339 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
 
 
 # the int8 sources: each runs its products on the s8 TMA + wgmma kernel
+# ---------------------------------------------------------------------------
+# phase 14: the captured forwards
+# ---------------------------------------------------------------------------
+
+# label, config, the modes run, build_clip's other arguments, the towers
+# held (BiomedCLIP's text tower: BERT, with the tokenizer's mask in a static
+# buffer; phase 10's families: their vision towers, layer scales 0.1)
+CAPTURED_MODELS = (
+    ("ViT-SO400M-16-SigLIP2-384", SO400M_SIGLIP2_384, (None, "int8_all"), {},
+     ("vision", "text")),
+    ("PE-Core-bigG-14-448", PE_CORE_BIGG_448, (None, "int8"), {"preprocess": PE_PREPROCESS},
+     ("vision",)),
+    ("BiomedCLIP", BIOMEDCLIP, (None,),
+     {"preprocess": OPENAI_PREPROCESS, "tokenizer": "golden_hf_bert"}, ("text",)),
+    *((name, model, (None,), {"preprocess": OPENAI_PREPROCESS, "tokenizer": "golden_model",
+                              "layer_scale": 0.1}, ("vision",))
+      for name, model, _ in FAMILY_MODELS),
+)
+# the models whose reserved memory is read with and without the layer
+MEMORY_MODELS = ("ViT-SO400M-16-SigLIP2-384", "PE-Core-bigG-14-448")
+CAPTURED_COSINE = 1 - 1e-6
+THREAD_CALLS = 50
+
+
+def row_cosine(got, ref) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        got.float().cpu(), ref.float().cpu(), dim=-1).min())
+
+
+def hold_captured(what, got, ref) -> dict:
+    """Captured rows against the eager tower's at cosine 1 - 1e-6; says
+    whether they are bitwise equal."""
+    cos = row_cosine(got, ref)
+    bitwise = bool(torch.equal(got.float().cpu(), ref.float().cpu()))
+    ok = cos >= CAPTURED_COSINE
+    say(f"  {what}: captured vs eager min row cosine {cos:.9f} (need >= {CAPTURED_COSINE!r}), "
+        f"bitwise equal {bitwise} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the captured forward disagrees with the eager one")
+    return {"cosine": cos, "bitwise": bitwise}
+
+
+def captured_runners(emb, kind):
+    """(captured, eager) of one embedder: each takes a batch and returns its
+    rows, the captured ones as the embedder hands them out (the vision
+    rows on the device, from ``embed_images_device``)."""
+    if kind == "vision":
+        def captured_run(xs):
+            rows, n = emb.embed_images_device(xs)
+            return rows[:n]
+        return captured_run, lambda xs: eager_rows(emb, xs)
+    return (lambda xs: torch.from_numpy(emb.embed_texts(xs)),
+            lambda xs: eager_text_rows(emb, xs))
+
+
+def hold_threads(what, run, batches, refs) -> int:
+    """Two threads, ``THREAD_CALLS`` calls each on one embedder (thread i on
+    ``batches[i]``, another bucket): every row against its eager twin.
+    Returns the calls made."""
+    import threading
+
+    bad, done = [], []
+
+    def worker(i):
+        for _ in range(THREAD_CALLS):
+            got = run(batches[i])
+            if row_cosine(got, refs[i]) < CAPTURED_COSINE:
+                bad.append(i)
+            done.append(i)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(batches))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    alive = any(t.is_alive() for t in threads)
+    say(f"  {what}: {len(threads)} threads x {THREAD_CALLS} calls (batches "
+        f"{[len(b) for b in batches]}): {len(done)} done, {len(bad)} rows off their eager "
+        f"twins {'ok' if not (bad or alive) else 'FAIL'}")
+    if bad or alive or len(done) != len(batches) * THREAD_CALLS:
+        raise AssertionError(f"{what}: concurrent calls returned wrong rows or hung")
+    return len(done)
+
+
+def hold_capture_beside(what, emb, cap, eag, new, busy_xs, busy_ref) -> int:
+    """A bucket's first call, ``cap(new)``, which captures its graph, while
+    another thread runs eager CUDA work in a loop: ``eag(busy_xs)``, the
+    embedder's preprocess (a vision tower's) and the tower's eager forward,
+    whose kernels that thread launches, as ``ClipServer``'s preprocess and
+    handler threads run beside its micro-batcher. Both threads' rows
+    against their eager twins; the capture must add its graph. Returns the
+    eager rounds the other thread ran while the capture ran."""
+    import threading
+
+    from clip_embedder_tpu_torch.utils import captured
+
+    def graphs() -> int:
+        s = captured.graphs_of(emb.tower)
+        return 0 if s is None else len(s.graphs)
+
+    ref, before = eag(new), graphs()
+    started, stop, bad, rounds = threading.Event(), threading.Event(), [], [0]
+
+    def busy():
+        try:
+            while not stop.is_set():
+                if row_cosine(eag(busy_xs), busy_ref) < CAPTURED_COSINE:
+                    bad.append(rounds[0])
+                rounds[0] += 1
+                started.set()
+        except Exception as e:  # noqa: BLE001 - reported below
+            bad.append(repr(e))
+            started.set()
+
+    thread = threading.Thread(target=busy)
+    thread.start()
+    started.wait(timeout=600)
+    n0 = rounds[0]
+    try:
+        got = cap(new)
+    finally:
+        during = rounds[0] - n0
+        stop.set()
+        thread.join(timeout=600)
+    added = graphs() - before
+    cos = row_cosine(got, ref)
+    on_card = torch.cuda.is_available()
+    ok = not (bad or thread.is_alive()) and cos >= CAPTURED_COSINE and added == int(on_card)
+    say(f"  {what}: the batch-{len(new)} bucket captured while another thread ran eager "
+        f"forwards of batch {len(busy_xs)} ({during} rounds during the call, {len(bad)} off "
+        f"their eager rows): {added} graph added, captured rows against eager min cosine "
+        f"{cos:.9f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: a capture beside another thread's CUDA work failed: "
+                             f"{bad[:3]}, {added} graphs added, cosine {cos}")
+    return during
+
+
+def mib(n: int) -> float:
+    return n / 2 ** 20
+
+
+def bucket_of(key) -> int:
+    """The batch bucket of a ``utils.captured`` graph key: the first
+    argument's leading dimension."""
+    _device, args, _kwargs = key
+    return args[0][0][0]
+
+
+def preprocess_ms(emb, arrays) -> float:
+    """The vision embedder's preprocess of ``arrays`` alone (host staging,
+    the copy to the card, the resize), host clock to a synchronize, median
+    of 5."""
+    times = []
+    for _ in range(6):
+        t = time.perf_counter()
+        with torch.inference_mode():
+            emb.preprocessor(arrays)
+        if emb.device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times[1:]) * 1e3
+
+
+def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
+                   timed=True) -> dict:
+    """The captured-forward layer (``utils.captured``) on ``CAPTURED_MODELS``
+    at full width and depth (``layers``/``vocab_size`` cut them for a CPU
+    rehearsal, where the layer runs eager): each tower's rows against its
+    eager forward (the tower called directly) at cosine 1 - 1e-6, two
+    batches in turn (and the first call's rows unchanged after the second),
+    two threads, the graphs and their capture seconds per bucket, images/s,
+    the p50 of one image, texts/s and the idle share, captured against
+    eager, and for ``MEMORY_MODELS`` the reserved memory with and without
+    the layer."""
+    from clip_embedder_tpu_torch.utils import captured
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    free_device_memory()  # the earlier phases' models
+    on_card = device == "cuda"
+    images = mixed_batch(batch)
+    arrays = [to_rgb_array(im) for im in images]
+    texts = captions(batch, 70)
+    inputs = {"vision": arrays, "text": texts}
+    out = {}
+    for name, model, modes, kw, towers in CAPTURED_MODELS:
+        for mode in modes:
+            label = f"{name} {mode or str(dtype).removeprefix('torch.')}"
+            say(f"[14] {label}: captured forwards ({', '.join(towers)}), random weights (seed 0)")
+            t0 = time.perf_counter()
+            clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                            quantize=mode, model=model, **kw)
+            say(f"  built in {time.perf_counter() - t0:.1f} s; attn_impl vision="
+                f"{clip.vision.attn_impl} text={clip.text.attn_impl}")
+            rec = out[label] = {}
+            for kind in towers:
+                emb = clip.vision if kind == "vision" else clip.text
+                what = f"{label} {kind}"
+                cap, eag = captured_runners(emb, kind)
+                xs = inputs[kind]
+                small = xs[:5]  # another bucket (8)
+                r = rec[kind] = {}
+                if on_card:
+                    free_device_memory()
+                    torch.cuda.reset_peak_memory_stats()
+                    weights = torch.cuda.memory_allocated()
+                ref, ref_small = eag(xs), eag(small)
+                eag(xs[:1])
+                if on_card:  # the process's own numbers, the other models freed
+                    r["weights_mib"] = mib(weights)
+                    r["eager_reserved_mib"] = mib(torch.cuda.max_memory_reserved())
+                    r["eager_allocated_mib"] = mib(torch.cuda.max_memory_allocated() - weights)
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_reserved()
+                # the first call runs the warm-up forward and a replay, a
+                # later call the replay alone, each the eager forward's
+                # launches (every graph held to its kernel nodes)
+                reset_launch_counts()
+                got = cap(xs)
+                first_counts = launch_counts()
+                kept = got.clone()
+                reset_launch_counts()
+                replayed = cap(xs)
+                replay_counts = launch_counts()
+                reset_launch_counts()
+                eag(xs)
+                eager_counts = launch_counts()
+                say(f"  {what}: launches of the first captured call {first_counts}, of "
+                    f"the next (a replay) {replay_counts}, of one eager forward "
+                    f"{eager_counts}")
+                twice = {k: 2 * v for k, v in eager_counts.items()} if on_card else eager_counts
+                if first_counts != twice or replay_counts != eager_counts:
+                    raise AssertionError(f"{what}: the captured calls ran other launches than "
+                                         "the eager forward's")
+                r["launches"] = replay_counts
+                r["equal"] = hold_captured(f"{what} batch {len(xs)}", got, ref)
+                hold_captured(f"{what} batch {len(xs)}, the first replay", replayed, ref)
+                got_small = cap(small)
+                hold_captured(f"{what} batch {len(small)} (after batch {len(xs)})", got_small,
+                              ref_small)
+                hold_captured(f"{what} batch {len(xs)} again", cap(xs), ref)
+                if not torch.equal(got, kept):
+                    raise AssertionError(f"{what}: the first call's rows changed when the "
+                                         "graph replayed")
+                say(f"  {what}: the first call's rows unchanged after two more replays ok")
+                if on_card:
+                    cap(xs[:1])
+                    r["captured_reserved_mib"] = mib(torch.cuda.max_memory_reserved())
+                    r["captured_allocated_mib"] = mib(torch.cuda.max_memory_allocated()
+                                                      - weights)
+                    torch.cuda.empty_cache()
+                    r["held_mib"] = mib(torch.cuda.memory_reserved() - before)
+                    if name in MEMORY_MODELS:
+                        say(f"  {what}: max_memory_reserved eager {r['eager_reserved_mib']:.1f} "
+                            f"MiB, captured {r['captured_reserved_mib']:.1f} MiB (the weights: "
+                            f"{r['weights_mib']:.1f} MiB allocated); the graphs' pool holds "
+                            f"{r['held_mib']:.1f} MiB reserved between calls; peak allocated "
+                            f"above the weights eager {r['eager_allocated_mib']:.1f}, captured "
+                            f"{r['captured_allocated_mib']:.1f} MiB (batches {len(xs)}, "
+                            f"{len(small)}, 1)")
+                ref_one = eag(xs[:1])
+                hold_threads(what, cap, [xs[:1], small], [ref_one, ref_small])
+                graphs = captured.graphs_of(emb.tower)
+                seconds = {} if graphs is None else {
+                    bucket_of(key): s for key, s in graphs.capture_seconds.items()}
+                r["graphs"], r["capture_s"] = len(seconds), seconds
+                say(f"  {what}: {len(seconds)} graphs; capture seconds by bucket (the "
+                    "warm-up included; the first also builds the kernels' libraries): "
+                    + ", ".join(f"{b} {s:.3f}" for b, s in seconds.items()))
+                if on_card and len(seconds) != 3:
+                    raise AssertionError(f"{what}: {len(seconds)} graphs for 3 buckets")
+                r["beside"] = hold_capture_beside(what, emb, cap, eag, xs[:9], xs[:1], ref_one)
+                if not timed:
+                    continue
+                if kind == "vision":
+                    r["captured"] = time_embedder(emb, arrays, f"{what} captured")
+                    r["eager"] = time_embedder(
+                        emb, arrays, f"{what} eager",
+                        run=lambda xs: eager_images(emb, xs))
+                    r["captured"]["breakdown"] = profile_embedder(
+                        emb, arrays, f"{what} captured")
+                    r["eager"]["breakdown"] = profile_embedder(
+                        emb, arrays, f"{what} eager", run=lambda xs: eager_images(emb, xs))
+                else:
+                    r["captured"] = time_texts(emb, texts, f"{what} captured")
+                    r["eager"] = time_texts(emb, texts, f"{what} eager",
+                                            run=lambda xs: eager_texts(emb, xs))
+                    r["captured"]["breakdown"] = profile_embedder(
+                        emb, texts, f"{what} captured", run=emb.embed_texts)
+                    r["eager"]["breakdown"] = profile_embedder(
+                        emb, texts, f"{what} eager", run=lambda xs: eager_texts(emb, xs))
+                if kind == "vision":
+                    r["preprocess_ms"] = preprocess_ms(emb, arrays)
+                    say(f"  {what}: the preprocess alone {r['preprocess_ms']:.3f} ms at batch "
+                        f"{len(arrays)} (host clock to a synchronize, median of 5)")
+                if on_card:  # does the profiler see the kernels inside a graph launch?
+                    g = next(g for key, g in graphs.graphs.items()
+                             if bucket_of(key) == len(xs))
+                    r["replay_ms"] = cuda_ms(g.graph.replay, iters=10, warmup=1)
+                    r["replay_busy_ms"] = device_breakdown(g.graph.replay)["busy_ms"]
+                    say(f"  {what}: the batch-{len(xs)} graph's replay alone: CUDA events "
+                        f"{r['replay_ms']:.3f} ms (back to back, median of 10), the "
+                        f"profiler's busy {r['replay_busy_ms']:.3f} ms")
+            del clip
+            free_device_memory()
+    return out
+
+
+def captured_summary(out) -> str:
+    """Phase 14's numbers, one clause a tower."""
+    rows = []
+    for label, rec in out.items():
+        for kind, r in rec.items():
+            c, e = r["captured"], r["eager"]
+            rate = ("images_per_s", "images/s") if kind == "vision" else ("texts_per_s",
+                                                                           "texts/s")
+            one = (f", p50 {c['p50_ms']:.2f} against {e['p50_ms']:.2f} ms"
+                   if kind == "vision" else "")
+            mem = (f", max reserved eager {r['eager_reserved_mib']:.0f} MiB, captured "
+                   f"{r['captured_reserved_mib']:.0f}, held by the graphs {r['held_mib']:.0f}"
+                   if label.rsplit(" ", 1)[0] in MEMORY_MODELS else "")
+            pre = (f", preprocess alone {r['preprocess_ms']:.2f} ms" if kind == "vision"
+                   else "")
+            rows.append(
+                f"{label} {kind}: {c[rate[0]]:.2f} against {e[rate[0]]:.2f} {rate[1]}{one}, idle "
+                f"share {c['breakdown']['idle_share']:.3f} against "
+                f"{e['breakdown']['idle_share']:.3f}{pre}, replay {r['replay_ms']:.2f} ms "
+                f"(profiler busy {r['replay_busy_ms']:.2f}), {r['graphs']} graphs captured in "
+                f"{sum(r['capture_s'].values()):.2f} s{mem}")
+    return "; ".join(rows)
+
+
 INT8_SOURCES = ("int8_mlp", "int8_mlp_streamed", "ln_qkv_int8", "int8_linear")
 # the sources whose SASS must hold int8 wgmma: those and kernel 2's int8 route
 SASS_CHECKED = INT8_SOURCES + ("flash_int8", "flash_int8_tma")
@@ -3731,11 +4382,13 @@ def main(argv) -> int:
     onnx = phase_onnx("cuda")
     sharded = phase_sharded("cuda")
     training = phase_training("cuda")
+    captured_fw = phase_captured("cuda")
     # launches: each kernel's count from its own path's run: the fixtures
     # for flash_attention, SO400M bf16 for ln_qkv and the packed kernel,
     # SO400M int8_all for kernels 4-6, PE-Core int8_all for the streamed MLP,
     # the packed kernel's masked forms from phase 8's text towers (one
-    # embed_texts plus one classify: BiomedCLIP's key rows, CoCa's blocks)
+    # embed_texts: BiomedCLIP's key rows, CoCa's blocks). A replay's share of
+    # every count here is its graph's kernel nodes (hold_graphs)
     record["flash_attention"]["launches"] = fixtures["flash_attention"]
     for name, n in main_path["launches"].items():
         record[name]["launches"] = n
@@ -3743,7 +4396,7 @@ def main(argv) -> int:
     # and what they quantize (0: no path sets quant_qk or quant_pv)
     for rec in record.values():
         if "route_form" in rec:
-            rec["launches"] = main_path["quant_launches"][rec.pop("route_form")]
+            rec["launches"] = main_path["quant_launches"].get(rec.pop("route_form"), 0)
     for name in INT8_WRAPPERS:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][
@@ -3751,7 +4404,7 @@ def main(argv) -> int:
     for run in ("BiomedCLIP bfloat16", "coca_ViT-L-14 bfloat16"):
         form = masked[run]["form"]
         record[f"flash_attention_packed[{form}_mask]"]["launches"] = \
-            masked[run]["mask_launches"][form]
+            masked[run]["text_launches"]["flash_attention_packed"]
     # phase 10's shapes from its own runs: EVA02-L's unmasked (rope) launches
     # in bf16, kernel 6 in the MobileCLIP2-S4 and convnext_large_d_320 int8
     # runs (every launch there a ConvFFN or block fc1/fc2) and, for EVA02-L's
@@ -3836,6 +4489,8 @@ def main(argv) -> int:
         f"{var['tp']['s2']:.4f} s; idle share {training['breakdown']['idle_share']:.3f}; "
         f"export {training['handoff']['export_s']:.2f} s; the phase took "
         f"{training['phase_s']:.1f} s; {card}")
+    say(f"phase 14 (captured against eager, batch 32, host clock): "
+        f"{captured_summary(captured_fw)}; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(card)

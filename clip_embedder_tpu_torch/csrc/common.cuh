@@ -8,6 +8,14 @@
 #include <cstdint>
 #include <type_traits>
 
+// The build defines CLIPK_SOURCE as src_<stem> for csrc/<stem>.cu, and every
+// kernel lies in a namespace of that name (inline in clipk), so that a
+// profiler's kernel names say which source, and so which wrapper, launched
+// them.
+#ifndef CLIPK_SOURCE
+#define CLIPK_SOURCE src
+#endif
+
 namespace clipk {
 
 using bf16 = __nv_bfloat16;

@@ -44,6 +44,7 @@
 #include "hopper.cuh"
 
 namespace clipk {
+inline namespace CLIPK_SOURCE {
 namespace flash {
 
 constexpr int kBQ = 64;
@@ -1240,4 +1241,5 @@ inline int packed_call(Attn* a, const void* q, const void* k, const void* v, con
 }
 
 }  // namespace flash
+}  // namespace CLIPK_SOURCE
 }  // namespace clipk

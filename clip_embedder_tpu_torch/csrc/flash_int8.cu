@@ -53,6 +53,7 @@
 #include "flash_int8.cuh"
 
 namespace clipk {
+inline namespace CLIPK_SOURCE {
 namespace flash8 {
 
 namespace hp = hopper;
@@ -641,6 +642,7 @@ int launch_typed(const Attn& a, const Codes& c, int quant_qk, int quant_pv, cuda
 }
 
 }  // namespace flash8
+}  // namespace CLIPK_SOURCE
 }  // namespace clipk
 
 // q/k/v/out: [batch, seq, heads*d] contiguous; mask, its strides, sin/cos

@@ -7,6 +7,7 @@
 #include "common.cuh"
 
 namespace clipk {
+inline namespace CLIPK_SOURCE {
 namespace flash8 {
 
 // x / s rounded half to even (rintf), clipped to [lo, 127]: the division is
@@ -66,4 +67,5 @@ __device__ __forceinline__ float small_int_to_f32(int x) {
 }
 
 }  // namespace flash8
+}  // namespace CLIPK_SOURCE
 }  // namespace clipk

@@ -89,6 +89,7 @@
 #include "flash_int8.cuh"
 
 namespace clipk {
+inline namespace CLIPK_SOURCE {
 namespace flash8t {
 
 namespace hp = hopper;
@@ -838,6 +839,7 @@ inline int launch_prep(const Attn& a, const Codes& c, int quant_qk, int quant_pv
 }
 
 }  // namespace flash8t
+}  // namespace CLIPK_SOURCE
 }  // namespace clipk
 
 // q/k/v/out: [batch, seq, heads*d] bf16, contiguous and 16-byte aligned, d

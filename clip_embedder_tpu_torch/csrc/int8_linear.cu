@@ -41,6 +41,7 @@
 namespace i8 = clipk::i8;
 namespace i8w = clipk::i8w;
 
+namespace CLIPK_SOURCE {
 namespace {
 
 // The row pass of rows whose width is no multiple of 16: one warp a row,
@@ -87,6 +88,9 @@ int run(const void* x, void* xq, void* xs, const void* w, const void* s, const v
 }
 
 }  // namespace
+}  // namespace CLIPK_SOURCE
+
+using namespace CLIPK_SOURCE;
 
 // dtype: 0 = float32, 1 = bfloat16 (x, residual and out). x: [rows, k_in],
 // contiguous. w: [k_out, k_in] int8 (the K-major storage), rows ldw bytes

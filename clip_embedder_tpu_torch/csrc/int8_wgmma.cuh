@@ -70,6 +70,7 @@
 #include "int8.cuh"
 
 namespace clipk {
+inline namespace CLIPK_SOURCE {
 namespace i8w {
 
 using hopper::desc;
@@ -503,4 +504,5 @@ cudaError_t launch_gemm(const void* a, const void* const* w, const Args& args,
 }
 
 }  // namespace i8w
+}  // namespace CLIPK_SOURCE
 }  // namespace clipk

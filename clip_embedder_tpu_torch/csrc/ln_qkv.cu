@@ -36,6 +36,7 @@
 using clipk::align128;
 using clipk::bf16;
 
+namespace CLIPK_SOURCE {
 namespace {
 
 constexpr int kThreads = 256;
@@ -531,6 +532,9 @@ int launch(const void* x, void* xn, const void* gamma, const void* beta, const v
 }
 
 }  // namespace
+}  // namespace CLIPK_SOURCE
+
+using namespace CLIPK_SOURCE;
 
 // dtype: 0 = float32, 1 = bfloat16. Tiles (bm, bn): bf16 (256, 128), the
 // TMA + wgmma kernel (x, xn and the weights 16-byte aligned), or (64, 64),

@@ -195,7 +195,7 @@ class HFText(ParamTree):
             denom = valid.sum(-1, keepdim=True).clamp_min(1.0)
             pooled = (x * valid[..., None]).sum(1) / denom
         elif cfg.pooler == "max":
-            neg = torch.tensor(-1e30, dtype=x.dtype, device=x.device)
+            neg = torch.full((), -1e30, dtype=x.dtype, device=x.device)
             pooled = torch.where(valid[..., None] > 0, x, neg).amax(dim=1)
         elif cfg.pooler == "cls_pooler":
             if "pooler" not in self:

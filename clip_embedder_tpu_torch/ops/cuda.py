@@ -15,6 +15,11 @@ the current device) and on PyTorch's current stream there; a kernel
 returns ``cudaGetLastError()``, and ``launch`` turns a non-zero code into
 an error.
 
+Each wrapper counts its kernel's launches through ``count``, so that a run
+can show it went through the kernel; ``tallied`` diverts a thread's counts
+for a block (``utils.captured``: a graph's capture launches nothing, and its
+replays add what it recorded).
+
 The kernels have no backward. A wrapper calls ``no_grad_operands`` before it
 launches: with autograd on, an operand that requires grad raises, where the
 kernel's fresh output would otherwise end the gradient without a word (a
@@ -30,6 +35,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -59,11 +65,19 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def nvcc_flags(stem: str) -> tuple[str, ...]:
+    """``NVCC_FLAGS`` and the source's own namespace, ``CLIPK_SOURCE``
+    (``csrc/common.cuh``): every kernel of ``csrc/<stem>.cu`` is named
+    ``...src_<stem>::...``, so that a profiler's kernel names say which
+    library, and so which wrapper, launched them."""
+    return (*NVCC_FLAGS, f"-DCLIPK_SOURCE=src_{stem}")
+
+
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for dep in sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(src.stem)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -81,7 +95,7 @@ def build_all(stems=None) -> dict[str, Path]:
         procs = {}
         for stem, (src, out) in missing.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc, *nvcc_flags(stem), "-o", str(tmp), str(src)]
             procs[stem] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
@@ -142,6 +156,40 @@ def launch(fn: ctypes._CFuncPtr, name: str, on: torch.Tensor, *args) -> None:
     with torch.cuda.device(on.device):
         code = fn(*args, stream_ptr(on))
     check(code, name)
+
+
+_tally = threading.local()
+_count_lock = threading.Lock()
+
+
+def count(wrapper, counter: str = "launches", form: str | None = None, n: int = 1) -> None:
+    """Add ``n`` launches of ``wrapper``'s kernel to its count ``counter``: an
+    int attribute of the wrapper or, with ``form``, that entry of a dict
+    attribute (the packed kernel's counts by mask form, ...). Inside this
+    thread's ``tallied`` block they go to its tally instead."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        key = (wrapper, counter, form)
+        tally[key] = tally.get(key, 0) + n
+        return
+    with _count_lock:
+        if form is None:
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)
+        else:
+            getattr(wrapper, counter)[form] += n
+
+
+@contextmanager
+def tallied():
+    """Collect this thread's ``count`` calls, for the block, into the dict it
+    yields (``{(wrapper, counter, form): n}``) in place of the wrappers'
+    counts."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = {}
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = outer
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -480,8 +480,8 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
                exp_bf16=exp_bf16, denom_rounded=denom_rounded, quant_qk=quant_qk,
                quant_pv=quant_pv)
         form = "both" if quant_qk and quant_pv else "qk" if quant_qk else "pv"
-        flash_attention_packed.quant_launches[form] += 1
-        flash_attention_packed.route_launches[f"{route} {form}"] += 1
+        cuda.count(flash_attention_packed, "quant_launches", form)
+        cuda.count(flash_attention_packed, "route_launches", f"{route} {form}")
     else:
         q, k, v = _tma_operands(kernel_route(d, q.dtype, mxu_denom=mxu_denom), q, k, v)
         m, sb, sr = mask
@@ -496,9 +496,9 @@ def flash_attention_packed(q, k, v, *, num_heads: int, mask=None, rope=None,
                     cuda.ptr(kr), cuda.ptr(out), b, s, num_heads, d, float(1.0 / d ** 0.5),
                     int(fast_softmax), int(exp_bf16), denom_rounded,
                     cuda.DTYPE_CODES[q.dtype])
-    flash_attention_packed.launches += 1
+    cuda.count(flash_attention_packed)
     if mask[0] is not None:
-        flash_attention_packed.mask_launches[mask_form(*mask[1:])] += 1
+        cuda.count(flash_attention_packed, "mask_launches", mask_form(*mask[1:]))
     return out
 
 
@@ -572,7 +572,7 @@ def flash_attention(q, k, v, *, mask=None, fast_softmax: bool = False) -> torch.
                 cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m2), cuda.ptr(out), b, h, s, d,
                 float(1.0 / d ** 0.5), int(fast_softmax), int(d % 128 != 0),
                 cuda.DTYPE_CODES[q.dtype])
-    flash_attention.launches += 1
+    cuda.count(flash_attention)
     return out
 
 

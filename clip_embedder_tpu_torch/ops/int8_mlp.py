@@ -304,7 +304,7 @@ def _launch_mlp(wrapper, params, x, activation, pre_ln, ln_eps, add_residual,
                 cuda.ptr(hs), cuda.ptr(w2), cuda.ptr(s2), cuda.ptr(b2), cuda.ptr(out),
                 rows, k_in, hidden, k_out, *extra, float(ln_eps), ACT_CODES[activation],
                 int(ln), int(add_residual), cuda.DTYPE_CODES[x.dtype])
-    wrapper.launches += 1
+    cuda.count(wrapper)
     return out
 
 
@@ -394,7 +394,7 @@ def int8_linear_fused(params, x: torch.Tensor, *,
                 cuda.ptr(x), cuda.ptr(xq), cuda.ptr(xs), cuda.ptr(w), cuda.ptr(s), cuda.ptr(b),
                 cuda.ptr(residual), cuda.ptr(out), rows, k_in, k_out, lda, w.stride(1), ldo,
                 cuda.DTYPE_CODES[x.dtype])
-    int8_linear_fused.launches += 1
+    cuda.count(int8_linear_fused)
     return out[:, :k_out].reshape(shape)
 
 

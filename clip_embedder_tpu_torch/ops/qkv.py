@@ -117,7 +117,7 @@ def ln_qkv(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
                 *(cuda.ptr(w) for w in ws), *(cuda.ptr(b) for b in bs),
                 *(cuda.ptr(o) for o in outs), rows, width, float(eps),
                 cuda.DTYPE_CODES[x.dtype], bm, bn)
-    ln_qkv.launches += 1
+    cuda.count(ln_qkv)
     return tuple(outs)
 
 
@@ -187,7 +187,7 @@ def ln_qkv_int8(params, pre_ln, x: torch.Tensor, *, eps: float = 1e-6):
                 *(cuda.ptr(w) for w, _, _ in ops), *(cuda.ptr(s) for _, s, _ in ops),
                 *(cuda.ptr(b) for _, _, b in ops), *(cuda.ptr(o) for o in outs),
                 rows, width, float(eps), cuda.DTYPE_CODES[x.dtype])
-    ln_qkv_int8.launches += 1
+    cuda.count(ln_qkv_int8)
     return tuple(outs)
 
 

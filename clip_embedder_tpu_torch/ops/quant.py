@@ -51,8 +51,10 @@ _CLIP_ALPHAS = tuple(float(a) for a in np.linspace(0.70, 1.0, 13))
 def true_div(a: torch.Tensor, c: float) -> torch.Tensor:
     """a / c by IEEE division on every device. (PyTorch multiplies a CUDA
     tensor by the reciprocal of a Python number it is divided by, which
-    rounds differently: a scale one unit off flips int8 codes.)"""
-    return a / a.new_tensor(c)
+    rounds differently: a scale one unit off flips int8 codes.) The divisor
+    is filled on a's device, not copied from the host, so that a captured
+    forward (``utils.captured``) holds it."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
 
 
 def kmajor(w: torch.Tensor, *, pad: bool | None = None) -> torch.Tensor:

@@ -6,14 +6,19 @@ power of two aligned to the data axis and is staged once on the host
 preprocess resize and the inner embedder's tower on the first device of mesh
 row ``i`` — with the kernels, in every mode (DP, and DP under ``int8`` /
 ``int8_all``), as the JAX package's ``shard_map`` keeps its Pallas kernels
-on local blocks — and the rows are gathered to the first device.
+on local blocks — and the rows are gathered to the first device. On the
+card each shard's tower forward replays its captured graph
+(``utils.captured``, one a shard tower and bucket; mesh entries of one
+device share the tower and so its graphs), as the JAX package compiles one
+program per shard layout.
 
 With ``tensor_parallel`` (the ``vit`` family only; other families fall back
 to DP, as in the JAX package) each mesh row runs the tower's
 tensor-parallel form over its model ranks (``parallel.tensor_parallel``),
 on the eager attention core: a kernel ``attn_impl`` is overridden to
 ``"eager"`` with a one-time warning, as the JAX package overrides Pallas to
-XLA. Quantized embedders refuse TP.
+XLA. Quantized embedders refuse TP. The tensor-parallel forward stays
+eager: its per-rank sublayers and cross-device sums are no one graph.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..errors import ConfigError, InferenceError
 from ..ops.attention import KERNEL_IMPLS
 from ..ops.preprocess import bucket_batch, resize_normalize_indexed
 from ..text import pad_batch, tower_kwargs
+from ..utils import captured
 from ..utils.images import to_rgb_array
 from ..utils.logging import warn_once
 from .mesh import DATA_AXIS, Mesh, pad_to_multiple, replicate
@@ -105,7 +111,11 @@ class ShardedVisionEmbedder:
                     torch.from_numpy(batch[rows]).to(dev), *tables[dev],
                     torch.from_numpy(idx[rows]).to(dev).long(), *self._norm[dev],
                     out_dtype=pp.out_dtype, layout=pp.layout)
-                outs.append(tower(pixels, attn_impl=self.attn_impl, channels_first=True))
+                if self.tensor_parallel:
+                    outs.append(tower(pixels, attn_impl=self.attn_impl, channels_first=True))
+                else:
+                    outs.append(captured.forward(self.inner.spec.family, tower, pixels,
+                                                 attn_impl=self.attn_impl, channels_first=True))
             return _gather(outs), len(arrays)
 
 
@@ -127,11 +137,11 @@ class ShardedTextEmbedder:
         ids, mask = pad_batch(ids, mask, _batch_bucket(len(texts), n_data), self.inner.pad_id)
         per = ids.shape[0] // n_data
         outs = []
-        with torch.inference_mode():
-            for i, (dev, tower) in enumerate(zip(self.devices, self.towers)):
-                rows = slice(i * per, (i + 1) * per)
-                # the tokenizer's mask is authoritative where the tower takes one
-                outs.append(tower(torch.from_numpy(ids[rows]).to(dev),
-                                  attn_impl=self.inner.attn_impl,
-                                  **tower_kwargs(self.inner.spec, mask[rows], dev)))
-            return _gather(outs)[: len(texts)].float().cpu().numpy()
+        for i, (dev, tower) in enumerate(zip(self.devices, self.towers)):
+            rows = slice(i * per, (i + 1) * per)
+            # the tokenizer's mask is authoritative where the tower takes one
+            outs.append(captured.forward(self.inner.spec.family, tower,
+                                         torch.from_numpy(ids[rows]).to(dev),
+                                         attn_impl=self.inner.attn_impl,
+                                         **tower_kwargs(self.inner.spec, mask[rows], dev)))
+        return _gather(outs)[: len(texts)].float().cpu().numpy()

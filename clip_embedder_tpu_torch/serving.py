@@ -58,7 +58,8 @@ def warmup(
 ) -> None:
     """Run the embed paths once at each batch bucket, so that no request
     pays the first call's cost (the kernels' nvcc build on the card, the
-    rope tables, cuBLAS's first choice of algorithm).
+    rope tables, cuBLAS's first choice of algorithm, and the capture of
+    each bucket's CUDA graph: ``utils.captured``).
 
     Accepts a ``Clip`` or a single embedder; ``image_sizes`` are source
     sizes (before the resize).

@@ -7,7 +7,8 @@ same pad-id resolution (``model_config.pad_id``, else the tokenizer's
 (src/text.rs:115-121), batch padded to a power-of-two bucket. The tower is
 ``models.text_transformer.TextTransformer``, for ``hf_model_name`` configs
 ``models.hf_text.HFText`` (which takes the tokenizer's attention mask), or
-``models.mct.Mct``; devices as in ``vision``.
+``models.mct.Mct``; devices, and the captured forward on the card
+(``utils.captured``), as in ``vision``.
 
 A reference-format dir (``text.onnx``, no ``text.npz``) is converted in place
 as the vision tower is (``vision.load_or_convert``). Two derivations come
@@ -45,6 +46,7 @@ from .ops.normalize import l2_normalize
 from .ops.preprocess import bucket_batch
 from .ops.quant import check_quantize_mode
 from .tokenizer import Tokenizer
+from .utils import captured
 from .vision import (cache_converted, executor_fallback, load_or_convert, persist_cfg,
                      quantize_params, resolve_attn_impl, resolve_device)
 
@@ -249,9 +251,9 @@ class TextEmbedder:
         return cls.from_local_dir(get_hf_model(model_id), **kw)
 
     def duplicate(self) -> "TextEmbedder":
-        """(reference: src/text.rs:104-108) — weights are shared; the
-        tokenizer is cloned (stateful pre-tokenizers carry per-call
-        state)."""
+        """(reference: src/text.rs:104-108) — weights are shared, and so
+        their captured graphs (``utils.captured``); the tokenizer is cloned
+        (stateful pre-tokenizers carry per-call state)."""
         return TextEmbedder(
             tower=self.tower, spec=self.spec, config=self.config,
             model_config=self.model_config, tokenizer=self.tokenizer.clone(),
@@ -278,7 +280,7 @@ class TextEmbedder:
             raise InferenceError("Empty batch")
         ids, mask = self.tokenize(texts)
         ids, mask = pad_batch(ids, mask, bucket_batch(len(texts)), self.pad_id)
-        with torch.inference_mode():
-            embs = self.tower(torch.from_numpy(ids).to(self.device), attn_impl=self.attn_impl,
-                              **tower_kwargs(self.spec, mask, self.device))
-            return embs[: len(texts)].float().cpu().numpy()
+        embs = captured.forward(self.spec.family, self.tower,
+                                torch.from_numpy(ids).to(self.device), attn_impl=self.attn_impl,
+                                **tower_kwargs(self.spec, mask, self.device))
+        return embs[: len(texts)].float().cpu().numpy()

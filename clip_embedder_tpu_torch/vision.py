@@ -23,6 +23,10 @@ on their own; ask for ``device="cpu"`` to run there.
 ``quantize="int8"`` (MLP blocks) or ``"int8_all"`` (MLP blocks and
 attention projections) converts the loaded weights to W8A8
 (``ops.quant``), as the JAX package's ``quantize=`` does.
+
+On the card the tower forward is captured once per batch bucket as a CUDA
+graph and replayed (``utils.captured``), as the JAX package jits it once
+per shape; ``duplicate()`` shares the tower and so its graphs.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from .ops.attention import ATTN_IMPLS
 from .ops.normalize import l2_normalize
 from .ops.preprocess import Preprocessor
 from .ops.quant import check_quantize_mode, quantize_tree_checked
+from .utils import captured
 from .utils.images import to_rgb_array
 from .utils.logging import warn_once
 from .weights import (load_pytree, params_from_numpy, save_pytree, to_device_tree,
@@ -345,8 +350,9 @@ class VisionEmbedder:
         return cls.from_local_dir(get_hf_model(model_id), **kw)
 
     def duplicate(self) -> "VisionEmbedder":
-        """A fresh instance sharing this one's weights
-        (reference: src/vision.rs:87-91)."""
+        """A fresh instance sharing this one's weights, and so their
+        captured graphs, under one lock (``utils.captured``; reference:
+        src/vision.rs:87-91)."""
         return VisionEmbedder(
             tower=self.tower, spec=self.spec, config=self.config,
             model_config=self.model_config, model_dir=self.model_dir,
@@ -369,13 +375,16 @@ class VisionEmbedder:
         ``(embeddings [bucket, embed_dim] on the embedder's device, n)``
         without a host sync (nothing is read back), so a caller
         (``parallel.pipeline.EmbedPipeline``) can keep a batch in flight
-        while the previous one reads back. Rows past ``n`` are padding."""
+        while the previous one reads back. Rows past ``n`` are padding. On
+        the card the rows are a copy of the bucket's graph output
+        (``utils.captured``), so they outlive the next call."""
         if len(images) == 0:
             raise InferenceError("Empty batch")
         arrays = [to_rgb_array(img) for img in images]
         with torch.inference_mode():
             pixels = self.preprocessor(arrays)  # [bucket, 3, S, S]
-            return self.tower(pixels, attn_impl=self.attn_impl, channels_first=True), len(arrays)
+            return captured.forward(self.spec.family, self.tower, pixels,
+                                    attn_impl=self.attn_impl, channels_first=True), len(arrays)
 
     # -- preprocessing only (reference: src/vision.rs:120-138) -------------
 

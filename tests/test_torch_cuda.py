@@ -24,6 +24,7 @@ from clip_embedder_tpu_torch.ops.quant import quantize_weight
 from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
 
 FIXTURES = Path(__file__).parent / "fixtures"
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.cuda
 
@@ -966,3 +967,172 @@ def test_wrapper_refuses_an_operand_that_requires_grad(dev, name):
             assert_rows_close(g, r, torch.bfloat16)
         else:
             torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2)
+
+
+# -- the captured forwards (utils.captured) ----------------------------------
+
+def _images(n, seed=5):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 255, (40 + 7 * i, 60 - 3 * i, 3), dtype=np.uint8) for i in range(n)]
+
+
+def _eager_rows(emb, images):
+    """The rows of ``embed_images_device`` with the tower called directly."""
+    with torch.inference_mode():
+        pixels = emb.preprocessor(images)
+        return emb.tower(pixels, attn_impl=emb.attn_impl, channels_first=True)[: len(images)]
+
+
+def _captured_clip(mode=None):
+    from clip_embedder_tpu_torch import Clip
+
+    return Clip.from_local_dir(FIXTURES / "golden_siglip", device="cuda", quantize=mode)
+
+
+def _cos(a, b):
+    return float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+@pytest.mark.parametrize("mode", [None, "int8_all"])
+def test_captured_rows_equal_eager_across_buckets_and_threads(dev, mode):
+    import threading
+
+    from clip_embedder_tpu_torch.utils import captured
+
+    clip = _captured_clip(mode)
+    emb = clip.vision
+    batches = [_images(3), _images(1, seed=6)]
+    refs = [_eager_rows(emb, b) for b in batches]
+    for _ in range(2):  # two buckets in turn
+        for b, ref in zip(batches, refs):
+            rows, n = emb.embed_images_device(b)
+            assert _cos(rows[:n], ref) >= 1 - 1e-6
+    assert len(captured.graphs_of(emb.tower).graphs) == 2
+    bad = []
+
+    def worker(i):
+        for _ in range(20):
+            rows, n = emb.embed_images_device(batches[i])
+            if _cos(rows[:n], refs[i]) < 1 - 1e-6:
+                bad.append(i)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and bad == []
+    from clip_embedder_tpu_torch.text import pad_batch
+
+    texts = ["a cat", "two dogs on a mat", "the sea"]
+    ids, mask = clip.text.tokenize(texts)
+    ids, _ = pad_batch(ids, mask, 4, clip.text.pad_id)  # the bucket
+    with torch.inference_mode():
+        tref = clip.text.tower(torch.from_numpy(ids).to(dev), attn_impl=clip.text.attn_impl)
+    assert _cos(torch.from_numpy(clip.text.embed_texts(texts)), tref[:3].cpu()) >= 1 - 1e-6
+
+
+def test_embed_images_device_rows_survive_the_next_call(dev):
+    from clip_embedder_tpu_torch.utils import captured
+
+    emb = _captured_clip().vision
+    first, _ = emb.embed_images_device(_images(2))
+    kept = first.clone()
+    dup = emb.duplicate()  # shares the tower, and so its graphs
+    second, _ = dup.embed_images_device(_images(2, seed=9))
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert captured.graphs_of(dup.tower) is captured.graphs_of(emb.tower)
+    assert len(captured.graphs_of(emb.tower).graphs) == 1
+
+
+def test_launch_counts_stay_exact_after_replay(dev):
+    import importlib.util
+
+    from clip_embedder_tpu_torch.utils import captured
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    emb = _captured_clip().vision
+    images = _images(3)
+    before = flash.flash_attention.launches
+    _eager_rows(emb, images)
+    one = flash.flash_attention.launches - before
+    assert one > 0  # the fixture's 4 x 16 heads take kernel 3
+    before = flash.flash_attention.launches
+    emb.embed_images_device(images)  # the warm-up forward, the capture, a replay
+    assert flash.flash_attention.launches - before == 2 * one
+    before = flash.flash_attention.launches
+    for _ in range(2):  # replays
+        emb.embed_images_device(images)
+    assert flash.flash_attention.launches - before == 2 * one
+    # what a replay launches: the graph's kernel nodes of csrc/flash_bhsd.cu
+    (graph,) = captured.graphs_of(emb.tower).graphs.values()
+    nodes = smoke.port_launches(smoke.graph_kernel_names(graph.graph))
+    assert nodes["flash_attention"] == one
+
+
+def test_a_capture_beside_another_threads_cuda_work(dev):
+    """A bucket's first call captures while another thread runs the
+    preprocess and the tower's eager forward (the port's kernels launched
+    from that thread) in a loop, as the server's preprocess and handler
+    threads do: both threads' rows equal their eager twins."""
+    import threading
+
+    from clip_embedder_tpu_torch.utils import captured
+
+    emb = _captured_clip().vision
+    busy_images, new = _images(1, seed=7), _images(5, seed=8)
+    busy_ref, ref = _eager_rows(emb, busy_images), _eager_rows(emb, new)
+    started, stop, bad, rounds = threading.Event(), threading.Event(), [], [0]
+
+    def busy():
+        try:
+            while not stop.is_set():
+                if _cos(_eager_rows(emb, busy_images), busy_ref) < 1 - 1e-6:
+                    bad.append(rounds[0])
+                rounds[0] += 1
+                started.set()
+        except Exception as e:  # noqa: BLE001 - asserted below
+            bad.append(repr(e))
+            started.set()
+
+    thread = threading.Thread(target=busy)
+    thread.start()
+    started.wait(timeout=120)
+    try:
+        rows, n = emb.embed_images_device(new)  # bucket 8: captured now
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    assert not thread.is_alive() and bad == [] and rounds[0] > 1
+    assert len(captured.graphs_of(emb.tower).graphs) == 1
+    assert _cos(rows[:n], ref) >= 1 - 1e-6
+
+
+def test_a_forward_that_reads_the_host_raises_at_capture(dev):
+    from clip_embedder_tpu_torch.utils import captured
+
+    class ReadsHost(torch.nn.Module):
+        def forward(self, x):
+            return x * float(x.sum())
+
+    tower = ReadsHost()
+    with pytest.raises(captured.CaptureError, match="aten.item"):
+        captured.forward("vit", tower, torch.ones(2, 3, device=dev))
+    assert captured.graphs_of(tower).graphs == {}
+
+
+def test_dp_mesh_of_two_cuda0_entries_returns_the_unsharded_rows(dev):
+    from clip_embedder_tpu_torch.parallel import ShardedVisionEmbedder, get_mesh
+
+    emb = _captured_clip().vision
+    images = _images(4)
+    sharded = ShardedVisionEmbedder(emb, get_mesh(devices=["cuda:0", "cuda:0"]))
+    got = sharded.embed_images(images)
+    # the shards replay one graph in turn: shard 0's rows must not be shard 1's
+    assert not np.allclose(got[:2], got[2:])
+    for half in (slice(0, 2), slice(2, 4)):
+        ref = _eager_rows(emb, images[half]).float().cpu().numpy()
+        assert _cos(torch.from_numpy(got[half]), torch.from_numpy(ref)) >= 1 - 1e-5

@@ -18,12 +18,14 @@ from clip_embedder_tpu import weights as jweights
 from clip_embedder_tpu.models import build as jbuild
 from clip_embedder_tpu.models import text_transformer as jtext
 from clip_embedder_tpu.models import vit as jvit
+from clip_embedder_tpu.models import zoo as jzoo
 from clip_embedder_tpu_torch import weights as tweights
 from clip_embedder_tpu_torch.config import ModelCfg
 from clip_embedder_tpu_torch.errors import ConfigError, WeightError
 from clip_embedder_tpu_torch.models import build as tbuild
 from clip_embedder_tpu_torch.models import text_transformer as ttext
 from clip_embedder_tpu_torch.models import vit as tvit
+from clip_embedder_tpu_torch.models import zoo as tzoo
 
 SIGLIP_VIT = jvit.ViTCfg(
     image_size=32, patch_size=8, width=64, layers=2, heads=4, mlp_hidden=128,
@@ -74,6 +76,14 @@ def test_vit_matches_jax(jcfg):
         assert got.shape == ref.shape
         assert cos_min(got, ref) > 1 - 1e-6, impl
         np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_zoo_so400m_is_the_jax_config():
+    """``models/zoo.py``'s SO400M config, field by field."""
+    got, want = tzoo.so400m_siglip2_384(), jzoo.so400m_siglip2_384()
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.seq_len, got.head_dim) == (want.seq_len, want.head_dim) == (576, 72)
 
 
 def test_vit_channels_first_patchify():
