@@ -103,8 +103,9 @@ card, in phases, and fail loudly if any phase fails.
    against plain, ViT-B-32 under ``int8_all`` and the MCT tower under
    ``int8``, the graph executor (``onnx_exec``) on each graph against the
    mirror (1 - 1e-5, f32), images/s, p50 and texts/s of the converted
-   towers and of the executor, the converted ViT-B-32's device time by
-   kernel group. Phase 3 holds and times kernels 1, 2 and 4-6 at its
+   towers and of the executor (its towers captured per batch bucket, their
+   rows held to the eager executor's), the converted ViT-B-32's device time
+   by kernel group. Phase 3 holds and times kernels 1, 2 and 4-6 at its
    shapes.
 12. the sharded path — ViT-SO400M-16-SigLIP2-384 at full width and depth
    (phase 5's seeded bf16 weights) through ``clip_embedder_tpu_torch.parallel``
@@ -115,7 +116,8 @@ card, in phases, and fail loudly if any phase fails.
    axis (the eager core: no kernel launched, the override warned; refused
    for ``int8_all``); ``ShardedTextEmbedder``; ``EmbedPipeline`` over 256
    JPEGs against a loop; ``CorpusIndex`` over 2^20 x 1152 f32 unit rows
-   against a dense ``torch.matmul`` + ``topk``; ``ClipServer(mesh=)``: one
+   against a dense ``torch.matmul`` + ``topk``, its captured search against
+   the eager one (ids equal, scores within 1e-6); ``ClipServer(mesh=)``: one
    client through every endpoint, then 64 concurrent clients.
 13. training — ViT-SO400M-16-SigLIP2-384 at full width and depth through
    ``clip_embedder_tpu_torch.train`` (f32, SigLIP loss, remat, lr 1e-5,
@@ -131,8 +133,9 @@ card, in phases, and fail loudly if any phase fails.
    2's wrapper.
 14. captured forwards (``utils.captured``) — phase 5's SO400M (bf16 and
    ``int8_all``, both towers), PE-Core-bigG (bf16 and ``int8``), BiomedCLIP's
-   BERT text tower and phase 10's four vision towers, at full width and
-   depth: each tower's rows (the card replays one CUDA graph a batch
+   BERT text tower, phase 10's four vision towers and phase 11's
+   CLIP-ViT-B-32 graphs run by the ONNX executor (both towers), at full
+   width and depth: each tower's rows (the card replays one CUDA graph a batch
    bucket) against its eager forward, the tower module called directly,
    at cosine 1 - 1e-6 (bitwise equality printed), the launch counts of the
    first call twice one eager forward's (the warm-up and the replay), of
@@ -141,15 +144,23 @@ card, in phases, and fail loudly if any phase fails.
    50 calls each; a new bucket captured while another thread runs eager
    forwards; the graphs and their capture seconds per bucket; images/s
    at batch 32, the p50 of one image, texts/s and the idle share, captured
-   against eager; for SO400M and PE-Core the reserved memory with and
-   without the layer.
+   against eager, and for the vision towers also the captured tower after
+   the plain preprocess; for SO400M and PE-Core the reserved memory with and
+   without the layer. Each vision tower's captured preprocess
+   (``Preprocessor.run``: reused staging, the resize replayed) is held
+   to the plain route (``Preprocessor.eager``) with ``torch.equal`` on two
+   batches of different padded sizes (768 x 1024, 512 x 640) in turn and
+   back, and timed: alone against the plain route, and split into host
+   staging, the copy and the replay, beside its graphs and their pool.
 
 From phase 4 on, every ``embed_images`` / ``embed_texts`` / ``classify``,
-and phase 12's DP shards, run through the captured layer on the card (a
+and phase 12's DP shards, run through the captured layer on the card, the
+preprocess included (a
 graph's replay adds the launches its capture recorded; a bucket's first
 call also counts its warm-up forward's); each plain path (eager attention,
-the plain int8 wrappers) calls the tower modules directly (``eager_rows``),
-as a graph captured with the kernels would replay them. Before any launch
+the plain int8 wrappers) calls the tower modules directly after the plain
+preprocess (``eager_rows``), as a graph captured with the kernels would
+replay them. Before any launch
 count is read, every graph captured so far is held to the kernels it
 holds (``hold_graphs``: its kernel nodes, from CUDA's driver API, by the
 source each kernel's name carries), so that what a replay adds to the
@@ -1533,16 +1544,17 @@ def mixed_batch(n: int) -> list:
 
 def eager_rows(emb, images, attn_impl=None) -> torch.Tensor:
     """``emb.embed_images_device(images)``'s rows ([n, D] on the device)
-    with the tower module called directly, eager, as ``embed_images_device``
-    called it before the captured layer (``utils.captured``): the reference
-    that layer is held to, and the plain path's runner (under
+    with the preprocess's plain route (``Preprocessor.eager``) and the tower
+    module called directly, eager, as ``embed_images_device`` ran them
+    before the captured layer (``utils.captured``): the reference that
+    layer is held to, and the plain path's runner (under
     ``plain_int8_wrappers``, which a graph captured with the kernels would
     not follow)."""
     from clip_embedder_tpu_torch.utils.images import to_rgb_array
 
     arrays = [to_rgb_array(im) for im in images]
     with torch.inference_mode():
-        pixels = emb.preprocessor(arrays)
+        pixels = emb.preprocessor.eager(arrays)
         rows = emb.tower(pixels, attn_impl=attn_impl or emb.attn_impl, channels_first=True)
     return rows[: len(arrays)]
 
@@ -1560,6 +1572,21 @@ def eager_text_rows(emb, texts, attn_impl=None) -> torch.Tensor:
                          attn_impl=attn_impl or emb.attn_impl,
                          **tower_kwargs(emb.spec, mask, emb.device))
     return rows[: len(texts)]
+
+
+def plain_preprocess_images(emb, images) -> np.ndarray:
+    """``emb.embed_images(images)`` with the preprocess's plain route
+    (``Preprocessor.eager``) before the tower's captured forward: the route
+    before the preprocess was captured."""
+    from clip_embedder_tpu_torch.utils import captured
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    arrays = [to_rgb_array(im) for im in images]
+    with torch.inference_mode():
+        pixels = emb.preprocessor.eager(arrays)
+        rows = captured.forward(emb.tower, pixels, attn_impl=emb.attn_impl,
+                                channels_first=True)
+    return rows[: len(arrays)].float().cpu().numpy()
 
 
 def eager_images(emb, images, attn_impl=None) -> np.ndarray:
@@ -2672,13 +2699,12 @@ def phase_serving(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
             t = time.perf_counter()
             arrays = [to_rgb_array(j) for j in jpgs[:32]]
             decode_ms = (time.perf_counter() - t) * 1e3
-            t = time.perf_counter()
-            staged = clip.vision.preprocessor.stage_host_batch_unique(arrays)
-            stage_ms = (time.perf_counter() - t) * 1e3
+            pp = clip.vision.preprocessor
+            stage_ms = staging_ms(pp, arrays)
             say(f"  host work of that micro-batch alone (host clock): decode of the 32 JPEGs "
                 f"{decode_ms:.2f} ms ({'libclippre' if native.available() else 'Pillow'}), "
-                f"staging {stage_ms:.2f} ms (u8 batch {list(staged[0].shape)}, "
-                f"{staged[0].nbytes / 2**20:.1f} MiB)")
+                f"staging {stage_ms:.2f} ms (into the reused u8 buffer "
+                f"{[len(arrays), *pp.padded_size(arrays), 3]}, median of 5)")
             out["host_ms"] = {"decode": decode_ms, "stage": stage_ms}
     finally:
         server.close()
@@ -3369,20 +3395,30 @@ def phase_onnx(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, ba
                 if c < 1 - 1e-5:
                     raise AssertionError(f"{name}: the executor disagrees with the mirror")
                 del graph
+            ev = et = None
+            if device == "cuda":
+                # the executor's towers behind the embedders, captured (a graph
+                # a batch bucket), against their eager forwards
+                ev, et = executor_embedders(clip, d, device, dtype)
+                rows, n = ev.embed_images_device(images)
+                rec["executor_captured"] = {
+                    "vision": hold_captured(f"{name} executor vision", rows[:n],
+                                            eager_rows(ev, images)),
+                    "text": hold_captured(f"{name} executor text",
+                                          torch.from_numpy(et.embed_texts(texts)),
+                                          eager_text_rows(et, texts))}
             if timed:
                 rec.update(time_embedder(clip.vision, arrays, f"{name} converted"))
                 rec.update(time_texts(clip.text, texts, f"{name} converted"))
-                ev, et = executor_embedders(clip, d, device, dtype)
                 rec["executor"] = {**time_embedder(ev, arrays, f"{name} executor"),
                                    **time_texts(et, texts, f"{name} executor")}
-                del ev, et
                 if name == "CLIP-ViT-B-32":
                     rec["breakdown"] = profile_embedder(clip.vision, arrays,
                                                         f"{name} converted vision")
                     rec["text_breakdown"] = device_breakdown(lambda: clip.text.embed_texts(texts))
                     say("  text device ms by kernel group: " + ", ".join(
                         f"{k} {v:.3f}" for k, v in rec["text_breakdown"]["groups_ms"].items()))
-            del clip, vision_ref, text_ref
+            del clip, ev, et, vision_ref, text_ref
             free_device_memory()
     return out
 
@@ -3571,7 +3607,43 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     k = 10
+    from clip_embedder_tpu_torch.ops.preprocess import bucket_batch
+    from clip_embedder_tpu_torch.parallel.search import _sharded_topk
+    from clip_embedder_tpu_torch.utils import captured
+
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        reserved = torch.cuda.memory_reserved()
     vals, ids = index.search(embs, k)
+    if card:  # what the index's graphs keep for as long as it lives
+        pool = pool_mib(captured.graphs_of(index))
+        out["search_memory"] = {
+            "pool_mib": pool, "reserved_before_mib": mib(reserved),
+            "reserved_after_mib": mib(torch.cuda.memory_reserved()),
+            "max_reserved_mib": mib(torch.cuda.max_memory_reserved())}
+        say(f"  CorpusIndex.search's first call (the capture): its graphs' pool reserves "
+            f"{'not measured' if pool is None else f'{pool:.1f} MiB'}; reserved "
+            f"{mib(reserved):.1f} MiB before, {mib(torch.cuda.memory_reserved()):.1f} after, "
+            f"peak {mib(torch.cuda.max_memory_reserved()):.1f}")
+    # the captured search (one graph over both shards of the one device,
+    # merged after it) against the same search run eagerly
+
+    qb, kb = bucket_batch(embs.shape[0]), bucket_batch(k)
+    q = np.concatenate([embs, np.zeros((qb - embs.shape[0], width), np.float32)])
+    # the eager reference in full f32, as the index's default precision
+    # captures: the embedders turned the process's TF32 flag off
+    assert index.precision == "highest" and not torch.backends.cuda.matmul.allow_tf32
+    evals, eids = _sharded_topk(q, index._shards, index._counts, k=kb)
+    eids = eids.cpu().numpy()[:embs.shape[0], :k]
+    evals = evals.float().cpu().numpy()[:embs.shape[0], :k]
+    n_graphs = len(getattr(captured.graphs_of(index), "graphs", {}))
+    same = bool(np.array_equal(ids, eids))
+    score_diff = float(np.abs(vals - evals).max())
+    say(f"  CorpusIndex.search: {n_graphs} captured graphs; ids equal to the eager "
+        f"search's {same}, scores bitwise equal {score_diff == 0} (max diff {score_diff:.3e}, "
+        f"need <= 1e-6) {'ok' if same and score_diff <= 1e-6 else 'FAIL'}")
+    if not same or score_diff > 1e-6 or n_graphs != int(card):
+        raise AssertionError("the captured search differs from the eager one")
     with torch.inference_mode():
         dense = torch.matmul(torch.from_numpy(embs).to(device), rows.T)
         dvals, dids = torch.topk(dense, k, dim=1)
@@ -3594,7 +3666,7 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     if err > 1e-5:
         raise AssertionError(f"CorpusIndex scores {err} from the dense top-k")
     out["search"] = {"build_s": build_s, "search_ms": search_ms, "swaps": swaps,
-                     "max_abs_err": err}
+                     "max_abs_err": err, "eager_score_diff": score_diff}
     del index, rows, host, dense
     free_device_memory()
 
@@ -3942,7 +4014,8 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
 
 # label, config, the modes run, build_clip's other arguments, the towers
 # held (BiomedCLIP's text tower: BERT, with the tokenizer's mask in a static
-# buffer; phase 10's families: their vision towers, layer scales 0.1)
+# buffer; phase 10's families: their vision towers, layer scales 0.1; phase
+# 11's CLIP-ViT-B-32 graphs run by the ONNX executor: ``executor_clip``)
 CAPTURED_MODELS = (
     ("ViT-SO400M-16-SigLIP2-384", SO400M_SIGLIP2_384, (None, "int8_all"), {},
      ("vision", "text")),
@@ -3953,6 +4026,8 @@ CAPTURED_MODELS = (
     *((name, model, (None,), {"preprocess": OPENAI_PREPROCESS, "tokenizer": "golden_model",
                               "layer_scale": 0.1}, ("vision",))
       for name, model, _ in FAMILY_MODELS),
+    ("CLIP-ViT-B-32 executor", "CLIP-ViT-B-32", (None,), {"executor": True},
+     ("vision", "text")),
 )
 # the models whose reserved memory is read with and without the layer
 MEMORY_MODELS = ("ViT-SO400M-16-SigLIP2-384", "PE-Core-bigG-14-448")
@@ -4085,19 +4160,189 @@ def bucket_of(key) -> int:
     return args[0][0][0]
 
 
-def preprocess_ms(emb, arrays) -> float:
+def preprocess_ms(emb, arrays, run=None) -> float:
     """The vision embedder's preprocess of ``arrays`` alone (host staging,
     the copy to the card, the resize), host clock to a synchronize, median
-    of 5."""
+    of 5: ``run`` (default: the embedder's, the captured route)."""
+    run = run or emb.preprocessor
     times = []
     for _ in range(6):
         t = time.perf_counter()
         with torch.inference_mode():
-            emb.preprocessor(arrays)
+            run(arrays)
         if emb.device.type == "cuda":
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     return statistics.median(times[1:]) * 1e3
+
+
+def staging_ms(pp, arrays, calls: int = 5) -> float:
+    """The preprocess's host half alone (``Preprocessor._stage``, under the
+    lock ``run`` holds: each image written once into its shape's reused
+    staging buffer, the matrices looked up), host clock, median of
+    ``calls`` after one."""
+    from clip_embedder_tpu_torch.ops.preprocess import bucket_batch
+
+    bb, (ph, pw) = bucket_batch(len(arrays)), pp.padded_size(arrays)
+    times = []
+    dev = next(k[0] for k in pp._staging if k[1:] == (bb, ph, pw))  # the route's key
+    with torch.inference_mode(), pp._lock:
+        for _ in range(calls + 1):
+            t = time.perf_counter()
+            pp._stage(arrays, dev, bb, ph, pw)
+            times.append(time.perf_counter() - t)
+    return statistics.median(times[1:]) * 1e3
+
+
+def pool_mib(graphs) -> float | None:
+    """The device memory that the segments of ``graphs``' pool reserve, from
+    the caching allocator's snapshot; None where the snapshot names no
+    segment of it."""
+    if graphs is None or graphs._pool is None:
+        return None
+    pool = tuple(graphs._pool)
+    own = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+           if tuple(seg.get("segment_pool_id", ())) == pool]
+    return mib(sum(own)) if own else None
+
+
+def hold_preprocess(what, emb, batches) -> dict:
+    """The captured preprocess (``Preprocessor.run``: reused staging, the
+    resize replayed) against its plain route (``Preprocessor.eager``:
+    zero-filled, eager), ``torch.equal`` on the real rows, on ``batches``
+    (two of different (Hp, Wp)) in turn and back; then on the card the
+    split of the first batch's preprocess (host staging, the copy, the
+    replay), the route against the plain one, the graphs and their
+    pool's reserved MiB."""
+    from clip_embedder_tpu_torch.ops.preprocess import bucket_batch
+    from clip_embedder_tpu_torch.utils import captured
+
+    pp = emb.preprocessor
+    for xs in (*batches, *batches):
+        with torch.inference_mode():
+            got, ref = pp(xs)[:len(xs)], pp.eager(xs)[:len(xs)]
+        equal = bool(torch.equal(got.cpu(), ref.cpu()))
+        say(f"  {what} preprocess, batch {len(xs)} padded to {pp.padded_size(xs)}: captured "
+            f"against the plain route equal (torch.equal) {equal} {'ok' if equal else 'FAIL'}")
+        if not equal:
+            raise AssertionError(f"{what}: the captured preprocess differs from the plain one")
+    if emb.device.type != "cuda":
+        return {}
+    arrays = batches[0]
+    graphs = captured.graphs_of(pp)
+    bb, padded = bucket_batch(len(arrays)), pp.padded_size(arrays)
+    entry = next(e for k, e in pp._staging.items() if k[1:] == (bb, *padded))
+    g = next(g for k, g in graphs.graphs.items() if k[1:4] == (bb, *padded))
+
+    def copy():
+        with torch.inference_mode():
+            entry.images.copy_(entry.host, non_blocking=True)
+            entry.idx.copy_(entry.host_idx, non_blocking=True)
+
+    r = {"staging_ms": staging_ms(pp, arrays), "copy_ms": cuda_ms(copy, iters=10, warmup=1),
+         "replay_ms": cuda_ms(g.graph.replay, iters=10, warmup=1),
+         "ms": preprocess_ms(emb, arrays), "plain_ms": preprocess_ms(emb, arrays, pp.eager),
+         "graphs": len(graphs.graphs), "pool_mib": pool_mib(graphs)}
+    pool = "not measured" if r["pool_mib"] is None else f"{r['pool_mib']:.1f} MiB"
+    say(f"  {what} preprocess at batch {len(arrays)} ({[bb, *padded, 3]} u8): "
+        f"{r['ms']:.3f} ms captured against {r['plain_ms']:.3f} ms plain (host clock to a "
+        f"synchronize, median of 5); host staging {r['staging_ms']:.3f} ms (host clock), "
+        f"the copy {r['copy_ms']:.3f} ms, the replay {r['replay_ms']:.3f} ms (CUDA events, "
+        f"median of 10); {r['graphs']} preprocess graphs, their pool reserves {pool}")
+    return r
+
+
+# the key stream of ``hold_preprocess_keys``: a server's micro-batch buckets
+# over two padded sizes, more (bucket, Hp, Wp) keys than the default
+# staging bound and fewer than the bound ``KEY_STREAM_MAX`` sets
+KEY_STREAM_BUCKETS = (1, 2, 4, 8, 16, 32)
+KEY_STREAM_MAX = 8
+
+
+def hold_preprocess_keys(what, emb, arrays, cropped) -> dict:
+    """The captured preprocess on traffic of many shapes: a stream that
+    cycles over the (batch bucket, Hp, Wp) keys of ``KEY_STREAM_BUCKETS``
+    at ``arrays``' and ``cropped``'s padded sizes, twice, against the plain
+    route (``Preprocessor.eager``) on the same batches; once under the
+    preprocessor's own staging bound, where the second cycle finds every
+    key kept, and once under a bound of ``KEY_STREAM_MAX`` shapes, fewer
+    than the stream's keys, where a cycle finds none (least recently used
+    first out) and every call pays the pinned allocation, the warm-up and
+    the capture. Each call is timed on the host clock to a synchronize;
+    the second cycle's mean is reported, with the capture seconds of the
+    keys captured there."""
+    from clip_embedder_tpu_torch.utils import captured
+
+    pp = emb.preprocessor
+    batches = []
+    for src in (arrays, cropped):
+        big = max(src, key=lambda a: a.shape[0] * a.shape[1])
+        batches += [[big] + src[:b - 1] for b in KEY_STREAM_BUCKETS]
+    keys = {(len(xs), *pp.padded_size(xs)) for xs in batches}
+    if len(keys) != len(batches) or len(keys) <= KEY_STREAM_MAX:
+        raise AssertionError(f"the key stream has {len(keys)} keys")
+
+    def cycle(run, new=None):
+        """The mean ms a call over ``batches``; the capture seconds of each
+        graph made during the cycle go to ``new``."""
+        graphs = captured.graphs_of(pp, create=True).graphs
+        times = []
+        for xs in batches:
+            had = {id(g) for g in graphs.values()}
+            t = time.perf_counter()
+            with torch.inference_mode():
+                run(xs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if new is not None:
+                new += [g.seconds for g in graphs.values() if id(g) not in had]
+        return statistics.fmean(times) * 1e3
+
+    r = {"keys": len(keys)}
+    cycle(pp.eager)
+    r["plain_ms"] = cycle(pp.eager)
+    for name, bound in (("kept", pp._STAGING_MAX), ("evicted", KEY_STREAM_MAX)):
+        pp._staging.clear()
+        captured.graphs_of(pp, create=True).graphs.clear()
+        free_device_memory()
+        pp._STAGING_MAX = bound
+        new: list[float] = []
+        try:
+            cycle(pp)
+            ms = cycle(pp, new)
+        finally:
+            del pp._STAGING_MAX  # the class's bound again
+        r[name] = {"bound": bound, "ms": ms, "captures": len(new),
+                   "capture_s": statistics.median(new) if new else None}
+        cap = ("no capture" if not new else f"{len(new)} captures, "
+               f"{r[name]['capture_s']:.3f} s each (median; the warm-up and pinned "
+               "allocation included)")
+        say(f"  {what} preprocess over {len(keys)} (bucket, Hp, Wp) keys (buckets "
+            f"{list(KEY_STREAM_BUCKETS)} x 2 padded sizes), cycled twice, staging bound {bound}: "
+            f"{ms:.3f} ms a call captured against {r['plain_ms']:.3f} ms plain (the second "
+            f"cycle's mean, host clock to a synchronize); {cap} in that cycle")
+    if r["kept"]["captures"] or r["evicted"]["captures"] != len(keys):
+        raise AssertionError(f"{what}: {r['kept']['captures']} captures within the staging "
+                             f"bound, {r['evicted']['captures']} past it ({len(keys)} keys)")
+    return r
+
+
+def executor_clip(device, dtype, name, tmp: Path, *, layers=None, vocab_size=None):
+    """Phase 11's ``name`` exported from its torch mirrors into a model dir
+    under ``tmp`` (f32 graphs, seeded random weights), its towers run by the
+    ONNX executor in ``dtype`` (``executor_embedders``; the dir converted
+    once for its configs and tokenizer): an object with ``vision`` and
+    ``text``."""
+    import types
+
+    from clip_embedder_tpu_torch import Clip
+
+    cfg, vision, text = onnx_mirrors(name, layers=layers, vocab_size=vocab_size)
+    d = tmp / name
+    write_onnx_dir(d, cfg, vision, text, OPENAI_PREPROCESS)
+    clip = Clip.from_local_dir(d, device=device, dtype=dtype)
+    ev, et = executor_embedders(clip, d, device, dtype)
+    return types.SimpleNamespace(vision=ev, text=et)
 
 
 def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
@@ -4111,6 +4356,8 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
     the p50 of one image, texts/s and the idle share, captured against
     eager, and for ``MEMORY_MODELS`` the reserved memory with and without
     the layer."""
+    import tempfile
+
     from clip_embedder_tpu_torch.utils import captured
     from clip_embedder_tpu_torch.utils.images import to_rgb_array
 
@@ -4118,17 +4365,26 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
     on_card = device == "cuda"
     images = mixed_batch(batch)
     arrays = [to_rgb_array(im) for im in images]
+    # the preprocess's second padded shape: the same images cropped (512 x 640
+    # against 768 x 1024 at full size)
+    cropped = [a[:500, :600] for a in arrays]
     texts = captions(batch, 70)
     inputs = {"vision": arrays, "text": texts}
     out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="captured_onnx_")
     for name, model, modes, kw, towers in CAPTURED_MODELS:
         for mode in modes:
             label = f"{name} {mode or str(dtype).removeprefix('torch.')}"
             say(f"[14] {label}: captured forwards ({', '.join(towers)}), random weights (seed 0)")
             t0 = time.perf_counter()
-            clip, vspec, tspec = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
-                                            quantize=mode, model=model, **kw)
-            say(f"  built in {time.perf_counter() - t0:.1f} s; attn_impl vision="
+            if kw.get("executor"):
+                clip = executor_clip(device, dtype, model, Path(tmp.name), layers=layers,
+                                     vocab_size=vocab_size)
+            else:
+                clip = build_clip(device, dtype, layers=layers, vocab_size=vocab_size,
+                                  quantize=mode, model=model, **kw)[0]
+            say(f"  built in {time.perf_counter() - t0:.1f} s; families vision "
+                f"{clip.vision.spec.family}, text {clip.text.spec.family}; attn_impl vision="
                 f"{clip.vision.attn_impl} text={clip.text.attn_impl}")
             rec = out[label] = {}
             for kind in towers:
@@ -4209,10 +4465,18 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
                 if on_card and len(seconds) != 3:
                     raise AssertionError(f"{what}: {len(seconds)} graphs for 3 buckets")
                 r["beside"] = hold_capture_beside(what, emb, cap, eag, xs[:9], xs[:1], ref_one)
+                if kind == "vision":
+                    r["preprocess"] = hold_preprocess(what, emb, [xs, cropped])
+                    if on_card and timed and not any(
+                            "preprocess_keys" in v for rc in out.values() for v in rc.values()):
+                        r["preprocess_keys"] = hold_preprocess_keys(what, emb, xs, cropped)
                 if not timed:
                     continue
                 if kind == "vision":
                     r["captured"] = time_embedder(emb, arrays, f"{what} captured")
+                    r["plain_preprocess"] = time_embedder(
+                        emb, arrays, f"{what} captured tower after the plain preprocess",
+                        run=lambda xs: plain_preprocess_images(emb, xs))
                     r["eager"] = time_embedder(
                         emb, arrays, f"{what} eager",
                         run=lambda xs: eager_images(emb, xs))
@@ -4228,10 +4492,6 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
                         emb, texts, f"{what} captured", run=emb.embed_texts)
                     r["eager"]["breakdown"] = profile_embedder(
                         emb, texts, f"{what} eager", run=lambda xs: eager_texts(emb, xs))
-                if kind == "vision":
-                    r["preprocess_ms"] = preprocess_ms(emb, arrays)
-                    say(f"  {what}: the preprocess alone {r['preprocess_ms']:.3f} ms at batch "
-                        f"{len(arrays)} (host clock to a synchronize, median of 5)")
                 if on_card:  # does the profiler see the kernels inside a graph launch?
                     g = next(g for key, g in graphs.graphs.items()
                              if bucket_of(key) == len(xs))
@@ -4242,6 +4502,7 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
                         f"profiler's busy {r['replay_busy_ms']:.3f} ms")
             del clip
             free_device_memory()
+    tmp.cleanup()
     return out
 
 
@@ -4253,13 +4514,22 @@ def captured_summary(out) -> str:
             c, e = r["captured"], r["eager"]
             rate = ("images_per_s", "images/s") if kind == "vision" else ("texts_per_s",
                                                                            "texts/s")
-            one = (f", p50 {c['p50_ms']:.2f} against {e['p50_ms']:.2f} ms"
-                   if kind == "vision" else "")
+            one = (f" (the captured tower after the plain preprocess "
+                   f"{r['plain_preprocess']['images_per_s']:.2f}), p50 {c['p50_ms']:.2f} "
+                   f"against {e['p50_ms']:.2f} ms (after the plain preprocess "
+                   f"{r['plain_preprocess']['p50_ms']:.2f})" if kind == "vision" else "")
             mem = (f", max reserved eager {r['eager_reserved_mib']:.0f} MiB, captured "
                    f"{r['captured_reserved_mib']:.0f}, held by the graphs {r['held_mib']:.0f}"
                    if label.rsplit(" ", 1)[0] in MEMORY_MODELS else "")
-            pre = (f", preprocess alone {r['preprocess_ms']:.2f} ms" if kind == "vision"
-                   else "")
+            p = r.get("preprocess")
+            pre = (f", preprocess {p['ms']:.2f} ms against {p['plain_ms']:.2f} plain (staging "
+                   f"{p['staging_ms']:.2f}, copy {p['copy_ms']:.2f}, replay "
+                   f"{p['replay_ms']:.2f})" if p else "")
+            ks = r.get("preprocess_keys")
+            if ks:
+                pre += (f", over {ks['keys']} cycled keys {ks['kept']['ms']:.2f} ms a call "
+                        f"kept, {ks['evicted']['ms']:.2f} evicted (capture "
+                        f"{ks['evicted']['capture_s']:.3f} s) against {ks['plain_ms']:.2f} plain")
             rows.append(
                 f"{label} {kind}: {c[rate[0]]:.2f} against {e[rate[0]]:.2f} {rate[1]}{one}, idle "
                 f"share {c['breakdown']['idle_share']:.3f} against "

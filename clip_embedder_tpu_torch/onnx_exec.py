@@ -18,7 +18,11 @@ Execution model:
   numpy (``_NP_FOLD``), so the standard torch-export shape chain (Shape →
   Gather → Mod → Reshape → Slice ends) stays Python integers; an argument
   that must be static (a shape, a slice bound, axes) but is a tensor raises
-  ``WeightError`` instead of reading the device.
+  ``WeightError`` instead of reading the device. A host constant that an op
+  takes as a tensor is copied to the device once per tower and content
+  (``_Env.const``), so that from its second call on a forward reads nothing
+  from the host, and on the card it is captured as a CUDA graph per batch
+  bucket (``utils.captured``), as the JAX package traces it.
 * ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the two operands of
   MatMul/Gemm/Conv to that type, products accumulating in f32, and casts the
   result back to the graph's dtype; ``quant`` names MatMul weights that
@@ -49,21 +53,40 @@ Value = Any  # np.ndarray (host constant) | torch.Tensor
 
 
 class _Env(dict):
-    """Value name → value, plus the device activations live on."""
+    """Value name → value, plus the device activations live on and the
+    device tensors made of static values (``consts``: content → tensor,
+    shared by every call of one tower)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, consts: dict | None = None):
         super().__init__()
         self.device = device
+        self.consts = {} if consts is None else consts
 
     def t(self, name: str) -> torch.Tensor:
-        """The value as a tensor on the device (host constants are copied;
-        f64 becomes f32, as the JAX package's arrays take it)."""
-        return _tensor(self[name], self.device)
+        """The value as a tensor on the device (``const``)."""
+        return self.const(self[name])
+
+    def const(self, v: Value) -> torch.Tensor:
+        """``v`` as a tensor on the device: a tensor as it is; a static value
+        made at its first use and reused after (f64 becomes f32, as the JAX
+        package's arrays take it), so that a forward copies nothing from
+        the host once its static values have been seen and can be captured
+        (``utils.captured``). Keyed by content, so a value computed from the
+        input's shape (a Reshape target, a ConstantOfShape) is one tensor a
+        batch bucket."""
+        if isinstance(v, torch.Tensor):
+            return v
+        a = np.asarray(v)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        key = (a.dtype.str, a.shape, a.tobytes())
+        t = self.consts.get(key)
+        if t is None:
+            t = self.consts.setdefault(key, _tensor(a, self.device))
+        return t
 
 
 def _tensor(v: Value, device: torch.device) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v
     a = np.asarray(v)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
@@ -240,7 +263,7 @@ def _slice_op(env, inputs, attrs):
                 flips.append((ax, range(lo, -1 if stop is None else stop, sp)))
     y = x[tuple(index)]
     for ax, idx in flips:
-        y = y.index_select(ax, torch.tensor(list(idx), dtype=torch.long, device=y.device))
+        y = y.index_select(ax, torch.arange(idx.start, idx.stop, idx.step, device=y.device))
     return y
 
 
@@ -509,8 +532,7 @@ def _pad_op(env, inputs, attrs):
     # the other modes index each padded axis with numpy's own index map
     for ax, (lo, hi) in enumerate(pairs):
         if lo or hi:
-            idx = np.pad(np.arange(x.shape[ax]), (lo, hi), mode=mode)
-            x = x.index_select(ax, torch.from_numpy(idx).to(x.device))
+            x = x.index_select(ax, env.const(np.pad(np.arange(x.shape[ax]), (lo, hi), mode=mode)))
     return x
 
 
@@ -632,7 +654,7 @@ def _autocast(env, op_type: str, inputs: list[str], attrs, compute_dtype) -> Val
     x = env.t(inputs[0])
     if not x.is_floating_point():
         return _OPS[op_type](env, inputs, attrs)
-    local = _Env(env.device)
+    local = _Env(env.device, env.consts)
     local.update(env)
     for n in inputs[:2]:
         a = env.t(n)
@@ -659,16 +681,18 @@ def execute_graph(g: OnnxGraph, feeds: dict[str, Value],
                   device: torch.device | str = "cpu",
                   compute_dtype: torch.dtype | None = None,
                   quant: frozenset = frozenset(),
-                  outer: dict[str, Value] | None = None) -> list[Value]:
+                  outer: dict[str, Value] | None = None,
+                  consts: dict | None = None) -> list[Value]:
     """Run the graph on the given input feeds; returns the graph outputs.
 
     ``params`` overrides the initializer values (``OnnxTower`` passes its
     device copies); defaults to the graph's own initializers. ``outer``:
     the enclosing graph's values, for an ``If`` branch — the branch's own
     initializers shadow them. ``compute_dtype`` and ``quant``: see the
-    module docstring.
+    module docstring. ``consts``: the device tensors of static values
+    already made (``_Env.const``; ``OnnxTower`` keeps one for its calls).
     """
-    env = _Env(torch.device(device))
+    env = _Env(torch.device(device), consts)
     if outer:
         env.update(outer)
     env.update(g.initializers)
@@ -693,7 +717,7 @@ def execute_graph(g: OnnxGraph, feeds: dict[str, Value],
                 raise WeightError(
                     f"ONNX executor: 'If' branch subgraph missing (outputs {outputs[:1]})")
             results = execute_graph(branch, {}, device=env.device, compute_dtype=compute_dtype,
-                                    quant=quant, outer=env)
+                                    quant=quant, outer=env, consts=env.consts)
             for name, r in zip(outputs, results):
                 env[name] = r
             continue
@@ -830,6 +854,7 @@ class OnnxTower:
         self.quant_names: frozenset[str] = frozenset()
         if quantize:
             self.quant_names = self._quantize_params()
+        self._consts: dict = {}  # the device tensors of static values (``_Env.const``)
 
     def _quantize_params(self) -> frozenset:
         from .ops.quant import quantize_weight
@@ -855,5 +880,6 @@ class OnnxTower:
 
     def __call__(self, feeds: dict[str, Value]) -> torch.Tensor:
         outs = execute_graph(self.graph, feeds, params=self.params, device=self.device,
-                             compute_dtype=self.compute_dtype, quant=self.quant_names)
-        return _tensor(outs[0], self.device)
+                             compute_dtype=self.compute_dtype, quant=self.quant_names,
+                             consts=self._consts)
+        return _Env(self.device, self._consts).const(outs[0])

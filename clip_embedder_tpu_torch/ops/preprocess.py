@@ -15,18 +15,23 @@ cost about two u8 pixel steps after the /std and break Pillow parity, so
 the embedders turn TF32 off on the card (``vision.resolve_device``).
 
 Variable source sizes are padded into 128-multiple buckets; the weight
-matrices are zero beyond each image's true extent.
+matrices are zero beyond each image's true extent, so the padding is never
+zeroed (``Preprocessor``'s staging buffers are reused as they are). On the
+card the resize of each padded shape is captured once as a CUDA graph and
+replayed (``utils.captured``), as the JAX package jits it per shape.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import warnings
 
 import numpy as np
 import torch
 
 from ..errors import ImageError
+from ..utils import captured
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +209,72 @@ def bucket_batch(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _unique_sizes(arrays, lookup) -> tuple[list, list[int]]:
+    """``lookup(w, h)`` of each distinct (w, h) size in the batch, in order
+    of first appearance, and each image's slot among them."""
+    found: dict[tuple[int, int], int] = {}
+    pairs, slots = [], []
+    for a in arrays:
+        h, w = a.shape[:2]
+        if (w, h) not in found:
+            found[(w, h)] = len(pairs)
+            pairs.append(lookup(w, h))
+        slots.append(found[(w, h)])
+    return pairs, slots
+
+
+class _Staging:
+    """The reused buffers of one (device, batch bucket, Hp, Wp) shape: the
+    uint8 batch and the [B] slot index on the host (page-locked on the
+    card) and on the device (on the CPU the same tensors), the resize
+    matrices' device buffers by U (``matrices``), and the event of the last
+    copy out of the host buffers (``copied``; None on the CPU). Nothing is
+    zeroed between calls: a padded pixel meets only zero weights
+    (``resize_weights`` gives every column at or past the image's extent
+    exactly 0), and a padded row reads slot 0 and is sliced off."""
+
+    def __init__(self, device: torch.device, bb: int, ph: int, pw: int, image_size: int):
+        card = device.type == "cuda"
+        self.device, self.image_size = device, image_size
+        self.host = torch.empty((bb, ph, pw, 3), dtype=torch.uint8, pin_memory=card)
+        self.host_idx = torch.zeros((bb,), dtype=torch.int64, pin_memory=card)
+        self.images = torch.empty_like(self.host, device=device) if card else self.host
+        self.idx = torch.zeros((bb,), dtype=torch.int64, device=device) if card else self.host_idx
+        self.copied = torch.cuda.Event() if card else None
+        self.matrices: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def matrices_for(self, u: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The [U, S, Hp] and [U, S, Wp] f32 matrix buffers (zero at first,
+        so that an unfilled slot is finite)."""
+        if u not in self.matrices:
+            s, (_, ph, pw, _) = self.image_size, self.host.shape
+            self.matrices[u] = (torch.zeros((u, s, ph), dtype=torch.float32, device=self.device),
+                                torch.zeros((u, s, pw), dtype=torch.float32, device=self.device))
+        return self.matrices[u]
+
+
 class Preprocessor:
     """Batches heterogeneous images into bucketed device tensors.
 
     Host side does only: decode → np.asarray → weight-matrix build (µs);
     everything pixel-heavy runs on ``device``. This replaces the reference's
     rayon-parallel host loop (reference: src/vision.rs:120-135).
+
+    A call (``run``) writes each image once into the reused staging
+    buffers of its (device, batch bucket, Hp, Wp) shape (``_Staging``: on
+    the card page-locked, copied to the device ``non_blocking``; at most
+    ``_STAGING_MAX`` shapes and ``_STAGING_BYTES`` bytes of host batch
+    kept, least recently used first out), assembles the unique resize
+    matrices on the device from a device LRU of them (``_device_weights``,
+    at most ``_DEVICE_WEIGHTS_BYTES`` a preprocessor: one pair at Hp = 768,
+    Wp = 1024 is 2.75 MB), and resizes: on the card by replaying the
+    shape's captured graph (``utils.captured``, per (device, bucket, Hp,
+    Wp, U, layout, out_dtype), as the JAX package jits
+    ``resize_normalize_indexed`` per shape; one pool for all of them, the
+    products in full f32), on the CPU eagerly. One lock serialises the
+    calls: ``ClipServer`` calls one preprocessor from its handler threads
+    and its micro-batcher at once. ``eager`` is the plain route the staged
+    one is held to.
     """
 
     def __init__(self, *, image_size: int, mean, std, interpolation: str,
@@ -225,10 +290,23 @@ class Preprocessor:
         self.layout = layout  # "nhwc" | "nchw" (zero-transpose ViT handoff)
         self._weights_cache: dict[tuple, tuple[np.ndarray, np.ndarray]] = {}
         self._weights_lock = threading.Lock()
+        self._device_weights_cache: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._device_weights_bytes = 0
+        self._device_weights_lock = threading.Lock()
+        self._staging: dict[tuple, _Staging] = {}
+        self._norms = {self.device: (self.mean, self.std)}
+        self._lock = threading.Lock()
 
     _WEIGHTS_CACHE_MAX = 128  # matrices are MBs each but µs to rebuild:
     # keep a small LRU so heterogeneous bulk workloads can't grow the host
     # cache unboundedly.
+    _DEVICE_WEIGHTS_BYTES = 256 << 20
+    # page-locked memory is slow to allocate and finite, and a shape's first
+    # call also captures its graph: keep room for a server's six micro-batch
+    # buckets (1-32) over five padded sizes, within the byte bound (its
+    # device buffers take as much again)
+    _STAGING_MAX = 32
+    _STAGING_BYTES = 2 << 30
 
     def _weights(self, w: int, h: int, ph: int, pw: int):
         """The resize matrices for one (source, padded) size, from an LRU
@@ -255,6 +333,47 @@ class Preprocessor:
             self._weights_cache[key] = hit
         return hit
 
+    def _device_weights(self, device: torch.device, w: int, h: int, ph: int, pw: int):
+        """``_weights``' matrices as f32 tensors on ``device``, from an LRU
+        beside the host one, keyed by device and the same key, with the
+        same locking: a bulk stream of a few sizes uploads no matrix after
+        its first batch. It holds at most ``_DEVICE_WEIGHTS_BYTES``; a
+        miss uploads outside the lock."""
+        key = (device, w, h, ph, pw)
+        with self._device_weights_lock:
+            hit = self._device_weights_cache.pop(key, None)
+            if hit is not None:
+                self._device_weights_cache[key] = hit
+                return hit
+        hit = tuple(torch.from_numpy(m).to(device) for m in self._weights(w, h, ph, pw))
+        nbytes = sum(m.nbytes for m in hit)
+        with self._device_weights_lock:
+            cache = self._device_weights_cache
+            old = cache.pop(key, None)
+            if old is not None:
+                self._device_weights_bytes -= sum(m.nbytes for m in old)
+            while cache and self._device_weights_bytes + nbytes > self._DEVICE_WEIGHTS_BYTES:
+                self._device_weights_bytes -= sum(m.nbytes for m in cache.pop(next(iter(cache))))
+            cache[key] = hit
+            self._device_weights_bytes += nbytes
+        return hit
+
+    def padded_size(self, arrays: list[np.ndarray]) -> tuple[int, int]:
+        """(Hp, Wp): the 128-multiple buckets of the batch's largest sizes."""
+        return (bucket_size(max(a.shape[0] for a in arrays)),
+                bucket_size(max(a.shape[1] for a in arrays)))
+
+    def stage_host_batch(
+        self, arrays: list[np.ndarray], *, batch_bucket: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Dense staging: per-image weight matrices ([B, S, Hp/Wp]).
+        Thin expansion over ``stage_host_batch_unique`` (the library paths
+        all use the deduplicated form; this keeps the dense layout
+        available for debugging/tools without duplicating staging logic)."""
+        batch, whs_u, wws_u, idx = self.stage_host_batch_unique(
+            arrays, batch_bucket=batch_bucket)
+        return batch, whs_u[idx], wws_u[idx]
+
     def stage_host_batch_unique(
         self, arrays: list[np.ndarray], *, batch_bucket: int | None = None
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -267,21 +386,15 @@ class Preprocessor:
         if not arrays:
             raise ImageError("Empty batch")
         bb = batch_bucket or bucket_batch(len(arrays))
-        ph = bucket_size(max(a.shape[0] for a in arrays))
-        pw = bucket_size(max(a.shape[1] for a in arrays))
+        ph, pw = self.padded_size(arrays)
 
         batch = np.zeros((bb, ph, pw, 3), dtype=np.uint8)
         idx = np.zeros((bb,), dtype=np.int32)
-        slots: dict[tuple[int, int], int] = {}
-        pairs: list[tuple[np.ndarray, np.ndarray]] = []
         for i, a in enumerate(arrays):
             h, w = a.shape[:2]
             batch[i, :h, :w] = a
-            slot = slots.get((w, h))
-            if slot is None:
-                slot = slots[(w, h)] = len(pairs)
-                pairs.append(self._weights(w, h, ph, pw))
-            idx[i] = slot
+        pairs, slots = _unique_sizes(arrays, lambda w, h: self._weights(w, h, ph, pw))
+        idx[:len(slots)] = slots
         ub = bucket_batch(len(pairs))
         whs_u = np.zeros((ub, self.image_size, ph), dtype=np.float32)
         wws_u = np.zeros((ub, self.image_size, pw), dtype=np.float32)
@@ -290,10 +403,10 @@ class Preprocessor:
             wws_u[j] = ww
         return batch, whs_u, wws_u, idx
 
-    def __call__(self, arrays: list[np.ndarray]) -> torch.Tensor:
-        """list of [H, W, 3] uint8 arrays → [B, S, S, 3] (or [B, 3, S, S]
-        for layout="nchw") preprocessed batch (padded to the batch bucket;
-        caller slices to len(arrays))."""
+    def eager(self, arrays: list[np.ndarray]) -> torch.Tensor:
+        """The plain route (the reference ``run`` is held to): a zero-filled
+        host batch and the stacked matrices made anew, copied from pageable
+        memory, resized eagerly on ``device``."""
         batch, whs_u, wws_u, idx = self.stage_host_batch_unique(arrays)
 
         def dev(a):
@@ -303,3 +416,113 @@ class Preprocessor:
             dev(batch), dev(whs_u), dev(wws_u), dev(idx).long(), self.mean,
             self.std, out_dtype=self.out_dtype, layout=self.layout,
         )
+
+    def __call__(self, arrays: list[np.ndarray]) -> torch.Tensor:
+        """list of [H, W, 3] uint8 arrays → [B, S, S, 3] (or [B, 3, S, S]
+        for layout="nchw") preprocessed batch (padded to the batch bucket;
+        caller slices to len(arrays))."""
+        return self.run(arrays)
+
+    def run(self, arrays: list[np.ndarray], *, device: torch.device | str | None = None,
+            batch_bucket: int | None = None,
+            padded: tuple[int, int] | None = None) -> torch.Tensor:
+        """``__call__`` on ``device`` (default: the preprocessor's) with the
+        batch bucket and (Hp, Wp) given or taken from the batch: the staged
+        route (class docstring). A mesh shard passes the whole batch's
+        (Hp, Wp) and its own rows, which may be none."""
+        if not arrays and batch_bucket is None:
+            raise ImageError("Empty batch")
+        device = self.device if device is None else torch.device(device)
+        if device.type == "cuda" and device.index is None:  # one key a card
+            device = torch.device("cuda", torch.cuda.current_device())
+        bb = batch_bucket or bucket_batch(len(arrays))
+        ph, pw = padded or self.padded_size(arrays)
+        with torch.inference_mode(), self._lock:
+            entry, pairs = self._stage(arrays, device, bb, ph, pw)
+            return self._resize(entry, pairs)
+
+    def _staging_for(self, device: torch.device, bb: int, ph: int, pw: int) -> _Staging:
+        """The shape's staging buffers (made at its first call; the least
+        recently used shapes dropped, with their graphs, past the bounds).
+        The caller holds ``_lock``."""
+        key = (device, bb, ph, pw)
+        entry = self._staging.pop(key, None)
+        if entry is None:
+            nbytes = bb * ph * pw * 3
+            while self._staging and (
+                    len(self._staging) >= self._STAGING_MAX
+                    or sum(e.host.nbytes for e in self._staging.values()) + nbytes
+                    > self._STAGING_BYTES):
+                self._drop(next(iter(self._staging)))
+            entry = _Staging(device, bb, ph, pw, self.image_size)
+        self._staging[key] = entry
+        return entry
+
+    def _drop(self, key: tuple) -> None:
+        del self._staging[key]
+        graphs = captured.graphs_of(self)
+        if graphs is not None:
+            with graphs.lock:
+                for k in [k for k in graphs.graphs if k[:4] == key]:
+                    del graphs.graphs[k]
+
+    def _stage(self, arrays, device, bb, ph, pw) -> tuple[_Staging, list]:
+        """The host half of a call: each image written once into the shape's
+        host buffer (after the last copy out of it has finished), its slot
+        index beside it, and the unique matrices' device pairs. The caller
+        holds ``_lock``."""
+        entry = self._staging_for(device, bb, ph, pw)
+        if entry.copied is not None:
+            entry.copied.synchronize()
+        with warnings.catch_warnings():
+            # decoded images are read-only arrays; their tensors are only read
+            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+            for i, a in enumerate(arrays):
+                h, w = a.shape[:2]
+                entry.host[i, :h, :w].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        pairs, slots = _unique_sizes(
+            arrays, lambda w, h: self._device_weights(device, w, h, ph, pw))
+        entry.host_idx.copy_(torch.tensor(slots + [0] * (bb - len(slots)), dtype=torch.int64))
+        return entry, pairs
+
+    def _norm(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        if device not in self._norms:
+            self._norms[device] = (self.mean.to(device), self.std.to(device))
+        return self._norms[device]
+
+    def _resize(self, entry: _Staging, pairs: list) -> torch.Tensor:
+        """The device half of a call: the copies to the device, the unique
+        matrices stacked into the U buffers, and the resize, replayed on the
+        card. The caller holds ``_lock``."""
+        device = entry.device
+        u = bucket_batch(len(pairs))
+        whs, wws = entry.matrices_for(u)
+        mean, std = self._norm(device)
+
+        def resize():
+            return resize_normalize_indexed(entry.images, whs, wws, entry.idx, mean, std,
+                                            out_dtype=self.out_dtype, layout=self.layout)
+
+        def fill():
+            if pairs:
+                torch.stack([wh for wh, _ in pairs], out=whs[:len(pairs)])
+                torch.stack([ww for _, ww in pairs], out=wws[:len(pairs)])
+
+        if device.type != "cuda":
+            fill()
+            return resize()
+        graphs = captured.graphs_of(self, create=True)
+        key = (device, *entry.host.shape[:3], u, self.layout, self.out_dtype)
+        with graphs.lock, torch.cuda.device(device), graphs.in_order(device) as stream:
+            entry.images.copy_(entry.host, non_blocking=True)
+            entry.idx.copy_(entry.host_idx, non_blocking=True)
+            entry.copied.record(stream)
+            fill()
+            g = graphs.graphs.get(key)
+            if g is None:
+                # full f32 products, whatever the process's TF32 flag
+                g = graphs.graphs[key] = graphs.capture(
+                    resize, device, (entry.images, whs, wws, entry.idx),
+                    what="the preprocess resize", tf32=False)
+            g.replay()
+            return g.output.clone()

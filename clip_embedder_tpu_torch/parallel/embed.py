@@ -1,16 +1,17 @@
 """Mesh-sharded bulk embedding.
 
 Counterpart of ``clip_embedder_tpu.parallel.embed``. The batch buckets to a
-power of two aligned to the data axis and is staged once on the host
-(``Preprocessor.stage_host_batch_unique``); data shard ``i`` then runs the
-preprocess resize and the inner embedder's tower on the first device of mesh
+power of two aligned to the data axis, padded to the whole batch's (Hp, Wp);
+data shard ``i`` then runs the inner embedder's preprocess on its rows
+(``Preprocessor.run``: the shard's staging buffers, the resize matrices from
+the preprocessor's device LRU) and its tower on the first device of mesh
 row ``i`` — with the kernels, in every mode (DP, and DP under ``int8`` /
 ``int8_all``), as the JAX package's ``shard_map`` keeps its Pallas kernels
 on local blocks — and the rows are gathered to the first device. On the
-card each shard's tower forward replays its captured graph
-(``utils.captured``, one a shard tower and bucket; mesh entries of one
-device share the tower and so its graphs), as the JAX package compiles one
-program per shard layout.
+card each shard's preprocess resize and tower forward replay their captured
+graphs (``utils.captured``, one a shard shape; mesh entries of one device
+share the preprocessor's and the tower's graphs), as the JAX package
+compiles one program per shard layout.
 
 With ``tensor_parallel`` (the ``vit`` family only; other families fall back
 to DP, as in the JAX package) each mesh row runs the tower's
@@ -30,7 +31,7 @@ import torch
 
 from ..errors import ConfigError, InferenceError
 from ..ops.attention import KERNEL_IMPLS
-from ..ops.preprocess import bucket_batch, resize_normalize_indexed
+from ..ops.preprocess import bucket_batch
 from ..text import pad_batch, tower_kwargs
 from ..utils import captured
 from ..utils.images import to_rgb_array
@@ -83,8 +84,6 @@ class ShardedVisionEmbedder:
         else:
             replicas = replicate(embedder.tower, mesh)
             self.towers = [replicas[d] for d in self.devices]
-        pp = embedder.preprocessor
-        self._norm = {d: (pp.mean.to(d), pp.std.to(d)) for d in set(self.devices)}
 
     def embed_images(self, images: Sequence[Any]) -> np.ndarray:
         embs, n = self.embed_images_device(images)
@@ -96,26 +95,20 @@ class ShardedVisionEmbedder:
         if len(images) == 0:
             raise InferenceError("Empty batch")
         arrays = [to_rgb_array(img) for img in images]
-        n_data = self.mesh.shape[DATA_AXIS]
         pp = self.inner.preprocessor
-        batch, whs_u, wws_u, idx = pp.stage_host_batch_unique(
-            arrays, batch_bucket=_batch_bucket(len(arrays), n_data))
-        per = batch.shape[0] // n_data
-        tables = {d: (torch.from_numpy(whs_u).to(d), torch.from_numpy(wws_u).to(d))
-                  for d in set(self.devices)}
+        padded = pp.padded_size(arrays)
+        n_data = self.mesh.shape[DATA_AXIS]
+        per = _batch_bucket(len(arrays), n_data) // n_data
         outs = []
         with torch.inference_mode():
             for i, (dev, tower) in enumerate(zip(self.devices, self.towers)):
-                rows = slice(i * per, (i + 1) * per)
-                pixels = resize_normalize_indexed(
-                    torch.from_numpy(batch[rows]).to(dev), *tables[dev],
-                    torch.from_numpy(idx[rows]).to(dev).long(), *self._norm[dev],
-                    out_dtype=pp.out_dtype, layout=pp.layout)
+                pixels = pp.run(arrays[i * per:(i + 1) * per], device=dev, batch_bucket=per,
+                                padded=padded)
                 if self.tensor_parallel:
                     outs.append(tower(pixels, attn_impl=self.attn_impl, channels_first=True))
                 else:
-                    outs.append(captured.forward(self.inner.spec.family, tower, pixels,
-                                                 attn_impl=self.attn_impl, channels_first=True))
+                    outs.append(captured.forward(tower, pixels, attn_impl=self.attn_impl,
+                                                 channels_first=True))
             return _gather(outs), len(arrays)
 
 
@@ -140,8 +133,7 @@ class ShardedTextEmbedder:
         for i, (dev, tower) in enumerate(zip(self.devices, self.towers)):
             rows = slice(i * per, (i + 1) * per)
             # the tokenizer's mask is authoritative where the tower takes one
-            outs.append(captured.forward(self.inner.spec.family, tower,
-                                         torch.from_numpy(ids[rows]).to(dev),
+            outs.append(captured.forward(tower, torch.from_numpy(ids[rows]).to(dev),
                                          attn_impl=self.inner.attn_impl,
                                          **tower_kwargs(self.inner.spec, mask[rows], dev)))
         return _gather(outs)[: len(texts)].float().cpu().numpy()

@@ -9,11 +9,19 @@ top-k; the per-shard candidates (k values and global ids, not scores) are
 concatenated on the first shard's device and the global top-k taken there.
 The [Q, N] score matrix never exists in one piece and no corpus row moves
 between devices.
+
+On the card a search is captured as CUDA graphs once per (Q bucket, k
+bucket) and the shards of one ``add`` (``utils.captured``), as the JAX
+package jits ``_sharded_topk``: after the queries' upload, each device
+replays one graph over its own shards (products, the ``-inf`` tail, the
+local top-k), and the merge and the final top-k run on the first device
+after the replays. ``add`` drops the graphs, which read the shards it
+replaces.
 """
 
 from __future__ import annotations
 
-import contextlib
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -21,45 +29,59 @@ import torch
 
 from ..errors import InferenceError
 from ..ops.preprocess import bucket_batch
+from ..utils import captured
 from .mesh import DATA_AXIS, Mesh
 
 PRECISIONS = ("highest", None)
 
 
-@contextlib.contextmanager
-def _tf32(on: bool):
-    """TF32 for f32 matmuls on or off while the block runs (a process-wide
-    flag, restored after)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+def _shard_candidates(q: torch.Tensor, shards: list[torch.Tensor], counts: list[int],
+                      offsets: list[int], k: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per shard: [Q, n_local] scores (rows past the shard's ``count`` are
+    padding, scored -inf), the local top-min(k, n_local) values and their
+    global ids (the shard's row plus its ``offset``)."""
+    out = []
+    for shard, count, offset in zip(shards, counts, offsets):
+        scores = torch.matmul(q, shard.T)
+        scores[:, count:].fill_(float("-inf"))  # a fill on the device, capturable
+        v, idx = torch.topk(scores, min(k, shard.shape[0]), dim=1)
+        out.append((v, idx + offset))
+    return out
+
+
+def _merge(cands: list[tuple[torch.Tensor, torch.Tensor]], k: int,
+           device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global top-k over the shards' candidates, in shard order, on
+    ``device``."""
+    mvals, mpos = torch.topk(torch.cat([v.to(device) for v, _ in cands], dim=1), k, dim=1)
+    return mvals, torch.gather(torch.cat([i.to(device) for _, i in cands], dim=1), 1, mpos)
+
+
+def _device_search(q, shards, counts, offsets, k: int):
+    """What one device's search graph computes from its static queries
+    ``q``: its shards' candidates, flat (values, ids, values, ...)."""
+    def fn():
+        cands = _shard_candidates(q, shards, counts, offsets, k)
+        return tuple(t for pair in cands for t in pair)
+    return fn
 
 
 def _sharded_topk(queries: np.ndarray, shards: list[torch.Tensor], counts: list[int], *,
-                  k: int, precision) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per shard: [Q, n_local] scores (rows past the shard's ``count`` are
-    padding, scored -inf), the local top-min(k, n_local) and their global
-    ids; then the global top-k over the concatenated candidates, on the
-    first shard's device. Scores are f32 products in full f32 unless
-    ``precision`` is None (TF32 allowed)."""
+                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search, eager: each shard's candidates (``_shard_candidates``)
+    and the global top-k over them on the first shard's device. The f32
+    products take the process's TF32 flag (off unless a caller turned it
+    on; none on the CPU)."""
     first = shards[0].device
-    vals, ids = [], []
-    with torch.inference_mode(), _tf32(precision is None):
+    with torch.inference_mode():
         q_on = {}
-        for i, (shard, count) in enumerate(zip(shards, counts)):
-            dev, n_local = shard.device, shard.shape[0]
+        cands = []
+        for i, shard in enumerate(shards):
+            dev = shard.device
             if dev not in q_on:
                 q_on[dev] = torch.from_numpy(queries).to(dev, shard.dtype)
-            scores = torch.matmul(q_on[dev], shard.T)
-            scores[:, count:] = float("-inf")
-            v, idx = torch.topk(scores, min(k, n_local), dim=1)
-            vals.append(v.to(first))
-            ids.append((idx + i * n_local).to(first))
-        mvals, mpos = torch.topk(torch.cat(vals, dim=1), k, dim=1)
-        return mvals, torch.gather(torch.cat(ids, dim=1), 1, mpos)
+            cands += _shard_candidates(q_on[dev], [shard], [counts[i]], [i * shard.shape[0]], k)
+        return _merge(cands, k, first)
 
 
 class CorpusIndex:
@@ -69,7 +91,7 @@ class CorpusIndex:
     the scores are cosine similarities. Rows added through ``add`` keep
     their insertion order as global ids; ``search`` returns those ids.
     ``precision="highest"`` scores in full f32; None lets f32 products use
-    TF32 on the card.
+    TF32 on the card. One lock serialises the searches and adds.
     """
 
     def __init__(self, mesh: Mesh, embed_dim: int, *, dtype: torch.dtype = torch.float32,
@@ -89,6 +111,9 @@ class CorpusIndex:
         # host mirror of the unpadded rows: adds restage from host memory
         # instead of reading the corpus back from the devices
         self._host: np.ndarray | None = None
+        # each search key's runner (``_runner``), over the shards of one add
+        self._runs: dict[tuple, object] = {}
+        self._lock = threading.Lock()
 
     @classmethod
     def build(cls, embeddings, mesh: Mesh, **kw) -> "CorpusIndex":
@@ -126,7 +151,15 @@ class CorpusIndex:
             shard[: rows.shape[0]] = torch.from_numpy(rows).to(dev, self.dtype)
             shards.append(shard)
             counts.append(rows.shape[0])
-        self._shards, self._counts, self._n = shards, counts, n
+        with self._lock:
+            # the runners read the shards replaced here: a stale one would
+            # search the old rows
+            self._runs.clear()
+            graphs = captured.graphs_of(self)
+            if graphs is not None:
+                with graphs.lock:
+                    graphs.graphs.clear()
+            self._shards, self._counts, self._n = shards, counts, n
 
     def search(self, queries, k: int):
         """Top-k rows by cosine similarity for each query.
@@ -155,13 +188,58 @@ class CorpusIndex:
         if qb != n_q:
             q = np.concatenate([q, np.zeros((qb - n_q, q.shape[1]), q.dtype)])
         kb = min(bucket_batch(k), self.rows_per_shard * len(self._shards))
-        vals, idx = _sharded_topk(q, self._shards, self._counts, k=kb,
-                                  precision=self.precision)
-        vals = vals.float().cpu().numpy()[:n_q, :k]
-        idx = idx.cpu().numpy()[:n_q, :k]
+        with self._lock:
+            key = (qb, kb, self.precision, tuple(tuple(s.shape) for s in self._shards),
+                   tuple(self._counts))
+            run = self._runs.get(key)
+            if run is None:
+                run = self._runs[key] = self._runner(qb, kb)
+            vals, idx = run(q)
+            vals = vals.float().cpu().numpy()[:n_q, :k]
+            idx = idx.cpu().numpy()[:n_q, :k]
         if single:
             return vals[0], idx[0]
         return vals, idx
+
+    def _runner(self, qb: int, kb: int):
+        """The search of ``qb`` queries for ``kb`` candidates over the
+        present shards, as a function of the [qb, D] queries: on the CPU
+        ``_sharded_topk``; on the card the captured graphs (module
+        docstring). The caller holds ``_lock``."""
+        shards, counts, precision = self._shards, self._counts, self.precision
+        first = shards[0].device
+        if first.type != "cuda":
+            return lambda q: _sharded_topk(q, shards, counts, k=kb)
+        graphs = captured.graphs_of(self, create=True)
+        on: dict[torch.device, list[int]] = {}
+        for i, shard in enumerate(shards):
+            on.setdefault(shard.device, []).append(i)
+        n_local = shards[0].shape[0]
+        parts = []
+        for dev, ids in on.items():
+            q = torch.zeros((qb, self.embed_dim), dtype=self.dtype, device=dev)
+            fn = _device_search(q, [shards[i] for i in ids], [counts[i] for i in ids],
+                                [i * n_local for i in ids], kb)
+            with graphs.lock, torch.cuda.device(dev), graphs.in_order(dev):
+                g = graphs.graphs[(dev, qb, kb, precision, len(ids))] = graphs.capture(
+                    fn, dev, (q,), what="the corpus search", tf32=precision is None)
+            parts.append((q, g, ids))
+
+        def run(queries: np.ndarray):
+            host = torch.from_numpy(queries)
+            cands = {}
+            with graphs.lock:
+                for q, g, ids in parts:
+                    with torch.cuda.device(q.device), graphs.in_order(q.device):
+                        q.copy_(host)
+                        g.replay()
+                    cands.update(zip(ids, zip(g.output[::2], g.output[1::2])))
+                # the shards' candidates in shard order, merged on the first
+                # device before a later replay overwrites them
+                with graphs.in_order(first):
+                    return _merge([cands[i] for i in range(len(shards))], kb, first)
+
+        return run
 
     def search_texts(self, clip, texts: Sequence[str], k: int):
         """Text-to-corpus search through a ``Clip``'s text embedder — the

@@ -280,7 +280,7 @@ class TextEmbedder:
             raise InferenceError("Empty batch")
         ids, mask = self.tokenize(texts)
         ids, mask = pad_batch(ids, mask, bucket_batch(len(texts)), self.pad_id)
-        embs = captured.forward(self.spec.family, self.tower,
-                                torch.from_numpy(ids).to(self.device), attn_impl=self.attn_impl,
+        embs = captured.forward(self.tower, torch.from_numpy(ids).to(self.device),
+                                attn_impl=self.attn_impl,
                                 **tower_kwargs(self.spec, mask, self.device))
         return embs[: len(texts)].float().cpu().numpy()

@@ -1,46 +1,57 @@
-"""Compiled tower forwards: on the card, each tower forward captured once per
-input shape as a CUDA graph, then replayed.
+"""Compiled forwards: on the card, each tower forward, the preprocess resize
+and the corpus search captured once per input shape as a CUDA graph, then
+replayed.
 
-Counterpart of the JAX package's jitted forwards
+Counterpart of the JAX package's jitted paths
 (``clip_embedder_tpu.vision._jitted_vision_forward``,
 ``text._jitted_text_forward``, the per-shard-layout programs of
-``parallel/embed.py``): there a tower forward is one program, compiled once
-per input shape, and the power-of-two batch buckets
+``parallel/embed.py``, ``ops.preprocess.resize_normalize``,
+``parallel.search._sharded_topk``): there each is one program, compiled
+once per input shape, and the power-of-two batch buckets
 (``ops.preprocess.bucket_batch``) keep the programs few. Here
-``forward(family, tower, *args, **kwargs)`` is ``tower(*args, **kwargs)``
-under ``torch.inference_mode``:
+``forward(tower, *args, **kwargs)`` is ``tower(*args, **kwargs)`` under
+``torch.inference_mode``:
 
 * On the CPU it runs the tower eagerly, as the caller asked.
 * On a CUDA device it replays the tower's graph for the call's key: the
   device and every argument, a tensor by shape and dtype, anything else
   (``attn_impl``, ``channels_first``) by value. The pixel size and the
   context length are fixed per model, so a key is a batch bucket: at most
-  log2(max batch) + 1 graphs an embedder and impl.
+  log2(max batch) + 1 graphs an embedder and impl. Every family captures,
+  the ONNX executor's graphs too (``onnx_exec`` makes each static value's
+  device tensor once and reuses it).
 * A key's first call captures its graph (``GraphSet.capture``): one eager
   warm-up on a side stream, which builds and loads the kernels' libraries
   (``ops.cuda.library``), sets their attributes, lets CUDA load its modules
-  lazily and makes a tower's cached tables (EVA02's and PE-Core's rope)
-  outside the graph's memory; then the forward captured into static copies
-  of the tensor arguments, in ``"thread_local"`` mode, so that other
-  threads' eager CUDA work (the server's preprocess) cannot break it, and
-  under ``HostReadGuard``. There is no fallback: a forward that cannot be
-  captured raises ``CaptureError`` naming the op or launch at fault, and
-  never runs eager on the card.
+  lazily and makes a tower's cached tables (EVA02's and PE-Core's rope, the
+  executor's static tensors) outside the graph's memory; then the forward
+  captured into static copies of the tensor arguments, in
+  ``"thread_local"`` mode, so that other threads' eager CUDA work cannot
+  break it, and under ``HostReadGuard``. There is no fallback: a forward
+  that cannot be captured raises ``CaptureError`` naming the op or launch
+  at fault, and never runs eager on the card.
 * A replay copies the arguments into the static buffers, replays, and
   returns a fresh copy of the static output: the next replay overwrites it
   (a data-parallel mesh of two entries of one card replays one graph twice
   in a call; ``parallel.EmbedPipeline`` keeps a batch's rows on the device
   while the next batch runs).
-* The graphs belong to the tower module (``graphs_of``), one ``GraphSet``
-  a tower, so the embedders that share a tower (``duplicate()``, the
-  repeated entries of a mesh) share its graphs, as ``duplicate()`` shares
-  the JAX package's jit cache. A set keeps one memory pool, shared by its
-  buckets, and one lock that serialises its captures and replays:
-  ``ClipServer`` calls an embedder from its micro-batcher thread and from
-  its handler threads at once. Each replay's stream first waits for the
-  set's previous replay, so callers on different streams never share the
-  static buffers or the pool's scratch in flight. Captures are serialised
-  across the process too.
+* The graphs belong to their owner (``graphs_of``): one ``GraphSet`` a
+  tower module, a ``Preprocessor`` (``ops.preprocess``: its resize per
+  padded shape, whose static inputs are its own reused device buffers) or
+  a ``CorpusIndex`` (``parallel.search``: its search per query and k
+  bucket). The embedders that share a tower (``duplicate()``, the repeated
+  entries of a mesh) share its graphs, as ``duplicate()`` shares the JAX
+  package's jit cache. A set keeps one memory pool, shared by its graphs,
+  so that it reserves about what its largest shape needs, and one lock
+  that serialises its captures and replays: ``ClipServer`` calls an
+  embedder from its micro-batcher thread and from its handler threads at
+  once. Each replay's stream first waits for the set's previous replay on
+  that device (``GraphSet.in_order``), so callers on different streams
+  never share the static buffers or the pool's scratch in flight.
+  Captures are serialised across the process too.
+* A capture may fix TF32 for its f32 products on or off (``tf32``): the
+  flag is process-wide and only a capture sets it, under the process's
+  capture lock; a graph keeps the cuBLAS math mode of its capture.
 * The graphs read the tower's weights where they lie: an update in place
   (``copy_``, ``fill_``) shows in the next replay, a weight replaced by a
   new tensor does not (build a new tower module).
@@ -53,9 +64,7 @@ under ``torch.inference_mode``:
   ``chip_smoke.py`` holds each capture's recorded launches to the graph's
   kernel nodes.
 
-The families in ``EAGER_FAMILIES`` stay eager on the card, by name. The
-tensor-parallel forward, the preprocess, ``CorpusIndex.search`` and the
-training step do not come here.
+The tensor-parallel forward and the training step do not come here.
 
 The port's counterpart of ``utils/compilation_cache.py`` (the persistent
 XLA cache) is ``ops.cuda``'s ``_build/``: the kernels' libraries, keyed by a
@@ -64,6 +73,7 @@ hash of their sources, reused by every later process.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import weakref
@@ -77,15 +87,10 @@ from ..ops import cuda
 
 aten = torch.ops.aten
 
-# The ONNX executor (``onnx_exec``) makes device tensors from the graph's
-# host constants (numpy) on every call (``onnx_exec._tensor``): a copy from
-# pageable host memory, which synchronises, and which a graph would hold
-# fixed at its capture.
-EAGER_FAMILIES = frozenset({"onnx"})
-
 # ops that read tensor data on the host (``.item()``, ``bool(t)``,
 # ``nonzero``, ``masked_select``, ``equal``, ``unique``) or make a tensor
-# from host data (``torch.tensor``): a CUDA graph holds neither
+# from host data (``torch.tensor``, ``torch.from_numpy``): a CUDA graph
+# holds neither
 HOST_READS = frozenset({
     aten.item, aten._local_scalar_dense, aten.is_nonzero, aten.nonzero, aten.masked_select,
     aten.equal, aten._unique, aten._unique2, aten.unique_dim, aten.unique_consecutive,
@@ -94,7 +99,7 @@ HOST_READS = frozenset({
 
 
 class CaptureError(InferenceError):
-    """A tower forward that a CUDA graph cannot hold."""
+    """A forward that a CUDA graph cannot hold."""
 
 
 def _to_host(func, args, kwargs) -> bool:
@@ -122,8 +127,8 @@ class HostReadGuard(TorchDispatchMode):
         kwargs = kwargs or {}
         if func.overloadpacket in HOST_READS or _to_host(func, args, kwargs):
             raise CaptureError(
-                f"{func} reads tensor data on the host inside a tower forward: a CUDA graph "
-                "cannot hold it, and its result would be fixed at the capture")
+                f"{func} reads tensor data on the host inside a captured forward: a CUDA "
+                "graph cannot hold it, and its result would be fixed at the capture")
         return func(*args, **kwargs)
 
 
@@ -141,12 +146,20 @@ def _call_key(device, args, kwargs) -> tuple:
 
 
 class _Graph:
-    """One captured forward: the graph, its static input tensors (in call
-    order) and output, the launches it recorded and its capture seconds."""
+    """One capture: the graph, its static input tensors (in call order) and
+    output (a tensor or a tuple of tensors), the launches it recorded and
+    its capture seconds."""
 
     def __init__(self, graph, inputs, output, launches, seconds):
         self.graph, self.inputs, self.output = graph, inputs, output
         self.launches, self.seconds = launches, seconds
+
+    def replay(self) -> None:
+        """Replay on the current stream; the launches its capture recorded
+        go to the wrappers' counts."""
+        self.graph.replay()
+        for (wrapper, counter, form), n in self.launches.items():
+            cuda.count(wrapper, counter, form, n)
 
 
 # one capture at a time in the process: ``torch.cuda.graph`` synchronises
@@ -154,33 +167,66 @@ class _Graph:
 _capture_lock = threading.Lock()
 
 
+@contextlib.contextmanager
+def _matmul_tf32(on: bool | None):
+    """TF32 for f32 matmuls on or off while the block runs (the
+    process-wide flag, restored after); None leaves it as it is. Only a
+    capture sets it, holding ``_capture_lock``."""
+    if on is None:
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 class GraphSet:
-    """The captured forwards of one tower module (which lies on one
-    device), one graph a key (``graphs``), each key's capture time in
-    seconds (``capture_seconds``), one memory pool."""
+    """The captured graphs of one owner, one graph a key (``graphs``), each
+    key's capture time in seconds (``capture_seconds``), one memory pool,
+    one lock."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.graphs: dict[tuple, _Graph] = {}
         self._pool = None
-        self._done = None  # the event the last replay's stream recorded
+        self._done: dict[torch.device, torch.cuda.Event] = {}  # each device's last replay
 
     @property
     def capture_seconds(self) -> dict[tuple, float]:
         return {k: g.seconds for k, g in self.graphs.items()}
 
-    def capture(self, tower: nn.Module, device: torch.device, args, kwargs) -> _Graph:
-        """Warm up and capture ``tower(*args, **kwargs)`` (tensors on
-        ``device``, which is current) into static copies of the tensors."""
+    @contextlib.contextmanager
+    def in_order(self, device: torch.device):
+        """Yields the device's current stream, which first waits for this
+        set's previous block on the device (on whatever stream it ran); the
+        block's work is the next one the set's later blocks wait for. The
+        caller holds ``lock``."""
+        stream = torch.cuda.current_stream(device)
+        device = stream.device  # "cuda" and "cuda:0" are one device here
+        done = self._done.get(device)
+        if done is None:
+            done = self._done[device] = torch.cuda.Event()
+        else:
+            stream.wait_event(done)
+        yield stream
+        done.record(stream)
+
+    def capture(self, fn, device: torch.device, inputs=(), *, what: str,
+                tf32: bool | None = None) -> _Graph:
+        """Warm up and capture ``fn()``, which reads the static tensors
+        ``inputs`` on ``device`` (current), into this set's pool; ``tf32``
+        fixes TF32 for its f32 products while it is captured (None: as the
+        process has it)."""
         t0 = time.perf_counter()
-        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-        kwargs = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with _capture_lock:
+        with _capture_lock, _matmul_tf32(tf32):
             with torch.cuda.stream(side):
-                tower(*args, **kwargs)
+                fn()
             current.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -190,71 +236,70 @@ class GraphSet:
             try:
                 with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                     with cuda.tallied() as launches, HostReadGuard():
-                        output = tower(*args, **kwargs)
+                        output = fn()
                 graph.instantiate()
             except RuntimeError as err:
-                raise CaptureError(f"{type(tower).__name__}'s forward on {device} could not "
-                                   f"be captured as a CUDA graph: {err}") from err
-        if not isinstance(output, torch.Tensor):
-            raise CaptureError(f"{type(tower).__name__}'s forward returned "
-                               f"{type(output).__name__}, not one tensor")
-        return _Graph(graph, _tensor_args(args, kwargs), output, launches,
-                      time.perf_counter() - t0)
+                raise CaptureError(f"{what} on {device} could not be captured as a CUDA "
+                                   f"graph: {err}") from err
+        return _Graph(graph, list(inputs), output, launches, time.perf_counter() - t0)
 
     def run(self, tower: nn.Module, device: torch.device, args, kwargs) -> torch.Tensor:
-        """Replay the graph of this call's key (captured at its first call):
-        the arguments copied into its static buffers, a fresh copy of its
-        output returned."""
+        """Replay the tower's graph of this call's key (captured at its
+        first call): the arguments copied into its static buffers, a fresh
+        copy of its output returned."""
         key = _call_key(device, args, kwargs)
-        with self.lock, torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device)
-            if self._done is None:
-                self._done = torch.cuda.Event()
-            else:
-                stream.wait_event(self._done)
+        with self.lock, torch.cuda.device(device), self.in_order(device):
             g = self.graphs.get(key)
             if g is None:
-                g = self.graphs[key] = self.capture(tower, device, args, kwargs)
+                g = self.graphs[key] = self._capture_tower(tower, device, args, kwargs)
             for static, given in zip(g.inputs, _tensor_args(args, kwargs)):
                 static.copy_(given)
-            g.graph.replay()
-            out = g.output.clone()
-            self._done.record(stream)
-            for (wrapper, counter, form), n in g.launches.items():
-                cuda.count(wrapper, counter, form, n)
-            return out
+            g.replay()
+            return g.output.clone()
+
+    def _capture_tower(self, tower, device, args, kwargs) -> _Graph:
+        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        kwargs = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+        name = type(tower).__name__
+        g = self.capture(lambda: tower(*args, **kwargs), device, _tensor_args(args, kwargs),
+                         what=f"{name}'s forward")
+        if not isinstance(g.output, torch.Tensor):
+            raise CaptureError(f"{name}'s forward returned {type(g.output).__name__}, "
+                               "not one tensor")
+        return g
 
 
-_sets: "weakref.WeakKeyDictionary[nn.Module, GraphSet]" = weakref.WeakKeyDictionary()
+_sets: "weakref.WeakKeyDictionary[object, GraphSet]" = weakref.WeakKeyDictionary()
 _sets_lock = threading.Lock()
 
 
-def graphs_of(tower: nn.Module, *, create: bool = False) -> GraphSet | None:
-    """The tower's ``GraphSet`` (made with ``create``; None if it has none).
-    It lives as long as the tower does."""
+def graphs_of(owner, *, create: bool = False) -> GraphSet | None:
+    """The ``GraphSet`` of ``owner`` (a tower module, a ``Preprocessor``, a
+    ``CorpusIndex``; made with ``create``; None if it has none). It lives as
+    long as the owner does."""
     with _sets_lock:
-        s = _sets.get(tower)
+        s = _sets.get(owner)
         if s is None and create:
-            s = _sets[tower] = GraphSet()
+            s = _sets[owner] = GraphSet()
         return s
 
 
 def graph_sets() -> list[GraphSet]:
-    """Every live tower's ``GraphSet``."""
+    """Every live owner's ``GraphSet``."""
     with _sets_lock:
         return list(_sets.values())
 
 
-def forward(family: str, tower: nn.Module, *args, **kwargs) -> torch.Tensor:
+def forward(tower: nn.Module, *args, **kwargs) -> torch.Tensor:
     """``tower(*args, **kwargs)`` under ``torch.inference_mode``: eager on the
-    CPU and for the ``EAGER_FAMILIES``, else its captured graph replayed
-    (the module docstring). The tensor arguments lie on one device."""
+    CPU, else its captured graph replayed (the module docstring). The
+    tensor arguments lie on one device."""
     tensors = _tensor_args(args, kwargs)
     device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise InferenceError(f"a tower's inputs lie on {sorted({str(t.device) for t in tensors})}"
                              ", not on one device")
     with torch.inference_mode():
-        if device.type != "cuda" or family in EAGER_FAMILIES:
+        if device.type != "cuda":
             return tower(*args, **kwargs)
         return graphs_of(tower, create=True).run(tower, device, args, kwargs)

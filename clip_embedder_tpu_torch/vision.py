@@ -24,9 +24,10 @@ on their own; ask for ``device="cpu"`` to run there.
 attention projections) converts the loaded weights to W8A8
 (``ops.quant``), as the JAX package's ``quantize=`` does.
 
-On the card the tower forward is captured once per batch bucket as a CUDA
-graph and replayed (``utils.captured``), as the JAX package jits it once
-per shape; ``duplicate()`` shares the tower and so its graphs.
+On the card the tower forward is captured once per batch bucket, and the
+preprocess resize once per padded shape, as CUDA graphs and replayed
+(``utils.captured``), as the JAX package jits them once per shape;
+``duplicate()`` shares the tower and so its graphs.
 """
 
 from __future__ import annotations
@@ -383,7 +384,7 @@ class VisionEmbedder:
         arrays = [to_rgb_array(img) for img in images]
         with torch.inference_mode():
             pixels = self.preprocessor(arrays)  # [bucket, 3, S, S]
-            return captured.forward(self.spec.family, self.tower, pixels,
+            return captured.forward(self.tower, pixels,
                                     attn_impl=self.attn_impl, channels_first=True), len(arrays)
 
     # -- preprocessing only (reference: src/vision.rs:120-138) -------------

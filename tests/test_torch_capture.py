@@ -8,6 +8,8 @@ the CPU: no JAX here.
   that a CUDA graph cannot hold (``.item()``, ``bool(t)``, ``nonzero``,
   ``masked_select``, ``equal``, the ``unique`` ops, ``torch.tensor``).
 * A CPU embedder builds no graph and returns its tower's own rows.
+* The ONNX executor's static tensors, made once and reused, so that it is
+  captured as every other family is.
 * The launch counts' tally (``ops.cuda.count`` / ``tallied``), which keeps
   the counts exact when a graph replays.
 
@@ -189,17 +191,27 @@ def test_cpu_embedders_build_no_graph_and_return_the_towers_rows():
         assert captured.graphs_of(emb.tower) is None
 
 
-def test_the_onnx_executor_fails_the_audit_and_stays_eager_by_name():
+def test_the_onnx_executor_reuses_its_static_tensors_and_captures_like_every_family():
     """The executor makes a device tensor of a host constant (a numpy array)
-    whenever an op takes one as an operand (``onnx_exec._Env.t``): a tensor
-    from host data, which the guard refuses; so the family stays eager."""
+    when an op first takes one as an operand (``onnx_exec._Env.const``): a
+    tensor from host data, which the guard refuses. From then on the same
+    content is the same tensor, which passes the guard, so the family is
+    captured as the others are: no family stays eager by name."""
     env = onnx_exec._Env(torch.device("cpu"))
     env["half"] = np.asarray(0.5, np.float32)
-    with pytest.raises(captured.CaptureError, match="lift_fresh"):
-        with torch.inference_mode(), captured.HostReadGuard():
-            env.t("half")
-    assert captured.EAGER_FAMILIES == {"onnx"}
-    assert not captured.EAGER_FAMILIES & (VISION_FAMILIES | IMPL_FAMILIES | QUANTIZED)
+    env["also_half"] = np.asarray(0.5, np.float64)  # f64 becomes f32: the same content
+    with torch.inference_mode():
+        with pytest.raises(captured.CaptureError, match="lift_fresh"):
+            with captured.HostReadGuard():
+                env.t("half")
+        first = env.t("half")
+        with captured.HostReadGuard():
+            again, also = env.t("half"), env.t("also_half")
+            other = onnx_exec._Env(env.device, env.consts)  # an If branch's, a later call's
+            other["x"] = np.float32(0.5)
+            shared = other.t("x")
+    assert again is first and also is first and shared is first
+    assert not hasattr(captured, "EAGER_FAMILIES")
 
 
 def test_tallied_counts_replace_the_wrappers_counts():

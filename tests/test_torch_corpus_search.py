@@ -135,9 +135,9 @@ def test_search_shapes_bucket_to_bounded_shape_set(monkeypatch):
     shapes = []
     real = tsearch._sharded_topk
 
-    def spy(queries, shards, counts, *, k, precision):
+    def spy(queries, shards, counts, *, k):
         shapes.append((queries.shape[0], k))
-        return real(queries, shards, counts, k=k, precision=precision)
+        return real(queries, shards, counts, k=k)
 
     monkeypatch.setattr(tsearch, "_sharded_topk", spy)
     rng = np.random.default_rng(3)

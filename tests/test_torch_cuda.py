@@ -977,9 +977,10 @@ def _images(n, seed=5):
 
 
 def _eager_rows(emb, images):
-    """The rows of ``embed_images_device`` with the tower called directly."""
+    """The rows of ``embed_images_device`` with the preprocess's plain route
+    and the tower called directly."""
     with torch.inference_mode():
-        pixels = emb.preprocessor(images)
+        pixels = emb.preprocessor.eager(images)
         return emb.tower(pixels, attn_impl=emb.attn_impl, channels_first=True)[: len(images)]
 
 
@@ -1120,7 +1121,7 @@ def test_a_forward_that_reads_the_host_raises_at_capture(dev):
 
     tower = ReadsHost()
     with pytest.raises(captured.CaptureError, match="aten.item"):
-        captured.forward("vit", tower, torch.ones(2, 3, device=dev))
+        captured.forward(tower, torch.ones(2, 3, device=dev))
     assert captured.graphs_of(tower).graphs == {}
 
 
@@ -1136,3 +1137,126 @@ def test_dp_mesh_of_two_cuda0_entries_returns_the_unsharded_rows(dev):
     for half in (slice(0, 2), slice(2, 4)):
         ref = _eager_rows(emb, images[half]).float().cpu().numpy()
         assert _cos(torch.from_numpy(got[half]), torch.from_numpy(ref)) >= 1 - 1e-5
+
+
+# -- the compiled inference paths: the preprocess, the ONNX executor, the search
+
+def _unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def test_captured_preprocess_is_bitwise_the_eager_one_across_shapes(dev):
+    from clip_embedder_tpu_torch.utils import captured
+
+    pp = _captured_clip().vision.preprocessor
+    small = _images(3)  # 128 x 128
+    large = [np.full((300, 200, 3), 7, np.uint8)] + _images(4, seed=8)  # 384 x 256
+    for batch in (small, large, small, large):  # each shape's buffers reused as they are
+        with torch.inference_mode():
+            got, ref = pp(batch), pp.eager(batch)
+        assert torch.equal(got[:len(batch)], ref[:len(batch)])
+    graphs = captured.graphs_of(pp)
+    assert sorted(k[1:4] for k in graphs.graphs) == [(4, 128, 128), (8, 384, 256)]
+    assert all(e.host.is_pinned() and e.images.is_cuda for e in pp._staging.values())
+    cached = dict(pp._device_weights_cache)
+    pp(small)  # no matrix uploaded again
+    assert pp._device_weights_cache.keys() == cached.keys()
+    assert all(pp._device_weights_cache[k][0] is cached[k][0] for k in cached)
+
+
+def test_captured_preprocess_keeps_full_f32_whatever_the_tf32_flag(dev):
+    pp = _captured_clip().vision.preprocessor
+    batch = _images(2, seed=4) + [np.full((520, 130, 3), 200, np.uint8)]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = pp(batch)  # this shape's capture: the resize's products in full f32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        assert torch.equal(got[:3], pp.eager(batch)[:3])
+
+
+def test_two_threads_preprocess_at_once_on_the_card(dev):
+    import threading
+
+    pp = _captured_clip().vision.preprocessor
+    batches = [_images(3, seed=11), [np.full((260, 400, 3), 90, np.uint8)] + _images(1)]
+    with torch.inference_mode():
+        refs = [pp.eager(b)[:len(b)] for b in batches]
+    bad = []
+
+    def worker(i):
+        for _ in range(20):
+            if not torch.equal(pp(batches[i])[:len(batches[i])], refs[i]):
+                bad.append(i)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and bad == []
+
+
+def test_the_onnx_executor_is_captured_per_bucket(dev, tmp_path):
+    import importlib.util
+
+    from clip_embedder_tpu_torch.onnx_exec import OnnxTower
+    from clip_embedder_tpu_torch.utils import captured
+    from clip_embedder_tpu_torch.vision import OnnxVisual
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    class Tiny(torch.nn.Module):  # patches, attention (shape-derived reshapes), a head
+        def __init__(self):
+            super().__init__()
+            self.patch = torch.nn.Conv2d(3, 32, 4, stride=4)
+            self.attn = torch.nn.MultiheadAttention(32, 4, batch_first=True)
+            self.head = torch.nn.Linear(32, 8)
+
+        def forward(self, x):
+            y = self.patch(x).flatten(2).transpose(1, 2)
+            a, _ = self.attn(y, y, y, need_weights=False)
+            return torch.nn.functional.normalize(self.head((y + a).mean(dim=1) * 0.5), dim=-1)
+
+    torch.manual_seed(12)
+    path = tmp_path / "visual.onnx"
+    smoke.onnx_export(Tiny().eval(), torch.randn(2, 3, 16, 16), path, "pixel_values",
+                      "image_embeds")
+    tower = OnnxVisual(OnnxTower(path, device=dev))
+    xs = {b: torch.randn(b, 3, 16, 16, device=dev) for b in (2, 4)}
+    for b in (2, 4, 2, 4):
+        got = captured.forward(tower, xs[b], attn_impl="eager", channels_first=True)
+        with torch.inference_mode():
+            assert torch.equal(got, tower(xs[b]))
+    assert len(captured.graphs_of(tower).graphs) == 2
+
+
+def test_captured_search_equals_eager_and_follows_add(dev):
+    from clip_embedder_tpu_torch.parallel import CorpusIndex, get_mesh, search
+    from clip_embedder_tpu_torch.utils import captured
+
+    rng = np.random.default_rng(13)
+    corpus = _unit_rows(rng, 3000, 64)
+    index = CorpusIndex.build(corpus, get_mesh(devices=["cuda:0"] * 2))
+    q = _unit_rows(rng, 5, 64)
+    for _ in range(2):
+        vals, ids = index.search(q, 7)
+    qb = np.concatenate([q, np.zeros((3, 64), np.float32)])
+    # the eager reference in full f32, as the index's default precision
+    # captures: the process's TF32 flag is off
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ev, ei = search._sharded_topk(qb, index._shards, index._counts, k=8)
+    np.testing.assert_array_equal(ids, ei.cpu().numpy()[:5, :7])
+    np.testing.assert_allclose(vals, ev.cpu().numpy()[:5, :7], atol=1e-6, rtol=0)
+    graphs = captured.graphs_of(index)
+    assert len(graphs.graphs) == 1
+    new = _unit_rows(rng, 10, 64)
+    index.add(new)  # the shards keep their shape; the graph over the old ones goes
+    assert graphs.graphs == {}
+    vals, ids = index.search(new, 1)
+    np.testing.assert_array_equal(ids[:, 0], np.arange(3000, 3010))
+    assert len(graphs.graphs) == 1
