@@ -114,20 +114,31 @@ card, in phases, and fail loudly if any phase fails.
    counts over two shards, rows against the unsharded embedder at cosine
    1 - 1e-3, images/s and p50 beside the unsharded ones); TP over the model
    axis (the eager core: no kernel launched, the override warned; refused
-   for ``int8_all``); ``ShardedTextEmbedder``; ``EmbedPipeline`` over 256
+   for ``int8_all``; its one row on one card replays the ``TPViT``'s CUDA
+   graph, whose rows are held to the ``TPViT`` called eagerly, and timed
+   against it: images/s, p50, idle share, capture seconds, the graph's
+   pool); ``ShardedTextEmbedder``; ``EmbedPipeline`` over 256
    JPEGs against a loop; ``CorpusIndex`` over 2^20 x 1152 f32 unit rows
    against a dense ``torch.matmul`` + ``topk``, its captured search against
    the eager one (ids equal, scores within 1e-6); ``ClipServer(mesh=)``: one
    client through every endpoint, then 64 concurrent clients.
 13. training — ViT-SO400M-16-SigLIP2-384 at full width and depth through
    ``clip_embedder_tpu_torch.train`` (f32, SigLIP loss, remat, lr 1e-5,
-   seeded random init, a fixed seeded batch of 16): five unsharded steps (the loss
-   descends; s/step, samples/s, peak memory, one step under torch.profiler);
-   one step each of DP, the ring loss, FSDP and TP (cut to 2 layers a
-   tower) on meshes of two entries of one card from the same initial state,
-   each within rtol 1e-4 of the unsharded loss; no kernel launched on the
-   way; the trained tree exported into a model dir and served through
-   ``Clip`` in bf16 (27 launches each of kernels 1 and 2 a tower call),
+   seeded random init, a fixed seeded batch of 16), the step captured (one
+   CUDA graph of the forward, the backward and the capturable AdamW) and
+   each run held against the eager step (``train.eager_train_step``) from
+   the same initial state, losses and every stepped tensor: five unsharded
+   steps (the loss descends; s/step, samples/s, peak memory, one step under
+   torch.profiler and the graph's pool, captured against eager), the
+   captured step held a step at a time against torch's lazy AdamW
+   (``capturable=False``, the optimizer code the CPU holds to optax) from
+   the same state, three steps: losses and moments bitwise equal, each
+   parameter within 2e-5 of its update; three in bf16 (the loss
+   descends); two steps each of DP, the ring loss, FSDP and TP on meshes of
+   two entries of one card from the same initial state, captured against
+   eager, each within rtol 1e-4 of the unsharded loss; no kernel launched
+   on the way; the trained tree exported into a model dir and served
+   through ``Clip`` in bf16 (27 launches each of kernels 1 and 2 a tower call),
    held against the eager impl at cosine 0.999 and printed against the
    trained tree's own f32 forward; a q that requires grad refused by kernel
    2's wrapper.
@@ -148,14 +159,16 @@ card, in phases, and fail loudly if any phase fails.
    the plain preprocess; for SO400M and PE-Core the reserved memory with and
    without the layer. Each vision tower's captured preprocess
    (``Preprocessor.run``: reused staging, the resize replayed) is held
-   to the plain route (``Preprocessor.eager``) with ``torch.equal`` on two
-   batches of different padded sizes (768 x 1024, 512 x 640) in turn and
-   back, and timed: alone against the plain route, and split into host
-   staging, the copy and the replay, beside its graphs and their pool.
+   to the plain route (``Preprocessor.eager``) with ``torch.equal``, every
+   row of the bucket, on two batches of different padded sizes (768 x
+   1024, 512 x 640) in turn and back, then on fewer images in the same
+   bucket, and timed: alone against the plain route, and split into host
+   staging (also with the padded rows zeroed), the copy and the replay,
+   beside its graphs and their pool.
 
 From phase 4 on, every ``embed_images`` / ``embed_texts`` / ``classify``,
-and phase 12's DP shards, run through the captured layer on the card, the
-preprocess included (a
+and phase 12's DP shards and TP row, run through the captured layer on the
+card, the preprocess included, as does phase 13's train step (a
 graph's replay adds the launches its capture recorded; a bucket's first
 call also counts its warm-up forward's); each plain path (eager attention,
 the plain int8 wrappers) calls the tower modules directly after the plain
@@ -297,6 +310,10 @@ FAMILY_MODELS = (
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def fmt_ms(ms, digits: int) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def nvidia_smi() -> str:
@@ -1614,27 +1631,49 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def device_breakdown(fn) -> dict:
+EVENTS_GROUP = "all (CUDA events' span: the profiler saw no device time)"
+
+
+def device_breakdown(fn, sessions: int = 3) -> dict:
     """One call of ``fn`` under torch.profiler (CUDA activity): device time
-    by kernel group and the share of the wall time the device sat idle."""
+    by kernel group and the share of the wall time the device sat idle.
+
+    The profiler does not always report the kernels of a CUDA graph's
+    replay: one run of this script on the H100 saw none in a replay that
+    other runs traced in full. So a call whose session shows no device time
+    is profiled again, up to ``sessions`` times, and after that is timed
+    with CUDA events recorded around it: ``source`` says which, and then
+    ``busy_ms`` is the span from the call's first work on the stream to its
+    last, an upper bound on busy time (and ``idle_share`` a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    groups: dict[str, float] = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        groups[kernel_group(e.key)] = groups.get(kernel_group(e.key), 0.0) + us / 1e3
-    busy = sum(groups.values())
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return {"groups_ms": groups, "busy_ms": busy, "wall_ms": wall_ms,
-            "idle_share": max(0.0, 1 - busy / wall_ms)}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        groups: dict[str, float] = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            groups[kernel_group(e.key)] = groups.get(kernel_group(e.key), 0.0) + us / 1e3
+        busy = sum(groups.values())
+        if busy > 0:
+            return {"groups_ms": groups, "busy_ms": busy, "wall_ms": wall_ms,
+                    "idle_share": max(0.0, 1 - busy / wall_ms), "source": "torch.profiler"}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    span = start.elapsed_time(end)
+    say(f"  the profiler saw no device time in {sessions} sessions; timed with CUDA events")
+    return {"groups_ms": {EVENTS_GROUP: span}, "busy_ms": span, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1 - span / wall_ms), "source": "cuda events"}
 
 
 def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
@@ -3444,6 +3483,24 @@ def hold_tie_swaps(ids, ref_ids, ref_scores, tie: float) -> int:
     return swaps
 
 
+def eager_tp_images(sharded, images) -> np.ndarray:
+    """``sharded.embed_images(images)`` with each mesh row's ``TPViT`` called
+    directly, eagerly (the shards' pixels from the same staged preprocess):
+    the route the captured TP forward is held to."""
+    from clip_embedder_tpu_torch.parallel.embed import _batch_bucket, _gather
+    from clip_embedder_tpu_torch.utils.images import to_rgb_array
+
+    arrays = [to_rgb_array(im) for im in images]
+    pp = sharded.inner.preprocessor
+    padded = pp.padded_size(arrays)
+    per = _batch_bucket(len(arrays), sharded.mesh.shape["data"]) // sharded.mesh.shape["data"]
+    with torch.inference_mode():
+        outs = [tower(pp.run(arrays[i * per:(i + 1) * per], device=dev, batch_bucket=per,
+                             padded=padded), attn_impl=sharded.attn_impl, channels_first=True)
+                for i, (dev, tower) in enumerate(zip(sharded.devices, sharded.towers))]
+        return _gather(outs)[:len(arrays)].float().cpu().numpy()
+
+
 def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None, batch=32,
                   stream=256, corpus_rows=1 << 20, clients=64, timed=True) -> dict:
     """Phase 12: ViT-SO400M-16-SigLIP2-384 at full width through the
@@ -3527,11 +3584,20 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
     if timed:
         out["dp_int8_all"].update(time_embedder(sharded_q, arrays, "DP int8_all, 2 shards"))
 
-    # 3. TP over the model axis: the eager core, no kernel
+    # 3. TP over the model axis: the eager core, no kernel; its one row on
+    # one device replays the TPViT's captured graph
+    from clip_embedder_tpu_torch.utils import captured
+
     tp_mesh = get_mesh(devices=[entry] * 2, model_parallel=2)
     _warned_once.discard("tp-kernel-override")
     tp = ShardedVisionEmbedder(clip.vision, tp_mesh, tensor_parallel=True)
     warned = "tp-kernel-override" in _warned_once
+    if card:
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    tp.embed_images(images)  # on the card: the warm-up, the capture and a replay
+    first_s = time.perf_counter() - t
     reset_launch_counts()
     embs_tp = tp.embed_images(images)
     counts_tp = launch_counts()
@@ -3543,15 +3609,35 @@ def phase_sharded(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
             or cos_tp.min() < SHARDED_COSINE:
         raise AssertionError(f"TP: impl {tp.attn_impl}, warned {warned}, launches "
                              f"{counts_tp}, cosine {cos_tp.min()}")
+    graphs = captured.graphs_of(tp.towers[0])
+    n_graphs = 0 if graphs is None else len(graphs.graphs)
+    eq = hold_captured(f"TP {tp_mesh.shape}: {n_graphs} graph(s) of the TPViT; rows",
+                       torch.from_numpy(embs_tp), torch.from_numpy(eager_tp_images(tp, images)))
+    if captured.several_devices(tp_mesh.devices[0]) or n_graphs != int(card):
+        raise AssertionError(f"TP: row {tp_mesh.devices[0]}, {n_graphs} graphs")
     try:
         ShardedVisionEmbedder(clip_q.vision, tp_mesh, tensor_parallel=True)
     except ConfigError as e:
         say(f"  TP on the int8_all embedder refused: {e}")
     else:
         raise AssertionError("TP on a quantized embedder was not refused")
-    out["tp"] = {"cosine": float(cos_tp.min())}
+    out["tp"] = {"cosine": float(cos_tp.min()), "captured": eq, "first_call_s": first_s}
+    if card:
+        pool = pool_mib(graphs)
+        out["tp"].update(capture_s=sum(graphs.capture_seconds.values()), pool_mib=pool,
+                         reserved_mib=mib(torch.cuda.memory_reserved() - reserved))
+        say(f"  TP's first call (the warm-up, the capture, a replay) {first_s:.2f} s, the "
+            f"capture {out['tp']['capture_s']:.2f} s of it; its graph's pool reserves "
+            f"{'not measured' if pool is None else f'{pool:.1f} MiB'}; reserved memory "
+            f"{out['tp']['reserved_mib']:+.1f} MiB over the call")
     if timed:
-        out["tp"].update(time_embedder(tp, arrays, "TP bf16, 2 ranks of one card (eager)"))
+        out["tp"].update(time_embedder(tp, arrays, "TP bf16, 2 ranks of one card (captured)"))
+        out["tp"]["eager"] = time_embedder(tp, arrays, "TP bf16, 2 ranks of one card (eager)",
+                                           run=lambda xs: eager_tp_images(tp, xs))
+        if card:
+            out["tp"]["breakdown"] = profile_embedder(tp, arrays, "TP captured")
+            out["tp"]["eager"]["breakdown"] = profile_embedder(
+                tp, arrays, "TP eager", run=lambda xs: eager_tp_images(tp, xs))
     del tp, sharded_q, clip_q
     free_device_memory()
 
@@ -3739,7 +3825,6 @@ TRAIN_RTOL = 1e-4
 # towers about on one batch: losses 9.54, 7.28, 18.63, 8.66, 10.18.
 # tools/train_witness.py runs both rates in both packages at a cut depth.
 TRAIN_LR = 1e-5
-TP_LAYERS = 2  # the TP variant's depth: the eager TP step at full depth outlasts the time limit
 
 
 def so400m_train_config(*, layers=None, vocab_size=None, **kw):
@@ -3791,14 +3876,6 @@ def train_step_flops(cfg, batch: int) -> float:
     return 4.0 * batch * (vision + text)
 
 
-def cut_blocks(tree, layers: int):
-    """A train tree with its stacked blocks cut to the first ``layers``."""
-    from clip_embedder_tpu_torch.weights import tree_map
-
-    return {k: ({**v, "blocks": tree_map(lambda t: t[:layers], v["blocks"])}
-                if isinstance(v, dict) else v) for k, v in tree.items()}
-
-
 def timed_step(step, params, opt, batch, card):
     """One train step; (params, opt, loss as a float, host seconds to its end)."""
     t = time.perf_counter()
@@ -3809,21 +3886,168 @@ def timed_step(step, params, opt, batch, card):
     return params, opt, loss, time.perf_counter() - t
 
 
+def train_run(step, params, opt, batch, steps: int, card) -> tuple[list, list]:
+    """``steps`` train steps: their losses and host seconds. On the card
+    the graph a captured step made is then held to its kernel nodes
+    (``hold_graphs``) while its optimizer, which owns it, lives."""
+    losses, secs = [], []
+    for _ in range(steps):
+        params, opt, loss, s = timed_step(step, params, opt, batch, card)
+        losses.append(loss)
+        secs.append(s)
+    if card:
+        hold_graphs()
+    return losses, secs
+
+
+def eager_step(cfg, mesh=None):
+    """``train.eager_train_step`` as a step function (the route the
+    captured step is held to)."""
+    from clip_embedder_tpu_torch import train as tt
+
+    return lambda p, o, b: tt.eager_train_step(p, o, b, cfg=cfg, mesh=mesh)
+
+
+# The captured step against the eager one from the same state, on the CPU
+# rehearsal: there both routes are the same eager code, yet the ring and TP
+# layouts' leaves differed by up to 9.3e-10 after two steps (one tensor in
+# 60 and 90), as the CPU's reductions may vectorize by the buffers'
+# alignment. On the card the graph replays the eager step's kernels: bitwise.
+CPU_TRAIN_ATOL = 1e-6
+
+
+def hold_train(what, cap, eag, cap_params, eag_params, card) -> dict:
+    """A captured run against the eager run from the same initial state:
+    their losses, and every stepped tensor after the last step. Gate: on
+    the card both bitwise equal; on the CPU each loss within
+    ``TRAIN_RTOL`` and each tensor within ``CPU_TRAIN_ATOL``."""
+    from clip_embedder_tpu_torch.train import _stepped
+
+    pa, pb = _stepped(cap_params), _stepped(eag_params)
+    same = [bool(torch.equal(a, b)) for a, b in zip(pa, pb)]
+    diff = max(float((a.detach().float() - b.detach().float()).abs().max())
+               for a, b in zip(pa, pb))
+    rel = max(abs(c - e) / abs(e) for c, e in zip(cap, eag))
+    r = {"losses": cap, "eager_losses": eag, "losses_equal": cap == eag,
+         "leaves_equal": all(same), "leaves_max_diff": diff, "loss_rel": rel}
+    if card:
+        ok, need = r["losses_equal"] and r["leaves_equal"], "need both bitwise equal"
+    else:
+        ok = rel <= TRAIN_RTOL and diff <= CPU_TRAIN_ATOL
+        need = f"need <= {TRAIN_RTOL} and <= {CPU_TRAIN_ATOL} on the CPU"
+    ok = ok and len(pa) == len(pb)
+    say(f"  {what}: captured losses {[round(x, 6) for x in cap]} against eager "
+        f"{[round(x, 6) for x in eag]}: losses bitwise equal {r['losses_equal']} (largest "
+        f"relative difference {rel:.3e}); after {len(cap)} steps the {len(pa)} stepped tensors "
+        f"bitwise equal {r['leaves_equal']} ({sum(same)} of {len(pa)}; largest difference "
+        f"{diff:.3e}); {need} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the captured train step differs from the eager one")
+    return r
+
+
+# The captured step against torch's lazy AdamW (``capturable=False``: its
+# state made at its first step, its step count on the host; the code the
+# CPU's optimizer runs, which tests/test_torch_train.py holds to optax) on
+# the same device, a step at a time from the same state: before each step
+# the lazy run takes the captured run's params and, after its own first
+# step, its optimizer state (``load_state_dict``, the resume path, which
+# gives the lazy optimizer its own flavour back). Run free, the two drift
+# apart: Adam moves a coordinate by about lr whatever its gradient's size,
+# so one whose gradient is rounding noise moves by lr on the noise's sign
+# (the updates' L2 norms 0.3% apart after 3 golden steps and 8.8% after 6
+# SO400M steps; the losses 5.0e-6 and 2.2e-6 apart). From one state the
+# forward and backward are the same kernels, so the loss and both moments
+# come out bitwise equal and the step counts equal; the update differs by
+# how the two take the bias corrections: the capturable one in f32 on the
+# card, where 1 - β2 loses 1.3e-5 of itself (β2 = 0.999 is 0.99900001 in
+# f32), moving √(1 - β2^t) and so the update by up to 6.4e-6; the lazy one
+# in Python doubles. Gate: each parameter within LAZY_UPDATE_RTOL of its
+# step's update, plus one rounding of the parameter (eps·|p|). A step
+# count off by one or a bias correction left out moves the first update by
+# 26% or 216%. On the CPU rehearsal both runs are the lazy AdamW, and the
+# CPU's gradients may differ in their last bits between two runs from one
+# state (``CPU_TRAIN_ATOL``'s comment): there the losses are held within
+# ``TRAIN_RTOL`` and the moments within ``CPU_TRAIN_ATOL``.
+LAZY_UPDATE_RTOL = 2e-5
+
+
+def hold_lazy_steps(what, cap_step, cap_params, cap_opt, lazy_step, lazy_params, lazy_opt,
+                    steps: int, card: bool) -> dict:
+    """``steps`` steps of a captured run (``cap_step()``, its loss), each
+    held against a step of the lazy AdamW's eager run (``lazy_step()``) from
+    the same state, as above: the step counts equal; on the card the
+    losses and both moments bitwise equal (on the CPU within the bounds
+    above); each parameter within the gate, whose largest share used is
+    returned as ``gate_share`` (1 the gate)."""
+    import copy
+
+    from clip_embedder_tpu_torch.train import _stepped
+
+    cp, lp = _stepped(cap_params), _stepped(lazy_params)
+    r = {"losses": [], "lazy_losses": [], "equal": True, "gate_share": 0.0}
+    for k in range(steps):
+        if k:  # the lazy optimizer made its state at its first step
+            lazy_opt.load_state_dict(copy.deepcopy(cap_opt.state_dict()))
+        with torch.no_grad():
+            for a, b in zip(lp, cp):
+                a.copy_(b)
+        before = [t.detach().clone() for t in cp]
+        lc, ll = cap_step(), lazy_step()
+        r["losses"].append(lc)
+        r["lazy_losses"].append(ll)
+        r["equal"] &= lc == ll if card else abs(lc - ll) <= TRAIN_RTOL * abs(ll)
+        for p0, a, b in zip(before, cp, lp):
+            sa, sb = cap_opt.state[a], lazy_opt.state[b]
+            moments = [(sa[m], sb[m]) for m in ("exp_avg", "exp_avg_sq")]
+            r["equal"] &= (float(sa["step"]) == float(sb["step"]) and not sb["step"].is_cuda
+                           and all(torch.equal(x, y) if card else
+                                   float((x - y).abs().max()) <= CPU_TRAIN_ATOL
+                                   for x, y in moments))
+            a, b = a.detach(), b.detach()
+            slack = (a - b).abs() - torch.finfo(a.dtype).eps * torch.maximum(a.abs(), b.abs())
+            share = torch.where(slack <= 0, 0.0, slack / (LAZY_UPDATE_RTOL * (b - p0).abs()))
+            r["gate_share"] = max(r["gate_share"], float(share.max()))
+            del p0, slack, share
+        del before
+    ok = r["equal"] and r["gate_share"] <= 1
+    say(f"  {what}, each step held against torch's lazy AdamW (capturable=False) from the "
+        f"same state: losses {[round(x, 6) for x in r['losses']]}, lazy "
+        f"{[round(x, 6) for x in r['lazy_losses']]}; losses, moments and step counts "
+        f"{'bitwise equal' if card else 'equal within the CPU bounds'} {r['equal']}; "
+        f"parameters at {r['gate_share']:.3f} of the gate ({LAZY_UPDATE_RTOL} of the update "
+        f"+ eps·|p|) at most; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the captured train step is not the lazy AdamW's")
+    return r
+
+
+def step_memory(card, before: int) -> float | None:
+    """GiB allocated at the peak since ``reset_peak_memory_stats``, above
+    ``before`` bytes (what other runs hold)."""
+    return (torch.cuda.max_memory_allocated() - before) / 2**30 if card else None
+
+
 def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None, batch=16,
                    steps=5, timed=True) -> dict:
     """Phase 13: ViT-SO400M-16-SigLIP2-384 trained through
     ``clip_embedder_tpu_torch.train`` at full width and depth (``layers``,
     ``vocab_size``, ``batch`` and ``steps`` cut it for a CPU rehearsal), a
-    fixed seeded batch: (a) unsharded steps (the loss descends; s/step,
-    samples/s, peak memory), (b) two steps each of DP, the ring loss, FSDP
-    and TP on a mesh of two entries of one device from the same initial
-    state, both losses held against the unsharded run's first two: the
-    second comes after the layout's backward pass and AdamW update (TP at
-    ``TP_LAYERS``, against an unsharded run of that cut tree), (c) the
+    fixed seeded batch: (a) unsharded steps, captured (on the card the step
+    replays a CUDA graph of the forward, the backward and AdamW), held
+    against as many eager steps (``train.eager_train_step``) from the same
+    initial state, losses and every stepped tensor (the loss descends;
+    s/step, samples/s, idle share, peak memory and the graph's pool,
+    captured against eager); the same for 3 steps in bf16; (b) two steps
+    each of DP, the ring loss, FSDP and TP on a mesh of two entries of one
+    device from the same initial state, captured and held against two
+    eager steps, both losses held against the unsharded run's first two:
+    the second comes after the layout's backward pass and AdamW update, (c) the
     handoff: the trained tree exported into a model dir and served through
     ``Clip`` (bf16 on the card, through kernels 1 and 2) against the eager
     impl and against the trained tree's own f32 forward, (d) the kernel
-    guard. The training path runs no kernel."""
+    guard. The training path runs no kernel; every graph it captured is
+    held to that (``launch_counts`` → ``hold_graphs``)."""
     import dataclasses
     import tempfile
 
@@ -3833,6 +4057,7 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
     from clip_embedder_tpu_torch.models.vit import ViT
     from clip_embedder_tpu_torch.ops.flash import flash_attention_packed
     from clip_embedder_tpu_torch.parallel import get_mesh
+    from clip_embedder_tpu_torch.utils import captured
     from clip_embedder_tpu_torch.weights import _flatten, tree_map
 
     free_device_memory()
@@ -3844,7 +4069,8 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
     say(f"[13] training: ViT-SO400M-16-SigLIP2-384 through clip_embedder_tpu_torch.train, "
         f"{dtype}, SigLIP loss, remat, vision {vcfg.layers}x{vcfg.width} ({vcfg.seq_len} "
         f"tokens, {vcfg.pool} pool), text {tcfg.layers}x{tcfg.width} (vocab "
-        f"{tcfg.vocab_size}, ctx {tcfg.context_length}), batch {batch} (seed 0)")
+        f"{tcfg.vocab_size}, ctx {tcfg.context_length}), batch {batch} (seed 0); the step "
+        f"{'captured (a CUDA graph a batch shape)' if card else 'eager (the CPU)'}")
     rng = np.random.default_rng(0)
     data = {"pixels": rng.uniform(-1, 1, (batch, vcfg.image_size, vcfg.image_size, 3))
             .astype(np.float32),
@@ -3852,7 +4078,13 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
             .astype(np.int32)}
     out: dict = {}
 
-    # (a) unsharded
+    def leaves_on(tree, dt=None):
+        """Trainable leaves on the device, copied from a CPU tree."""
+        return tree_map(lambda p: p.to(device, dt or p.dtype, copy=True).requires_grad_(True),
+                        tree)
+
+    # (a) unsharded, captured, then eager from the same initial state
+    before = torch.cuda.memory_allocated() if card else 0
     t = time.perf_counter()
     params, _ = tt.init_train_state(torch.Generator(device=device).manual_seed(0), cfg,
                                     device=device, dtype=dtype)
@@ -3860,83 +4092,150 @@ def phase_training(device, dtype=torch.float32, *, layers=None, vocab_size=None,
     n_params = sum(v.numel() for v in _flatten(init).values())
     say(f"  initialized {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t:.1f} s")
     tx = tt.make_optimizer(cfg)
-    opt = tt.init_opt_state(cfg, params)
-    if card:
-        torch.cuda.reset_peak_memory_stats()
+    runs = {}
     reset_launch_counts()
+    for route in ("captured", "eager"):
+        if route == "eager":
+            before = torch.cuda.memory_allocated() if card else 0
+            params = leaves_on(init)
+        opt = tt.init_opt_state(cfg, params)
+        if card:
+            torch.cuda.reset_peak_memory_stats()
 
-    def step(p, o, b):
-        return tt.train_step(p, o, b, cfg=cfg, tx=tx)
+        def step(p, o, b):
+            return tt.train_step(p, o, b, cfg=cfg, tx=tx)
 
-    losses, secs = [], []
-    for _ in range(steps):
-        params, opt, loss, s = timed_step(step, params, opt, data, card)
-        losses.append(loss)
-        secs.append(s)
-    s_step = statistics.median(secs[1:])
-    peak = torch.cuda.max_memory_allocated() / 2**30 if card else None
+        losses, secs = train_run(step if route == "captured" else eager_step(cfg), params,
+                                 opt, data, steps, card)
+        graphs = captured.graphs_of(opt)
+        s_step = statistics.median(secs[1:])
+        runs[route] = {"losses": losses, "step_s": secs, "s_per_step": s_step,
+                       "samples_per_s": batch / s_step, "peak_gib": step_memory(card, before),
+                       "params": params, "opt": opt, "step": step if route == "captured"
+                       else eager_step(cfg)}
+        if route == "captured" and card:
+            runs[route].update(capture_s=sum(graphs.capture_seconds.values()),
+                               pool_mib=pool_mib(graphs))
+    cap, eag = runs["captured"], runs["eager"]
+    out["captured_vs_eager"] = hold_train(f"unsharded {dtype}, {steps} steps", cap["losses"],
+                                          eag["losses"], cap["params"], eag["params"], card)
+    losses, s_step = cap["losses"], cap["s_per_step"]
     flops = train_step_flops(cfg, batch)
     bound = flops / peaks_for(label)["f32"] if card else None
-    out.update(losses=losses, step_s=secs, s_per_step=s_step, samples_per_s=batch / s_step,
-               peak_gib=peak, step_flops=flops, bound_s=bound)
-    say(f"  {steps} unsharded steps: losses {[round(x, 6) for x in losses]}; "
-        f"{s_step:.4f} s/step (median of steps 2-{steps}, host clock to a synchronize; "
-        f"first {secs[0]:.4f} s), {batch / s_step:.3f} samples/s, peak "
-        + (f"{peak:.3f} GiB allocated" if card else "not measured")
-        + f"; {flops / 1e12:.3f} TFLOP a step (products, from the shapes), bound at the f32 "
-        + (f"peak {bound:.4f} s ({bound / s_step:.3f} of the step)" if card else
-           "peak not measured") + f"; {label}")
+    out.update(losses=losses, step_s=cap["step_s"], s_per_step=s_step,
+               samples_per_s=batch / s_step, peak_gib=cap["peak_gib"], step_flops=flops,
+               bound_s=bound, capture_s=cap.get("capture_s"), pool_mib=cap.get("pool_mib"),
+               eager={k: eag[k] for k in ("losses", "step_s", "s_per_step", "samples_per_s",
+                                          "peak_gib")})
+    for route, r in runs.items():
+        first = (f"first {r['step_s'][0]:.4f} s, the capture {r['capture_s']:.2f} s of it; "
+                 if route == "captured" and card else f"first {r['step_s'][0]:.4f} s; ")
+        pool = ""
+        if route == "captured" and card:
+            mb = r["pool_mib"]
+            pool = "; the graph's pool reserves " + (
+                "not measured" if mb is None else f"{mb:.1f} MiB")
+        say(f"  {steps} unsharded steps, {route}: losses {[round(x, 6) for x in r['losses']]}; "
+            f"{r['s_per_step']:.4f} s/step (median of steps 2-{steps}, host clock to a "
+            f"synchronize; {first}{batch / r['s_per_step']:.3f} samples/s, peak "
+            + (f"{r['peak_gib']:.3f} GiB allocated above the other run's" if card
+               else "not measured") + pool
+            + f"; {flops / 1e12:.3f} TFLOP a step (products, from the shapes), bound at the "
+            + (f"f32 peak {bound:.4f} s ({bound / r['s_per_step']:.3f} of the step)" if card
+               else "f32 peak not measured") + f"; {label}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the training loss did not descend: {losses}")
     if timed and card:
-        bd = device_breakdown(lambda: step(params, opt, data))
-        out["breakdown"] = bd
-        say(f"  one step under torch.profiler: device busy {bd['busy_ms']:.3f} of "
-            f"{bd['wall_ms']:.3f} ms (idle share {bd['idle_share']:.3f}); by group: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bd["groups_ms"].items(),
-                                                      key=lambda kv: -kv[1])))
-    trained = tree_map(lambda p: p.detach().cpu(), params)
-    del params, opt
+        for route, r in runs.items():
+            bd = device_breakdown(lambda: r["step"](r["params"], r["opt"], data))
+            (out if route == "captured" else out["eager"])["breakdown"] = bd
+            say(f"  one {route} step under torch.profiler: device busy {bd['busy_ms']:.3f} of "
+                f"{bd['wall_ms']:.3f} ms (idle share {bd['idle_share']:.3f}); by group: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bd["groups_ms"].items(),
+                                                          key=lambda kv: -kv[1])))
+    trained = tree_map(lambda p: p.detach().cpu(), cap["params"])
+    cap_losses = cap["losses"]
+    del params, opt, runs, cap, eag
     free_device_memory()
 
-    # (b) two steps of each layout from the same initial state, two entries of one device
+    # (a, held) the captured step held a step at a time against torch's lazy
+    # AdamW, from the initial state: a new captured run (its own graph)
+    held = min(3, steps)
+    hold_params, lazy_params = leaves_on(init), leaves_on(init)
+    hold_opt = tt.init_opt_state(cfg, hold_params)
+    lazy_opt = tt.make_optimizer(cfg, capturable=False)(lazy_params)
+    out["lazy_adamw"] = hold_lazy_steps(
+        f"unsharded {dtype}, {held} steps",
+        lambda: float(tt.train_step(hold_params, hold_opt, data, cfg=cfg, tx=tx)[2]),
+        hold_params, hold_opt,
+        lambda: float(tt.eager_train_step(lazy_params, lazy_opt, data, cfg=cfg)[2]),
+        lazy_params, lazy_opt, held, card)
+    if card and out["lazy_adamw"]["losses"] != cap_losses[:held]:
+        raise AssertionError(f"a second captured run from the initial state: "
+                             f"{out['lazy_adamw']['losses']}, not {cap_losses[:held]}")
+    del hold_params, hold_opt, lazy_params, lazy_opt
+    free_device_memory()
+
+    # (a') bf16, never run on the card before this: 3 steps (fewer in a short
+    # rehearsal) captured against eager
+    low = {}
+    for route in ("captured", "eager"):
+        bparams = leaves_on(init, torch.bfloat16)
+        for k in ("logit_scale", "logit_bias"):  # f32 whatever the towers' dtype
+            bparams[k] = leaves_on(init[k])
+        bopt = tt.init_opt_state(cfg, bparams)
+        low[route] = train_run(
+            (lambda p, o, b: tt.train_step(p, o, b, cfg=cfg, tx=tx)) if route == "captured"
+            else eager_step(cfg), bparams, bopt, data, min(3, steps), card) + (bparams,)
+    out["bf16"] = hold_train(f"unsharded bf16, {min(3, steps)} steps", low["captured"][0],
+                             low["eager"][0], low["captured"][2], low["eager"][2], card)
+    out["bf16"]["step_s"] = low["captured"][1]
+    out["bf16"]["eager_step_s"] = low["eager"][1]
+    bl = low["captured"][0]
+    say(f"  bf16: losses {[round(x, 6) for x in bl]}, steps "
+        f"{[round(x, 4) for x in low['captured'][1]]} s captured, "
+        f"{[round(x, 4) for x in low['eager'][1]]} s eager (host clock); {label}")
+    if not np.isfinite(bl).all() or not bl[-1] < bl[0]:
+        raise AssertionError(f"the bf16 training loss did not descend: {bl}")
+    del low
+    free_device_memory()
+
+    # (b) two steps of each layout from the same initial state, two entries of one
+    # device, captured and eager
     mesh = get_mesh(devices=["cuda:0" if card else "cpu"] * 2)
     tp_mesh = get_mesh(devices=["cuda:0" if card else "cpu"] * 2, model_parallel=2)
-    tp_layers = min(TP_LAYERS, vcfg.layers)
-    tp_cfg, _ = so400m_train_config(layers=tp_layers, vocab_size=vocab_size,
-                                    tensor_parallel=True)
-    flat_tp = dataclasses.replace(tp_cfg, tensor_parallel=False)
-    tp_params = tt.train_params_from_numpy(
-        tree_map(lambda p: p.numpy(), cut_blocks(init, tp_layers)), device=device, dtype=dtype)
-    tp_opt, tp_tx, tp_ref = tt.init_opt_state(flat_tp, tp_params), tt.make_optimizer(flat_tp), []
-    for _ in range(2):
-        tp_params, tp_opt, loss = tt.train_step(tp_params, tp_opt, data, cfg=flat_tp, tx=tp_tx)
-        tp_ref.append(float(loss))
-    del tp_params, tp_opt
     variants = {
-        "dp": (cfg, mesh, init, losses[:2]),
-        "ring": (dataclasses.replace(cfg, ring_loss=True), mesh, init, losses[:2]),
-        "fsdp": (dataclasses.replace(cfg, fsdp=True), mesh, init, losses[:2]),
-        "tp": (tp_cfg, tp_mesh, cut_blocks(init, tp_layers), tp_ref),
+        "dp": (cfg, mesh),
+        "ring": (dataclasses.replace(cfg, ring_loss=True), mesh),
+        "fsdp": (dataclasses.replace(cfg, fsdp=True), mesh),
+        "tp": (dataclasses.replace(cfg, tensor_parallel=True), tp_mesh),
     }
     out["variants"] = {}
-    for name, (var_cfg, vmesh, tree, ref) in variants.items():
-        start = tree_map(lambda p: p.to(device), tree)
-        vstep, placed, vopt = tt.make_sharded_train_step(var_cfg, vmesh, start)
-        del start
-        placed, vopt, loss, s = timed_step(vstep, placed, vopt, data, card)
-        _, _, loss2, s2 = timed_step(vstep, placed, vopt, data, card)
-        rel = [abs(got - want) / abs(want) for got, want in zip((loss, loss2), ref)]
-        out["variants"][name] = {"losses": [loss, loss2], "s": s, "s2": s2, "rel": rel}
-        cut = f" (cut to {tp_layers} layers a tower, against an unsharded run of that tree: " \
-              f"{ref[0]:.6f}, {ref[1]:.6f})" if name == "tp" else ""
+    ref = losses[:2]
+    for name, (var_cfg, vmesh) in variants.items():
+        got = {}
+        for route in ("captured", "eager"):
+            start = tree_map(lambda p: p.to(device), init)
+            vstep, placed, vopt = tt.make_sharded_train_step(var_cfg, vmesh, start)
+            del start
+            run = vstep if route == "captured" else eager_step(var_cfg, vmesh)
+            got[route] = train_run(run, placed, vopt, data, 2, card) + (placed,)
+            del vstep, vopt
+        (loss, loss2), (s, s2), placed = got["captured"]
+        rel = [abs(g - w) / abs(w) for g, w in zip((loss, loss2), ref)]
+        held = hold_train(f"{name} over {vmesh.shape}", [loss, loss2], got["eager"][0], placed,
+                          got["eager"][2], card)
+        out["variants"][name] = {"losses": [loss, loss2], "s": s, "s2": s2, "rel": rel,
+                                 "eager_s": got["eager"][1], "captured_vs_eager": held}
         say(f"  {name} over {vmesh.shape}: losses {loss:.6f}, {loss2:.6f}, relative "
             f"{rel[0]:.2e} and {rel[1]:.2e} of the unsharded run's first two (the second after "
-            f"one update; need <= {TRAIN_RTOL}){cut}; steps {s:.4f} s, {s2:.4f} s; {label}")
+            f"one update; need <= {TRAIN_RTOL}); captured steps {s:.4f} s (the capture "
+            f"included), {s2:.4f} s; eager {got['eager'][1][0]:.4f} s, {got['eager'][1][1]:.4f} "
+            f"s; {label}")
         if not max(rel) <= TRAIN_RTOL:
             raise AssertionError(f"the {name} steps' losses {[loss, loss2]} are not the "
                                  f"unsharded {ref}")
-        del vstep, placed, vopt
+        del got, placed
         free_device_memory()
     out["launches"] = launch_counts()
     if set(out["launches"].values()) != {0}:
@@ -4176,11 +4475,13 @@ def preprocess_ms(emb, arrays, run=None) -> float:
     return statistics.median(times[1:]) * 1e3
 
 
-def staging_ms(pp, arrays, calls: int = 5) -> float:
+def staging_ms(pp, arrays, calls: int = 5, after=None) -> float:
     """The preprocess's host half alone (``Preprocessor._stage``, under the
-    lock ``run`` holds: each image written once into its shape's reused
-    staging buffer, the matrices looked up), host clock, median of
-    ``calls`` after one."""
+    lock ``run`` holds: the rows past the batch zeroed where an earlier call
+    filled them, each image written once into its shape's reused staging
+    buffer, the matrices looked up), host clock, median of ``calls`` after
+    one; with ``after`` (a batch of the same bucket and padded size) each
+    timed call follows an untimed one of it."""
     from clip_embedder_tpu_torch.ops.preprocess import bucket_batch
 
     bb, (ph, pw) = bucket_batch(len(arrays)), pp.padded_size(arrays)
@@ -4188,6 +4489,8 @@ def staging_ms(pp, arrays, calls: int = 5) -> float:
     dev = next(k[0] for k in pp._staging if k[1:] == (bb, ph, pw))  # the route's key
     with torch.inference_mode(), pp._lock:
         for _ in range(calls + 1):
+            if after is not None:
+                pp._stage(after, dev, bb, ph, pw)
             t = time.perf_counter()
             pp._stage(arrays, dev, bb, ph, pw)
             times.append(time.perf_counter() - t)
@@ -4209,8 +4512,10 @@ def pool_mib(graphs) -> float | None:
 def hold_preprocess(what, emb, batches) -> dict:
     """The captured preprocess (``Preprocessor.run``: reused staging, the
     resize replayed) against its plain route (``Preprocessor.eager``:
-    zero-filled, eager), ``torch.equal`` on the real rows, on ``batches``
-    (two of different (Hp, Wp)) in turn and back; then on the card the
+    zero-filled, eager), ``torch.equal`` on every row of the bucket, the
+    padded ones too, on ``batches`` (two of different (Hp, Wp)) in turn and
+    back, then the first with fewer images (its bucket's stale rows); then
+    on the card the
     split of the first batch's preprocess (host staging, the copy, the
     replay), the route against the plain one, the graphs and their
     pool's reserved MiB."""
@@ -4218,12 +4523,16 @@ def hold_preprocess(what, emb, batches) -> dict:
     from clip_embedder_tpu_torch.utils import captured
 
     pp = emb.preprocessor
-    for xs in (*batches, *batches):
+    fewer = batches[0][:bucket_batch(len(batches[0])) // 2 + 1]  # the same bucket, fewer rows
+    if pp.padded_size(fewer) != pp.padded_size(batches[0]):
+        fewer = [max(batches[0], key=lambda a: a.shape[0] * a.shape[1])] + fewer[1:]
+    for xs in (*batches, *batches, fewer):
         with torch.inference_mode():
-            got, ref = pp(xs)[:len(xs)], pp.eager(xs)[:len(xs)]
+            got, ref = pp(xs), pp.eager(xs)
         equal = bool(torch.equal(got.cpu(), ref.cpu()))
-        say(f"  {what} preprocess, batch {len(xs)} padded to {pp.padded_size(xs)}: captured "
-            f"against the plain route equal (torch.equal) {equal} {'ok' if equal else 'FAIL'}")
+        say(f"  {what} preprocess, batch {len(xs)} (bucket {got.shape[0]}) padded to "
+            f"{pp.padded_size(xs)}: captured against the plain route, every row, equal "
+            f"(torch.equal) {equal} {'ok' if equal else 'FAIL'}")
         if not equal:
             raise AssertionError(f"{what}: the captured preprocess differs from the plain one")
     if emb.device.type != "cuda":
@@ -4239,14 +4548,18 @@ def hold_preprocess(what, emb, batches) -> dict:
             entry.images.copy_(entry.host, non_blocking=True)
             entry.idx.copy_(entry.host_idx, non_blocking=True)
 
-    r = {"staging_ms": staging_ms(pp, arrays), "copy_ms": cuda_ms(copy, iters=10, warmup=1),
+    r = {"staging_ms": staging_ms(pp, arrays),
+         "fewer_staging_ms": staging_ms(pp, fewer, after=arrays),
+         "copy_ms": cuda_ms(copy, iters=10, warmup=1),
          "replay_ms": cuda_ms(g.graph.replay, iters=10, warmup=1),
          "ms": preprocess_ms(emb, arrays), "plain_ms": preprocess_ms(emb, arrays, pp.eager),
          "graphs": len(graphs.graphs), "pool_mib": pool_mib(graphs)}
     pool = "not measured" if r["pool_mib"] is None else f"{r['pool_mib']:.1f} MiB"
     say(f"  {what} preprocess at batch {len(arrays)} ({[bb, *padded, 3]} u8): "
         f"{r['ms']:.3f} ms captured against {r['plain_ms']:.3f} ms plain (host clock to a "
-        f"synchronize, median of 5); host staging {r['staging_ms']:.3f} ms (host clock), "
+        f"synchronize, median of 5); host staging {r['staging_ms']:.3f} ms (host clock; "
+        f"{r['fewer_staging_ms']:.3f} ms for {len(fewer)} images after {len(arrays)}, which "
+        f"zeroes the {bb - len(fewer)} rows past them), "
         f"the copy {r['copy_ms']:.3f} ms, the replay {r['replay_ms']:.3f} ms (CUDA events, "
         f"median of 10); {r['graphs']} preprocess graphs, their pool reserves {pool}")
     return r
@@ -4288,14 +4601,18 @@ def hold_preprocess_keys(what, emb, arrays, cropped) -> dict:
         graphs = captured.graphs_of(pp, create=True).graphs
         times = []
         for xs in batches:
-            had = {id(g) for g in graphs.values()}
+            # the graphs themselves, not their ids: a graph the call drops
+            # (its shape evicted) frees an id that its new capture may take
+            had = list(graphs.values())
             t = time.perf_counter()
             with torch.inference_mode():
                 run(xs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             if new is not None:
-                new += [g.seconds for g in graphs.values() if id(g) not in had]
+                new += [g.seconds for g in graphs.values()
+                        if not any(g is h for h in had)]
+            del had
         return statistics.fmean(times) * 1e3
 
     r = {"keys": len(keys)}
@@ -4496,10 +4813,12 @@ def phase_captured(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None
                     g = next(g for key, g in graphs.graphs.items()
                              if bucket_of(key) == len(xs))
                     r["replay_ms"] = cuda_ms(g.graph.replay, iters=10, warmup=1)
-                    r["replay_busy_ms"] = device_breakdown(g.graph.replay)["busy_ms"]
+                    bd = device_breakdown(g.graph.replay)
+                    r["replay_busy_ms"] = (bd["busy_ms"] if bd["source"] == "torch.profiler"
+                                           else None)
                     say(f"  {what}: the batch-{len(xs)} graph's replay alone: CUDA events "
                         f"{r['replay_ms']:.3f} ms (back to back, median of 10), the "
-                        f"profiler's busy {r['replay_busy_ms']:.3f} ms")
+                        f"profiler's busy {fmt_ms(r['replay_busy_ms'], 3)}")
             del clip
             free_device_memory()
     tmp.cleanup()
@@ -4523,7 +4842,8 @@ def captured_summary(out) -> str:
                    if label.rsplit(" ", 1)[0] in MEMORY_MODELS else "")
             p = r.get("preprocess")
             pre = (f", preprocess {p['ms']:.2f} ms against {p['plain_ms']:.2f} plain (staging "
-                   f"{p['staging_ms']:.2f}, copy {p['copy_ms']:.2f}, replay "
+                   f"{p['staging_ms']:.2f}, {p['fewer_staging_ms']:.2f} with rows zeroed, copy "
+                   f"{p['copy_ms']:.2f}, replay "
                    f"{p['replay_ms']:.2f})" if p else "")
             ks = r.get("preprocess_keys")
             if ks:
@@ -4534,7 +4854,8 @@ def captured_summary(out) -> str:
                 f"{label} {kind}: {c[rate[0]]:.2f} against {e[rate[0]]:.2f} {rate[1]}{one}, idle "
                 f"share {c['breakdown']['idle_share']:.3f} against "
                 f"{e['breakdown']['idle_share']:.3f}{pre}, replay {r['replay_ms']:.2f} ms "
-                f"(profiler busy {r['replay_busy_ms']:.2f}), {r['graphs']} graphs captured in "
+                f"(profiler busy {fmt_ms(r['replay_busy_ms'], 2)}), {r['graphs']} graphs "
+                f"captured in "
                 f"{sum(r['capture_s'].values()):.2f} s{mem}")
     return "; ".join(rows)
 
@@ -4744,21 +5065,37 @@ def main(argv) -> int:
     say(f"phase 12 (two shards of one card): DP bf16 {dp['images_per_s']:.2f} images/s, p50 "
         f"{dp['p50_ms']:.2f} ms against unsharded {dp['unsharded']['images_per_s']:.2f}, p50 "
         f"{dp['unsharded']['p50_ms']:.2f} ms; DP int8_all "
-        f"{sharded['dp_int8_all']['images_per_s']:.2f}; TP (eager) "
-        f"{sharded['tp']['images_per_s']:.2f}; EmbedPipeline "
+        f"{sharded['dp_int8_all']['images_per_s']:.2f}; TP captured "
+        f"{sharded['tp']['images_per_s']:.2f} against eager "
+        f"{sharded['tp']['eager']['images_per_s']:.2f} images/s, p50 "
+        f"{sharded['tp']['p50_ms']:.2f} against {sharded['tp']['eager']['p50_ms']:.2f} ms, idle "
+        f"share {sharded['tp']['breakdown']['idle_share']:.3f} against "
+        f"{sharded['tp']['eager']['breakdown']['idle_share']:.3f}, capture "
+        f"{sharded['tp']['capture_s']:.2f} s; EmbedPipeline "
         f"{sharded['pipeline']['images_per_s']:.2f} against a loop "
         f"{sharded['pipeline']['loop_images_per_s']:.2f} images/s; CorpusIndex build "
         f"{sharded['search']['build_s']:.2f} s, search {sharded['search']['search_ms']:.3f} ms; "
         f"mesh server {srv['clients']} clients {srv['images_per_s']:.2f} images/s in "
         f"{srv['windows']} micro-batches, p50 {srv['p50_ms']} ms; {card}")
-    var = training["variants"]
-    say(f"phase 13 (ViT-SO400M-16-SigLIP2-384 training, f32, batch 16, remat): "
-        f"{training['s_per_step']:.4f} s/step, {training['samples_per_s']:.3f} samples/s, peak "
-        f"{training['peak_gib']:.3f} GiB; second step of DP {var['dp']['s2']:.4f} s, ring "
-        f"{var['ring']['s2']:.4f} s, FSDP {var['fsdp']['s2']:.4f} s, TP ({TP_LAYERS} layers) "
-        f"{var['tp']['s2']:.4f} s; idle share {training['breakdown']['idle_share']:.3f}; "
-        f"export {training['handoff']['export_s']:.2f} s; the phase took "
-        f"{training['phase_s']:.1f} s; {card}")
+    var, te = training["variants"], training["eager"]
+    pool = training["pool_mib"]
+    pool = "not measured" if pool is None else f"{pool:.1f} MiB"
+    say(f"phase 13 (ViT-SO400M-16-SigLIP2-384 training, f32, batch 16, remat; captured against "
+        f"eager): {training['s_per_step']:.4f} against {te['s_per_step']:.4f} s/step, "
+        f"{training['samples_per_s']:.3f} against {te['samples_per_s']:.3f} samples/s, idle "
+        f"share {training['breakdown']['idle_share']:.3f} against "
+        f"{te['breakdown']['idle_share']:.3f}, peak {training['peak_gib']:.3f} against "
+        f"{te['peak_gib']:.3f} GiB allocated, the graph's pool {pool}, capture "
+        f"{training['capture_s']:.2f} s; bitwise equal: losses "
+        f"{training['captured_vs_eager']['losses_equal']}, leaves "
+        f"{training['captured_vs_eager']['leaves_equal']}; second step of DP "
+        f"{var['dp']['s2']:.4f} s (eager {var['dp']['eager_s'][1]:.4f}), ring "
+        f"{var['ring']['s2']:.4f} s ({var['ring']['eager_s'][1]:.4f}), FSDP "
+        f"{var['fsdp']['s2']:.4f} s ({var['fsdp']['eager_s'][1]:.4f}), TP "
+        f"{var['tp']['s2']:.4f} s ({var['tp']['eager_s'][1]:.4f}); bf16 losses "
+        f"{[round(x, 4) for x in training['bf16']['losses']]}; export "
+        f"{training['handoff']['export_s']:.2f} s; the phase took {training['phase_s']:.1f} s; "
+        f"{card}")
     say(f"phase 14 (captured against eager, batch 32, host clock): "
         f"{captured_summary(captured_fw)}; {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

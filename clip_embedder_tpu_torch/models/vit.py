@@ -21,7 +21,7 @@ Patch embedding is one [B, N, P²·3] × [P²·3, D] matmul (patch rows in
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
+from functools import lru_cache, partial
 from typing import Mapping
 
 import torch
@@ -275,10 +275,25 @@ def run_blocks(blocks, x: torch.Tensor, *, remat: bool, **kw) -> torch.Tensor:
     package) and only its input is kept."""
     for blk in blocks:
         if remat:
-            x = checkpoint(partial(blk, **kw), x, use_reentrant=False)
+            # no RNG runs in a block, so none is stashed for the recompute:
+            # reading the CUDA generator's state is no op a CUDA graph holds
+            # (the train step is captured)
+            x = checkpoint(partial(blk, **kw), x, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = blk(x, **kw)
     return x
+
+
+@lru_cache(maxsize=8)
+def _rope_tables(cfg: ViTCfg, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Made outside inference mode whatever the caller's: the tables are
+    shared by every tower of the config and device, and a trainable tower's
+    backward saves them (autograd refuses to save an inference tensor)."""
+    ang = axial_rope_table(cfg.grid, cfg.head_dim, cfg.rope_temperature, order="xy",
+                           prefix=cfg.prefix_tokens)
+    with torch.inference_mode(False):
+        return tuple(t.to(device) for t in head_tiled_tables(ang, cfg.heads))
 
 
 class ViT(ParamTree):
@@ -295,21 +310,17 @@ class ViT(ParamTree):
                                        activation=cfg.activation, ln_eps=cfg.ln_eps,
                                        trainable=trainable)
         self.act = ACTIVATIONS[cfg.activation]
-        self._rope: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def rope_tables(self, device: torch.device):
         """PE-Core's (sin, cos) [S, H·D] f32 tables on ``device`` (Meta's
         ``compute_axial_cis``: x bands first, raw integer coordinates, identity
         rows for the prefix tokens), built once per device; None without
-        ``rope_2d``."""
-        cfg = self.cfg
-        if not cfg.rope_2d:
+        ``rope_2d``. They are made once per config and device, beside the
+        towers: a train step builds its towers anew (and a captured step
+        inside its graph, where no copy from the host can run)."""
+        if not self.cfg.rope_2d:
             return None
-        if device not in self._rope:
-            ang = axial_rope_table(cfg.grid, cfg.head_dim, cfg.rope_temperature,
-                                   order="xy", prefix=cfg.prefix_tokens)
-            self._rope[device] = tuple(t.to(device) for t in head_tiled_tables(ang, cfg.heads))
-        return self._rope[device]
+        return _rope_tables(self.cfg, device)
 
     def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
         """timm AttentionPoolLatent: a learned probe cross-attends over the

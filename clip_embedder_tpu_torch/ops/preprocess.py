@@ -15,10 +15,12 @@ cost about two u8 pixel steps after the /std and break Pillow parity, so
 the embedders turn TF32 off on the card (``vision.resolve_device``).
 
 Variable source sizes are padded into 128-multiple buckets; the weight
-matrices are zero beyond each image's true extent, so the padding is never
-zeroed (``Preprocessor``'s staging buffers are reused as they are). On the
-card the resize of each padded shape is captured once as a CUDA graph and
-replayed (``utils.captured``), as the JAX package jits it per shape.
+matrices are zero beyond each image's true extent, so the pixels past an
+image are never zeroed (``Preprocessor``'s staging buffers are reused as
+they are); only the rows past the batch are, so that a padded row is the
+normalised zero image, as the JAX package's is. On the card the resize of
+each padded shape is captured once as a CUDA graph and replayed
+(``utils.captured``), as the JAX package jits it per shape.
 """
 
 from __future__ import annotations
@@ -228,20 +230,35 @@ class _Staging:
     uint8 batch and the [B] slot index on the host (page-locked on the
     card) and on the device (on the CPU the same tensors), the resize
     matrices' device buffers by U (``matrices``), and the event of the last
-    copy out of the host buffers (``copied``; None on the CPU). Nothing is
-    zeroed between calls: a padded pixel meets only zero weights
-    (``resize_weights`` gives every column at or past the image's extent
-    exactly 0), and a padded row reads slot 0 and is sliced off."""
+    copy out of the host buffers (``copied``; None on the CPU).
+
+    The pixels of a real row past its image are never zeroed: they meet
+    only zero weights (``resize_weights`` gives every column at or past the
+    image's extent exactly 0), and uint8 is always finite. A padded row
+    (past the batch) must be the zero image, as the JAX package's zero-filled
+    staging makes it, so that it resizes to (0 - mean) / std: ``rows`` is
+    the number of leading host rows that may hold pixels (the whole bucket
+    while the buffer is as ``torch.empty`` left it), and ``zero_past``
+    clears those past a call's images. A padded row reads slot 0."""
 
     def __init__(self, device: torch.device, bb: int, ph: int, pw: int, image_size: int):
         card = device.type == "cuda"
         self.device, self.image_size = device, image_size
         self.host = torch.empty((bb, ph, pw, 3), dtype=torch.uint8, pin_memory=card)
+        self.rows = bb
         self.host_idx = torch.zeros((bb,), dtype=torch.int64, pin_memory=card)
         self.images = torch.empty_like(self.host, device=device) if card else self.host
         self.idx = torch.zeros((bb,), dtype=torch.int64, device=device) if card else self.host_idx
         self.copied = torch.cuda.Event() if card else None
         self.matrices: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def zero_past(self, n: int) -> None:
+        """Zero the host rows from ``n`` up to ``rows`` (those a call of
+        ``n`` images leaves padded that may hold pixels); ``rows`` is then
+        ``n``, which the call's images fill."""
+        if n < self.rows:
+            self.host[n:self.rows].zero_()
+        self.rows = n
 
     def matrices_for(self, u: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The [U, S, Hp] and [U, S, Wp] f32 matrix buffers (zero at first,
@@ -264,7 +281,10 @@ class Preprocessor:
     buffers of its (device, batch bucket, Hp, Wp) shape (``_Staging``: on
     the card page-locked, copied to the device ``non_blocking``; at most
     ``_STAGING_MAX`` shapes and ``_STAGING_BYTES`` bytes of host batch
-    kept, least recently used first out), assembles the unique resize
+    kept, least recently used first out; the rows past the batch zeroed
+    where an earlier call, or ``torch.empty``, left them holding bytes, so
+    that each padded row is the normalised zero image, as the JAX package's
+    is), assembles the unique resize
     matrices on the device from a device LRU of them (``_device_weights``,
     at most ``_DEVICE_WEIGHTS_BYTES`` a preprocessor: one pair at Hp = 768,
     Wp = 1024 is 2.75 MB), and resizes: on the card by replaying the
@@ -419,8 +439,9 @@ class Preprocessor:
 
     def __call__(self, arrays: list[np.ndarray]) -> torch.Tensor:
         """list of [H, W, 3] uint8 arrays → [B, S, S, 3] (or [B, 3, S, S]
-        for layout="nchw") preprocessed batch (padded to the batch bucket;
-        caller slices to len(arrays))."""
+        for layout="nchw") preprocessed batch, padded to the batch bucket:
+        each padded row the normalised zero image, as the JAX package's
+        (the caller slices to len(arrays))."""
         return self.run(arrays)
 
     def run(self, arrays: list[np.ndarray], *, device: torch.device | str | None = None,
@@ -429,7 +450,8 @@ class Preprocessor:
         """``__call__`` on ``device`` (default: the preprocessor's) with the
         batch bucket and (Hp, Wp) given or taken from the batch: the staged
         route (class docstring). A mesh shard passes the whole batch's
-        (Hp, Wp) and its own rows, which may be none."""
+        (Hp, Wp) and its own rows, which may be none: then every row is
+        the normalised zero image."""
         if not arrays and batch_bucket is None:
             raise ImageError("Empty batch")
         device = self.device if device is None else torch.device(device)
@@ -467,13 +489,15 @@ class Preprocessor:
                     del graphs.graphs[k]
 
     def _stage(self, arrays, device, bb, ph, pw) -> tuple[_Staging, list]:
-        """The host half of a call: each image written once into the shape's
-        host buffer (after the last copy out of it has finished), its slot
-        index beside it, and the unique matrices' device pairs. The caller
-        holds ``_lock``."""
+        """The host half of a call: the rows past the batch zeroed where
+        they may hold pixels (``_Staging.zero_past``) and each image written
+        once into the shape's host buffer (after the last copy out of it has
+        finished), its slot index beside it, and the unique matrices' device
+        pairs. The caller holds ``_lock``."""
         entry = self._staging_for(device, bb, ph, pw)
         if entry.copied is not None:
             entry.copied.synchronize()
+        entry.zero_past(len(arrays))
         with warnings.catch_warnings():
             # decoded images are read-only arrays; their tensors are only read
             warnings.filterwarnings("ignore", "The given NumPy array is not writable")

@@ -18,8 +18,12 @@ to DP, as in the JAX package) each mesh row runs the tower's
 tensor-parallel form over its model ranks (``parallel.tensor_parallel``),
 on the eager attention core: a kernel ``attn_impl`` is overridden to
 ``"eager"`` with a one-time warning, as the JAX package overrides Pallas to
-XLA. Quantized embedders refuse TP. The tensor-parallel forward stays
-eager: its per-rank sublayers and cross-device sums are no one graph.
+XLA. Quantized embedders refuse TP. On the card a row whose model ranks all
+lie on one device (two ``cuda:0`` entries) replays its ``TPViT``'s captured
+graph, one a shard shape, as the JAX package jits its tensor-parallel
+forward; a row over several distinct cards runs its forward eagerly, a
+route chosen by the layout (``captured.several_devices``): PyTorch's graph
+capture does not span devices.
 """
 
 from __future__ import annotations
@@ -104,7 +108,7 @@ class ShardedVisionEmbedder:
             for i, (dev, tower) in enumerate(zip(self.devices, self.towers)):
                 pixels = pp.run(arrays[i * per:(i + 1) * per], device=dev, batch_bucket=per,
                                 padded=padded)
-                if self.tensor_parallel:
+                if self.tensor_parallel and captured.several_devices(self.mesh.devices[i]):
                     outs.append(tower(pixels, attn_impl=self.attn_impl, channels_first=True))
                 else:
                     outs.append(captured.forward(tower, pixels, attn_impl=self.attn_impl,

@@ -212,7 +212,10 @@ class TPViT(ViT):
     ``tree`` may hold ``sharding.Sharded`` leaves, rank r reading its part.
     The forward reads the tree's own tensors (``ParamTree(trainable=True)``)
     or autograd-tracked moves of them, so a backward pass reaches a training
-    tree's leaves; a serving tree's tensors require no grad."""
+    tree's leaves; a serving tree's tensors require no grad. It reads no
+    tensor on the host and copies none from it once its rope tables are
+    made, so a row on one card is one CUDA graph (``utils.captured``:
+    ``parallel.embed`` and the train step capture it)."""
 
     def __init__(self, cfg, tree: dict, devices):
         check_ported(cfg)
@@ -241,7 +244,9 @@ class TPViT(ViT):
 
     def rope_tables(self, device: torch.device):
         """Per rank, the columns of its heads of PE-Core's head-tiled
-        [S, H·D] tables, on the rank's device; None without rope."""
+        [S, H·D] tables, on the rank's device; None without rope. Made at
+        the first call, which on the card is a graph's eager warm-up: a
+        captured forward reads them where they lie."""
         full = super().rope_tables(device)
         if full is None:
             return None

@@ -30,6 +30,16 @@ GSPMD's all-reduce over the data axis does:
 A ``Mesh`` is a grid of devices one process owns (entries may repeat), so
 every row runs in this process: on a mesh of two entries of one card the
 layouts price their overhead, not a gain.
+
+On the card the step is compiled, as the JAX package jits its step with
+``donate_argnums=(0, 1)``: ``train_step`` (and the step that
+``make_sharded_train_step`` returns) replays one CUDA graph per batch
+shape, which holds the forward, the backward and the AdamW update
+(``utils.captured``; the optimizer owns the graphs). That holds with no
+mesh and on a mesh whose entries are all one card (two ``cuda:0`` entries:
+DP, the ring loss, FSDP, TP). A mesh over several distinct cards runs the
+step eagerly (``eager_train_step``), a route chosen by the layout:
+PyTorch's graph capture does not span devices. The CPU runs it eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from .models.vit import ViT, ViTCfg
 from .parallel.mesh import DATA_AXIS, Mesh, shard_batch
 from .parallel.sharding import Sharded, tp_param_specs
 from .parallel.tensor_parallel import TPTextTransformer, TPViT
+from .utils import captured
 from .weights import _to_numpy, params_from_numpy, save_pytree, tree_map, validate_tower_pytree
 
 BETAS, EPS = (0.9, 0.999), 1e-8  # optax.adamw's defaults
@@ -159,11 +170,36 @@ def _decay_mask(params):
     return tree_map(lambda p: (p.dims() if isinstance(p, Sharded) else p.dim()) >= 2, params)
 
 
-def make_optimizer(cfg: TrainConfig) -> Callable[[dict], torch.optim.AdamW]:
+def _parts(leaf) -> list[torch.Tensor]:
+    """The tensors an optimizer steps for one leaf: a ``Sharded`` leaf's
+    parts, else the leaf."""
+    return leaf.parts if isinstance(leaf, Sharded) else [leaf]
+
+
+def _stepped(params) -> list[torch.Tensor]:
+    """The tensors an optimizer over ``params`` steps, in the tree's order."""
+    leaves = []
+    tree_map(lambda t: leaves.extend(_parts(t)), params)
+    return leaves
+
+
+def make_optimizer(cfg: TrainConfig, *,
+                   capturable: bool | None = None) -> Callable[[dict], torch.optim.AdamW]:
     """``optax.adamw(lr, weight_decay=wd, mask=_decay_mask)`` in torch: a
     function of a param tree that returns ``torch.optim.AdamW`` over its
     leaves in two groups, decayed and not (b1 0.9, b2 0.999, eps 1e-8,
-    decoupled decay: p − lr·(m̂/(√v̂ + ε) + wd·p))."""
+    decoupled decay: p − lr·(m̂/(√v̂ + ε) + wd·p)).
+
+    On the card it is ``capturable`` (its step count on the device, so that
+    a CUDA graph can hold the update) and its state is made at once
+    (``init_adamw_state``), so that a captured step's first replay is step
+    1, as the JAX step's first call is; the card's eager step takes the
+    same optimizer, so that the two routes compare bit for bit. The CPU
+    keeps the lazy one (``capturable`` is for accelerators).
+    ``capturable=False`` makes the lazy one on the card too: the plain
+    AdamW the captured step is held to. A state loaded into the optimizer
+    takes its flavour (``_follow_params``), so a checkpoint moves between
+    the CPU and the card."""
     def tx(params) -> torch.optim.AdamW:
         leaves, mask = [], []
         tree_map(leaves.append, params)
@@ -171,12 +207,56 @@ def make_optimizer(cfg: TrainConfig) -> Callable[[dict], torch.optim.AdamW]:
         groups = [{"params": [], "weight_decay": cfg.weight_decay},
                   {"params": [], "weight_decay": 0.0}]
         for leaf, decay in zip(leaves, mask):
-            parts = leaf.parts if isinstance(leaf, Sharded) else [leaf]
-            groups[0 if decay else 1]["params"].extend(parts)
-        return torch.optim.AdamW([g for g in groups if g["params"]], lr=cfg.learning_rate,
-                                 betas=BETAS, eps=EPS)
+            groups[0 if decay else 1]["params"].extend(_parts(leaf))
+        card = all(t.is_cuda for t in _stepped(params))
+        opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=cfg.learning_rate,
+                                betas=BETAS, eps=EPS,
+                                capturable=card if capturable is None else capturable)
+        opt.register_load_state_dict_post_hook(_follow_params)
+        if opt.defaults["capturable"]:
+            init_adamw_state(opt)
+        return opt
 
     return tx
+
+
+def _follow_params(opt: torch.optim.AdamW) -> None:
+    """After ``load_state_dict``: the loaded groups' ``capturable``, saved
+    with the state by the saving device's optimizer, is set back to this
+    optimizer's own, and each step count moved to match (on the params'
+    device where capturable, else on the CPU). So a state saved on the card
+    resumes on the CPU, and one saved on the CPU in the card's captured
+    step; a capturable state saved before its first step is made here, as
+    ``make_optimizer`` makes it."""
+    capturable = opt.defaults["capturable"]
+    for group in opt.param_groups:
+        group["capturable"] = capturable
+        for p in group["params"]:
+            state = opt.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(p.device if capturable else "cpu")
+    if capturable:
+        init_adamw_state(opt)
+
+
+def init_adamw_state(opt: torch.optim.AdamW) -> None:
+    """Make each parameter's AdamW state now, as the first ``step()`` would
+    make it lazily (``torch.optim.Adam._init_group``): the step count 0 (on
+    the parameter's device where the optimizer is ``capturable``, else on
+    the CPU) and both moments zero. A captured step reads and writes these
+    tensors in place; made inside the capture, they would live in the
+    graph's pool."""
+    scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+    for group in opt.param_groups:
+        for p in group["params"]:
+            state = opt.state[p]
+            if state:
+                continue
+            state["step"] = (torch.zeros((), dtype=scalar, device=p.device)
+                             if group["capturable"] or group["fused"]
+                             else torch.tensor(0.0, dtype=scalar))
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def init_opt_state(cfg: TrainConfig, params) -> torch.optim.AdamW:
@@ -273,7 +353,10 @@ def loss_fn(params, batch, cfg: TrainConfig, mesh: Mesh | None = None) -> torch.
     """The contrastive loss of ``batch`` ({"pixels": [B, H, W, 3] f32,
     "input_ids": [B, L] int}, numpy or tensors). Without a mesh the batch
     runs on the params' device; with one, each data row runs its shard
-    (``make_sharded_train_step``'s layouts)."""
+    (``make_sharded_train_step``'s layouts). A batch already on the first
+    device is read where it lies, with no copy: the captured step's static
+    buffers, which a call fills before the replay (a copy from the host is
+    no op a CUDA graph holds)."""
     if cfg.ring_loss:
         if cfg.loss != "siglip":
             raise ValueError("ring_loss requires loss='siglip' (softmax CE needs the global "
@@ -308,14 +391,96 @@ def train_step(params, opt_state, batch, *, cfg: TrainConfig, tx, mesh: Mesh | N
     """One step: loss, backward, AdamW. The leaves are stepped in place (the
     JAX step donates its params); ``opt_state`` None starts ``tx(params)``.
     Returns ``(params, opt_state, loss)``, the loss a detached 0-d
-    tensor."""
+    tensor.
+
+    On the card, with no mesh or a mesh of one card, the step replays its
+    CUDA graph for the batch's shapes and dtypes (``_captured_step``);
+    otherwise it is ``eager_train_step`` (the module docstring)."""
     if opt_state is None:
         opt_state = tx(params)
+    devices = [params["logit_scale"].device] if mesh is None else list(mesh.devices.flat)
+    if devices[0].type != "cuda" or captured.several_devices(devices):
+        return eager_train_step(params, opt_state, batch, cfg=cfg, mesh=mesh)
+    return params, opt_state, _captured_step(params, opt_state, batch, cfg, mesh)
+
+
+def eager_train_step(params, opt_state, batch, *, cfg: TrainConfig, mesh: Mesh | None = None):
+    """``train_step`` run eagerly, op by op: the route of the CPU and of a
+    mesh over several cards, and the plain route the captured step is held
+    to. ``opt_state`` is the optimizer (``tx(params)``)."""
     loss = loss_fn(params, batch, cfg, mesh)
     loss.backward()
     opt_state.step()
     opt_state.zero_grad(set_to_none=True)
     return params, opt_state, loss.detach()
+
+
+def _state_tensors(params, opt: torch.optim.AdamW) -> list[torch.Tensor]:
+    return [t for p in _stepped(params) for t in opt.state[p].values()]
+
+
+def _captured_step(params, opt, batch, cfg: TrainConfig, mesh: Mesh | None) -> torch.Tensor:
+    """The step replayed on the card (``train_step``): the batch copied into
+    the graph's static buffers on the first device, the graph of its key
+    (the config, the mesh's layout, the batch's shapes and dtypes; captured
+    at its first call) replayed, a copy of the loss returned. ``params``
+    must be the tree ``opt`` steps: a tree reloaded by ``load_checkpoint``
+    takes an optimizer (and so a step) of its own. A graph is captured
+    anew where the optimizer's state tensors were replaced
+    (``load_state_dict``)."""
+    if {id(t) for t in _stepped(params)} != {id(p) for g in opt.param_groups
+                                              for p in g["params"]}:
+        raise ValueError("train_step: params is not the tree its optimizer steps; a new tree "
+                         "(e.g. from load_checkpoint) needs its own optimizer, tx(params)")
+    device = params["logit_scale"].device
+    batch = {k: torch.as_tensor(batch[k]) for k in ("pixels", "input_ids")}
+    layout = None if mesh is None else (mesh.devices.shape, tuple(map(str, mesh.devices.flat)))
+    key = (cfg, layout, tuple((k, tuple(t.shape), t.dtype) for k, t in batch.items()))
+    graphs = captured.graphs_of(opt, create=True)
+    with graphs.lock, torch.cuda.device(device), graphs.in_order(device):
+        g = graphs.graphs.get(key)
+        state = _state_tensors(params, opt)
+        if g is None or len(g.state) != len(state) or any(
+                a is not b for a, b in zip(g.state, state)):
+            g = graphs.graphs[key] = _capture_step(graphs, params, opt, batch, cfg, mesh,
+                                                   device)
+        for static, t in zip(g.inputs, batch.values()):
+            static.copy_(t)
+        g.replay()
+        return g.output[0].clone()
+
+
+def _capture_step(graphs, params, opt, batch, cfg, mesh, device):
+    """Capture the step over static copies of ``batch`` on ``device``: the
+    warm-up runs the forward and the backward alone (never ``opt.step()``,
+    which would update the params; AdamW's kernels load inside the capture,
+    as CUDA loads modules lazily there too); the graph then holds the
+    forward, the backward (remat's recompute included) and ``opt.step()``.
+    The gradients are None when the capture begins, so the backward makes
+    them in the graph's pool; the graph keeps them, and the leaves'
+    ``.grad`` is None after each call, as the eager step leaves it."""
+    static = {k: t.to(device, copy=True) for k, t in batch.items()}
+
+    def forward_backward():
+        loss = loss_fn(params, static, cfg, mesh)
+        loss.backward()
+        return loss
+
+    def warmup():
+        forward_backward()
+        opt.zero_grad(set_to_none=True)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = forward_backward()
+        opt.step()
+        return loss.detach(), [p.grad for p in _stepped(params)]
+
+    g = graphs.capture(step, device, list(static.values()), what="the train step",
+                       warmup=warmup)
+    opt.zero_grad(set_to_none=True)
+    g.state = _state_tensors(params, opt)
+    return g
 
 
 def _fsdp_axis(p: torch.Tensor, n: int) -> int | None:

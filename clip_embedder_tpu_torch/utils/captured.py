@@ -1,13 +1,14 @@
-"""Compiled forwards: on the card, each tower forward, the preprocess resize
-and the corpus search captured once per input shape as a CUDA graph, then
-replayed.
+"""Compiled paths: on the card, each tower forward (the tensor-parallel one
+too), the preprocess resize, the corpus search and the train step captured
+once per input shape as a CUDA graph, then replayed.
 
 Counterpart of the JAX package's jitted paths
 (``clip_embedder_tpu.vision._jitted_vision_forward``,
 ``text._jitted_text_forward``, the per-shard-layout programs of
-``parallel/embed.py``, ``ops.preprocess.resize_normalize``,
-``parallel.search._sharded_topk``): there each is one program, compiled
-once per input shape, and the power-of-two batch buckets
+``parallel/embed.py``, the tensor-parallel forward included,
+``ops.preprocess.resize_normalize``, ``parallel.search._sharded_topk``,
+``train.make_sharded_train_step``'s jitted step): there each is one
+program, compiled once per input shape, and the power-of-two batch buckets
 (``ops.preprocess.bucket_batch``) keep the programs few. Here
 ``forward(tower, *args, **kwargs)`` is ``tower(*args, **kwargs)`` under
 ``torch.inference_mode``:
@@ -36,10 +37,13 @@ once per input shape, and the power-of-two batch buckets
   in a call; ``parallel.EmbedPipeline`` keeps a batch's rows on the device
   while the next batch runs).
 * The graphs belong to their owner (``graphs_of``): one ``GraphSet`` a
-  tower module, a ``Preprocessor`` (``ops.preprocess``: its resize per
-  padded shape, whose static inputs are its own reused device buffers) or
-  a ``CorpusIndex`` (``parallel.search``: its search per query and k
-  bucket). The embedders that share a tower (``duplicate()``, the repeated
+  tower module (a ``parallel.tensor_parallel.TPViT`` too), a
+  ``Preprocessor`` (``ops.preprocess``: its resize per padded shape, whose
+  static inputs are its own reused device buffers), a ``CorpusIndex``
+  (``parallel.search``: its search per query and k bucket) or a train
+  step's optimizer (``train``: the forward, the backward and the AdamW
+  update per batch shape, its warm-up a forward and backward alone). The
+  embedders that share a tower (``duplicate()``, the repeated
   entries of a mesh) share its graphs, as ``duplicate()`` shares the JAX
   package's jit cache. A set keeps one memory pool, shared by its graphs,
   so that it reserves about what its largest shape needs, and one lock
@@ -48,7 +52,9 @@ once per input shape, and the power-of-two batch buckets
   once. Each replay's stream first waits for the set's previous replay on
   that device (``GraphSet.in_order``), so callers on different streams
   never share the static buffers or the pool's scratch in flight.
-  Captures are serialised across the process too.
+  Captures are serialised across the process too, and Python's cyclic
+  collector is paused during each: a graph freed on the capturing thread
+  by a dying owner would invalidate the capture (``_collector_paused``).
 * A capture may fix TF32 for its f32 products on or off (``tf32``): the
   flag is process-wide and only a capture sets it, under the process's
   capture lock; a graph keeps the cuBLAS math mode of its capture.
@@ -64,7 +70,12 @@ once per input shape, and the power-of-two batch buckets
   ``chip_smoke.py`` holds each capture's recorded launches to the graph's
   kernel nodes.
 
-The tensor-parallel forward and the training step do not come here.
+A CUDA graph is captured on one device: PyTorch's capture does not span
+devices. So a path over several distinct cards (a tensor-parallel mesh row,
+or a train step's mesh, over two cards or more) runs eagerly, as a route
+chosen by the layout (``several_devices``), never taken on a failure; a path on
+one card (the mesh's entries all one device, as two ``cuda:0`` entries
+are) is captured, and a capture that fails raises ``CaptureError``.
 
 The port's counterpart of ``utils/compilation_cache.py`` (the persistent
 XLA cache) is ``ops.cuda``'s ``_build/``: the kernels' libraries, keyed by a
@@ -74,6 +85,7 @@ hash of their sources, reused by every later process.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -215,18 +227,20 @@ class GraphSet:
         done.record(stream)
 
     def capture(self, fn, device: torch.device, inputs=(), *, what: str,
-                tf32: bool | None = None) -> _Graph:
+                tf32: bool | None = None, warmup=None) -> _Graph:
         """Warm up and capture ``fn()``, which reads the static tensors
         ``inputs`` on ``device`` (current), into this set's pool; ``tf32``
         fixes TF32 for its f32 products while it is captured (None: as the
-        process has it)."""
+        process has it). The warm-up runs ``warmup()`` (default ``fn()``)
+        eagerly on a side stream, where ``fn`` must not run twice (a train
+        step's update)."""
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
         with _capture_lock, _matmul_tf32(tf32):
             with torch.cuda.stream(side):
-                fn()
+                (warmup or fn)()
             current.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -234,7 +248,8 @@ class GraphSet:
             # whose kernel nodes a caller can read (chip_smoke.py counts them)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
-                with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                with _collector_paused(), torch.cuda.graph(graph, pool=self._pool,
+                                                           capture_error_mode="thread_local"):
                     with cuda.tallied() as launches, HostReadGuard():
                         output = fn()
                 graph.instantiate()
@@ -269,14 +284,44 @@ class GraphSet:
         return g
 
 
+def several_devices(devices) -> bool:
+    """The devices (``torch.device``s or names, repeats allowed) are more
+    than one device, "cuda" counted as the current card: a path over them
+    cannot be one CUDA graph (the module docstring)."""
+    def key(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return len({key(d) for d in devices}) > 1
+
+
 _sets: "weakref.WeakKeyDictionary[object, GraphSet]" = weakref.WeakKeyDictionary()
 _sets_lock = threading.Lock()
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector paused while a graph is captured: an owner
+    that dies in a reference cycle frees its graphs when the collector
+    finds it, on whatever thread allocates, and a graph destroyed on the
+    capturing thread (``cudaGraphExecDestroy``) is a call no capture allows:
+    it invalidates the capture. Captures hold ``_capture_lock``, so one
+    pause is open at a time; the garbage waits for the next collection."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def graphs_of(owner, *, create: bool = False) -> GraphSet | None:
     """The ``GraphSet`` of ``owner`` (a tower module, a ``Preprocessor``, a
-    ``CorpusIndex``; made with ``create``; None if it has none). It lives as
-    long as the owner does."""
+    ``CorpusIndex``, a train step's optimizer; made with ``create``; None if
+    it has none). It lives as long as the owner does."""
     with _sets_lock:
         s = _sets.get(owner)
         if s is None and create:

@@ -1155,7 +1155,7 @@ def test_captured_preprocess_is_bitwise_the_eager_one_across_shapes(dev):
     for batch in (small, large, small, large):  # each shape's buffers reused as they are
         with torch.inference_mode():
             got, ref = pp(batch), pp.eager(batch)
-        assert torch.equal(got[:len(batch)], ref[:len(batch)])
+        assert torch.equal(got, ref)  # every row of the bucket, the padded ones too
     graphs = captured.graphs_of(pp)
     assert sorted(k[1:4] for k in graphs.graphs) == [(4, 128, 128), (8, 384, 256)]
     assert all(e.host.is_pinned() and e.images.is_cuda for e in pp._staging.values())
@@ -1163,6 +1163,25 @@ def test_captured_preprocess_is_bitwise_the_eager_one_across_shapes(dev):
     pp(small)  # no matrix uploaded again
     assert pp._device_weights_cache.keys() == cached.keys()
     assert all(pp._device_weights_cache[k][0] is cached[k][0] for k in cached)
+
+
+def test_captured_preprocess_padded_rows_equal_the_plain_route(dev):
+    """The padded rows of a bucket on the card: a shape's first call (its
+    page-locked buffer as ``torch.empty`` left it), a call of fewer images
+    after a full one at the same shape, and a mesh shard with no image, each
+    ``torch.equal`` to the plain zero-filled route, all rows."""
+    pp = _captured_clip().vision.preprocessor
+    full = [np.full((300, 200, 3), 7, np.uint8)] + _images(3, seed=14)  # bucket 4, 384 x 256
+    padded = pp.padded_size(full)
+    with torch.inference_mode():
+        pad = pp.eager(full[:3])[3:]  # a padded row of the plain route
+        first = pp.run(full[:3], batch_bucket=4, padded=padded)
+        assert torch.equal(first, pp.eager(full[:3]))
+        pp.run(full, batch_bucket=4, padded=padded)
+        fewer = pp.run(full[:2], batch_bucket=4, padded=padded)
+        assert torch.equal(fewer, torch.cat([pp.eager(full[:2]), pad, pad]))
+        empty = pp.run([], batch_bucket=4, padded=padded)
+        assert torch.equal(empty, pad.expand(4, -1, -1, -1))
 
 
 def test_captured_preprocess_keeps_full_f32_whatever_the_tf32_flag(dev):
@@ -1183,12 +1202,12 @@ def test_two_threads_preprocess_at_once_on_the_card(dev):
     pp = _captured_clip().vision.preprocessor
     batches = [_images(3, seed=11), [np.full((260, 400, 3), 90, np.uint8)] + _images(1)]
     with torch.inference_mode():
-        refs = [pp.eager(b)[:len(b)] for b in batches]
+        refs = [pp.eager(b) for b in batches]
     bad = []
 
     def worker(i):
         for _ in range(20):
-            if not torch.equal(pp(batches[i])[:len(batches[i])], refs[i]):
+            if not torch.equal(pp(batches[i]), refs[i]):
                 bad.append(i)
 
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
@@ -1260,3 +1279,260 @@ def test_captured_search_equals_eager_and_follows_add(dev):
     vals, ids = index.search(new, 1)
     np.testing.assert_array_equal(ids[:, 0], np.arange(3000, 3010))
     assert len(graphs.graphs) == 1
+
+
+# -- the tensor-parallel forward and the train step, captured -----------------
+
+def _tp_embedder():
+    from clip_embedder_tpu_torch.parallel import ShardedVisionEmbedder, get_mesh
+
+    mesh = get_mesh(devices=["cuda:0"] * 2, model_parallel=2)
+    return ShardedVisionEmbedder(_captured_clip().vision, mesh, tensor_parallel=True)
+
+
+def test_captured_tp_forward_is_bitwise_the_eager_one(dev):
+    """A TP mesh row of two ``cuda:0`` ranks replays its ``TPViT``'s graph, one
+    a shard shape; its rows equal the ``TPViT`` called eagerly on the same
+    pixels, bit for bit, across two buckets in turn."""
+    from clip_embedder_tpu_torch.utils import captured
+
+    tp = _tp_embedder()
+    assert not captured.several_devices(tp.mesh.devices[0])
+    pp, tower = tp.inner.preprocessor, tp.towers[0]
+    for images in (_images(3), _images(1, seed=15), _images(3), _images(1, seed=15)):
+        rows, n = tp.embed_images_device(images)
+        with torch.inference_mode():
+            pixels = pp.run(images, batch_bucket=rows.shape[0], padded=pp.padded_size(images))
+            ref = tower(pixels, attn_impl="eager", channels_first=True)
+        assert torch.equal(rows, ref)
+    assert len(captured.graphs_of(tower).graphs) == 2
+
+
+def _train_cfg(**kw):
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.config import OpenClipConfig
+    from clip_embedder_tpu_torch.models.build import resolve_text, resolve_vision
+
+    occ = OpenClipConfig.from_dict(json.loads(
+        (FIXTURES / "golden_siglip" / "open_clip_config.json").read_text()))
+    return tt.TrainConfig(vision_cfg=resolve_vision(occ.model_cfg).cfg,
+                          text_cfg=resolve_text(occ.model_cfg).cfg, loss="siglip",
+                          learning_rate=1e-3, remat=True, **kw)
+
+
+def _train_batch(cfg, seed=16, b=4):
+    rng = np.random.default_rng(seed)
+    v, t = cfg.vision_cfg, cfg.text_cfg
+    return {"pixels": rng.uniform(-1, 1, (b, v.image_size, v.image_size, 3)).astype(np.float32),
+            "input_ids": rng.integers(1, t.vocab_size, (b, t.context_length)).astype(np.int32)}
+
+
+TRAIN_LAYOUTS = {"unsharded": (None, {}), "dp": (1, {}), "ring": (1, {"ring_loss": True}),
+                 "fsdp": (1, {"fsdp": True}), "tp": (2, {"tensor_parallel": True})}
+
+
+@pytest.mark.parametrize("layout", list(TRAIN_LAYOUTS))
+def test_captured_train_step_equals_the_eager_card_step(dev, layout):
+    """3 steps of ``train_step`` (one CUDA graph: the forward, the backward
+    with remat, the capturable AdamW) against 3 of ``eager_train_step`` with
+    the same optimizer from the same state: the losses and every stepped
+    tensor bit for bit; one graph for the batch shape, the step count 3."""
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.parallel import get_mesh
+    from clip_embedder_tpu_torch.utils import captured
+    from clip_embedder_tpu_torch.weights import tree_map
+
+    model_parallel, kw = TRAIN_LAYOUTS[layout]
+    cfg = _train_cfg(**kw)
+    init, _ = tt.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg)
+    mesh = None if model_parallel is None else get_mesh(devices=["cuda:0"] * 2,
+                                                        model_parallel=model_parallel)
+    batch = _train_batch(cfg)
+    runs = {}
+    for route in ("captured", "eager"):
+        start = tree_map(lambda t: t.detach().clone().requires_grad_(True), init)
+        if mesh is None:
+            params, opt = start, tt.init_opt_state(cfg, start)
+        else:
+            _, params, opt = tt.make_sharded_train_step(cfg, mesh, start)
+        assert all(g["capturable"] for g in opt.param_groups)
+        losses = []
+        for _ in range(3):
+            if route == "captured":
+                _, _, loss = tt.train_step(params, opt, batch, cfg=cfg,
+                                           tx=tt.make_optimizer(cfg), mesh=mesh)
+            else:
+                _, _, loss = tt.eager_train_step(params, opt, batch, cfg=cfg, mesh=mesh)
+            losses.append(loss)
+        runs[route] = (torch.stack(losses), tt._stepped(params), opt)
+    (cl, cp, copt), (el, ep, eopt) = runs["captured"], runs["eager"]
+    assert torch.equal(cl, el) and bool(cl[-1] < cl[0])
+    assert all(torch.equal(a, b) for a, b in zip(cp, ep)) and len(cp) == len(ep)
+    assert all(t.grad is None for t in cp)
+    assert len(captured.graphs_of(copt).graphs) == 1 and captured.graphs_of(eopt) is None
+    assert all(float(s["step"]) == 3 for s in copt.state.values())
+
+
+def test_captured_train_step_follows_the_optimizer_state_and_refuses_another_tree(dev):
+    """A state loaded into the optimizer (new tensors) is read by the next
+    step, captured anew: step 2 run again from step 1's params and loaded
+    state gives step 2's params; a second batch shape takes a graph of its
+    own; a tree the optimizer does not step is refused."""
+    import copy
+
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.utils import captured
+
+    cfg = _train_cfg()
+    params, _ = tt.init_train_state(torch.Generator(device="cuda").manual_seed(1), cfg)
+    opt, tx = tt.init_opt_state(cfg, params), tt.make_optimizer(cfg)
+    batch = _train_batch(cfg)
+    tt.train_step(params, opt, batch, cfg=cfg, tx=tx)
+    saved = [t.detach().clone() for t in tt._stepped(params)]
+    state = copy.deepcopy(opt.state_dict())
+    tt.train_step(params, opt, batch, cfg=cfg, tx=tx)
+    after = [t.detach().clone() for t in tt._stepped(params)]
+    with torch.no_grad():
+        for t, v in zip(tt._stepped(params), saved):
+            t.copy_(v)
+    opt.load_state_dict(state)
+    tt.train_step(params, opt, batch, cfg=cfg, tx=tx)
+    assert all(torch.equal(a, b) for a, b in zip(after, tt._stepped(params)))
+    assert all(float(s["step"]) == 2 for s in opt.state.values())
+    tt.train_step(params, opt, _train_batch(cfg, b=2), cfg=cfg, tx=tx)
+    assert len(captured.graphs_of(opt).graphs) == 2
+    other, _ = tt.init_train_state(torch.Generator(device="cuda").manual_seed(2), cfg)
+    with pytest.raises(ValueError, match="not the tree its optimizer steps"):
+        tt.train_step(other, opt, batch, cfg=cfg, tx=tx)
+
+
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("layout", list(TRAIN_LAYOUTS))
+def test_captured_train_step_holds_to_the_lazy_adamw(dev, layout):
+    """3 captured steps (the capturable AdamW, its state made up front),
+    each held against a step of the lazy ``torch.optim.AdamW`` on the same
+    card from the same state (``chip_smoke.hold_lazy_steps``, whose comment
+    derives the gate): losses, moments and step counts bitwise equal, each
+    parameter within 2e-5 of its update; the lazy run's first step makes
+    its own state, its later ones resume the captured run's."""
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.parallel import get_mesh
+    from clip_embedder_tpu_torch.weights import tree_map
+
+    model_parallel, kw = TRAIN_LAYOUTS[layout]
+    cfg = _train_cfg(**kw)
+    init, _ = tt.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg)
+    mesh = None if model_parallel is None else get_mesh(devices=["cuda:0"] * 2,
+                                                        model_parallel=model_parallel)
+    batch = _train_batch(cfg)
+    trees = []
+    for capturable in (True, False):
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(True), init)
+        if mesh is not None:
+            _, params, _ = tt.make_sharded_train_step(cfg, mesh, params)
+        trees.append((params, tt.make_optimizer(cfg, capturable=capturable)(params)))
+    (cp, copt), (lp, lopt) = trees
+    held = _smoke().hold_lazy_steps(
+        layout, lambda: float(tt.train_step(cp, copt, batch, cfg=cfg, tx=None, mesh=mesh)[2]),
+        cp, copt, lambda: float(tt.eager_train_step(lp, lopt, batch, cfg=cfg, mesh=mesh)[2]),
+        lp, lopt, 3, card=True)
+    assert held["equal"] and held["gate_share"] <= 1
+    assert all(s["step"].is_cuda and float(s["step"]) == 3 for s in copt.state.values())
+    assert not any(g["capturable"] for g in lopt.param_groups)
+
+
+def test_a_graph_freed_during_a_capture_leaves_the_capture_whole(dev):
+    """A graph whose owner dies in a reference cycle is freed when Python's
+    collector finds the cycle; on the capturing thread that is a
+    ``cudaGraphExecDestroy`` no capture allows. Here a graph is dropped into
+    a fresh cycle inside a capture, with the collector set to run at
+    almost every allocation: the capture holds (the collector is paused)."""
+    import gc
+
+    from clip_embedder_tpu_torch.utils import captured
+
+    class Owner:
+        pass
+
+    x = torch.arange(8.0, device=dev)
+    graphs = captured.graphs_of(Owner(), create=True)
+    doomed = [graphs.capture(lambda: x * 2, dev, [x], what="x * 2")]
+
+    def fn():
+        if torch.cuda.is_current_stream_capturing():
+            cycle = [doomed.pop()]
+            cycle.append(cycle)  # the graph's last reference, in a cycle
+            del cycle
+            [[i] for i in range(2000)]  # allocations: the collector's cue
+        return x * 3
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g = captured.graphs_of(Owner(), create=True).capture(fn, dev, [x], what="x * 3")
+    finally:
+        gc.set_threshold(*thresholds)
+    g.replay()
+    assert torch.equal(g.output, x * 3) and gc.isenabled()
+
+
+def test_a_checkpoint_resumes_across_the_cpu_and_the_card(dev, tmp_path):
+    """A state saved by the card's capturable optimizer resumes on the CPU,
+    and one saved on the CPU resumes in the card's captured step, through
+    ``save_checkpoint`` / ``load_checkpoint``: the loaded groups take the
+    resuming optimizer's ``capturable``, the step counts lie where it reads
+    them, and the resumed step's loss (from the same params) is the saving
+    device's within 1e-5."""
+    from clip_embedder_tpu_torch import train as tt
+    from clip_embedder_tpu_torch.utils import captured
+
+    cfg = _train_cfg()
+    batch, tx = _train_batch(cfg), tt.make_optimizer(cfg)
+    params, _ = tt.init_train_state(torch.Generator(device="cuda").manual_seed(3), cfg)
+    opt = tt.init_opt_state(cfg, params)
+    tt.train_step(params, opt, batch, cfg=cfg, tx=tx)
+    tt.save_checkpoint(tmp_path / "card", params, opt, step=1)
+    _, _, card_loss = tt.train_step(params, opt, batch, cfg=cfg, tx=tx)
+
+    on_cpu = tt.load_checkpoint(tmp_path / "card", step=1, device="cpu")
+    cpu_opt = tt.init_opt_state(cfg, on_cpu["params"])
+    cpu_opt.load_state_dict(on_cpu["opt_state"])
+    assert not any(g["capturable"] for g in cpu_opt.param_groups)
+    _, _, cpu_loss = tt.train_step(on_cpu["params"], cpu_opt, batch, cfg=cfg, tx=tx)
+    assert all(s["step"].device.type == "cpu" and float(s["step"]) == 2
+               for s in cpu_opt.state.values())
+    torch.testing.assert_close(cpu_loss, card_loss.cpu(), rtol=1e-5, atol=0)
+
+    tt.save_checkpoint(tmp_path / "cpu", on_cpu["params"], cpu_opt, step=2)
+    back = tt.load_checkpoint(tmp_path / "cpu", step=2, device="cuda")
+    card_opt = tt.init_opt_state(cfg, back["params"])
+    card_opt.load_state_dict(back["opt_state"])
+    assert all(g["capturable"] for g in card_opt.param_groups)
+    _, _, resumed = tt.train_step(back["params"], card_opt, batch, cfg=cfg, tx=tx)
+    _, _, cpu_next = tt.train_step(on_cpu["params"], cpu_opt, batch, cfg=cfg, tx=tx)
+    torch.testing.assert_close(resumed.cpu(), cpu_next, rtol=1e-5, atol=0)
+    assert all(s["step"].is_cuda and float(s["step"]) == 3 for s in card_opt.state.values())
+    assert len(captured.graphs_of(card_opt).graphs) == 1
+
+
+def test_device_breakdown_times_with_events_where_the_profiler_sees_nothing(dev):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    x = torch.randn(1024, 1024, device=dev)
+    traced = smoke.device_breakdown(lambda: x @ x)
+    assert traced["source"] == "torch.profiler" and traced["busy_ms"] > 0
+    timed = smoke.device_breakdown(lambda: x @ x, sessions=0)  # no session: the events
+    assert timed["source"] == "cuda events"
+    assert timed["groups_ms"] == {smoke.EVENTS_GROUP: timed["busy_ms"]}
+    assert 0 < timed["busy_ms"] <= timed["wall_ms"] and 0 <= timed["idle_share"] < 1

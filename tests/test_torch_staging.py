@@ -3,10 +3,13 @@ same staging and keys through CUDA graphs; ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` phases 11, 12 and 14 run them there):
 
 * the preprocess's staged route (``Preprocessor.run``: reused staging
-  buffers, never zeroed; the resize matrices from a device LRU) against
-  the plain zero-filled route (``Preprocessor.eager``) and the JAX
-  ``Preprocessor``; the device LRU's bound; two threads at once; a mesh
-  shard's rows; the dense ``stage_host_batch`` against the JAX method;
+  buffers, zeroed only in the rows past a batch; the resize matrices from
+  a device LRU) against the plain zero-filled route (``Preprocessor.eager``)
+  and the JAX ``Preprocessor``, every row of the bucket, the padded ones
+  too (a shape's first call, a call with fewer images than the last, a
+  mesh shard with no image); the device LRU's bound; two threads at once;
+  a mesh shard's rows; the dense ``stage_host_batch`` against the JAX
+  method;
 * the ONNX executor's static values made into device tensors once
   (``onnx_exec._Env.const``), so that a warm tower's next call reads
   nothing from the host (``captured.HostReadGuard``);
@@ -19,6 +22,7 @@ import threading
 import time
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -86,16 +90,68 @@ def test_staged_rows_equal_the_zero_filled_route_and_jax(layout, dtype, filled_2
         arrays = _arrays(seed, sizes)
         got = pre(arrays)
         ref = pre.eager(arrays)
-        n = len(arrays)
         assert got.shape == ref.shape and got.dtype == dtype
-        assert torch.equal(got[:n], ref[:n]), f"batch {seed}"
+        assert torch.equal(got, ref), f"batch {seed}"  # every row, the padded ones too
         if dtype == torch.float32:  # test_torch_ops.py::test_preprocessor_matches_jax's bound
-            np.testing.assert_allclose(got[:n].numpy(), np.asarray(jax_pre(arrays))[:n],
+            np.testing.assert_allclose(got.numpy(), np.asarray(jax_pre(arrays)),
                                        atol=1e-5, rtol=0)
         shapes.append(tuple(got.shape[:1]) + pre.padded_size(arrays))
     assert shapes == [(8, 384, 384), (4, 256, 256), (2, 128, 128), (1, 384, 384), (8, 384, 384)]
     # one staging entry a shape, the repeated shape's reused
     assert len(pre._staging) == 4
+
+
+def _jax_bucket(jax_pre, arrays, bb):
+    """The JAX ``Preprocessor``'s rows of ``arrays`` staged into a batch
+    bucket of ``bb`` (its zero-filled staging, as its ``__call__``)."""
+    staged = jax_pre.stage_host_batch_unique(arrays, batch_bucket=bb)
+    return np.asarray(jpre.resize_normalize_indexed(
+        *(jnp.asarray(a) for a in staged), jax_pre.mean, jax_pre.std,
+        out_dtype=jax_pre.out_dtype, layout=jax_pre.layout))
+
+
+# 4 images over (Hp, Wp) = (256, 256), bucket 4; the first is the largest,
+# so that every prefix of them keeps the shape
+PADDED_ROWS = ((250, 200), (48, 40), (130, 200), (31, 17))
+
+
+@pytest.mark.parametrize("case", ["first_call", "fewer_after_full", "empty_shard"])
+def test_padded_rows_are_the_normalised_zero_image(case, filled_255):
+    """Every row of the bucket, not only the images', against the JAX
+    ``Preprocessor`` (atol 1e-5) and the plain route (``torch.equal``): a
+    shape's first call, whose buffer holds what ``torch.empty`` left (here
+    255s); a call of 2 images after one of 4 at the same shape, whose rows
+    2-3 hold the earlier call's pixels; a mesh shard past the last image
+    (``run([], ...)``, as ``parallel.embed`` calls it) after a shard of 3
+    images at the same shape."""
+    pre = tpre.Preprocessor(**KW, layout="nchw", device="cpu")
+    jax_pre = jpre.Preprocessor(**KW, layout="nchw")
+    arrays = _arrays(70, PADDED_ROWS)
+    padded = pre.padded_size(arrays)
+    if case == "first_call":
+        xs = arrays[:3]
+        got = pre.run(xs, device="cpu", batch_bucket=4, padded=padded)
+        want, ref = _jax_bucket(jax_pre, xs, 4), pre.eager(xs)
+    elif case == "fewer_after_full":
+        pre.run(arrays, device="cpu", batch_bucket=4, padded=padded)
+        xs = arrays[:2]
+        got = pre.run(xs, device="cpu", batch_bucket=4, padded=padded)
+        want = _jax_bucket(jax_pre, xs, 4)
+        ref = torch.cat([pre.eager(xs), pre.eager(arrays[:3])[3:].expand(2, -1, -1, -1)])
+    else:
+        pre.run(arrays[:3], device="cpu", batch_bucket=4, padded=padded)
+        got = pre.run([], device="cpu", batch_bucket=4, padded=padded)
+        # the second shard of the whole batch's bucket of 8: all padding
+        want = _jax_bucket(jax_pre, arrays[:3], 8)[4:]
+        ref = pre.eager(arrays[:3])[3:].expand(4, -1, -1, -1)
+    assert got.shape == ref.shape == want.shape == (4, 3, 32, 32)
+    assert torch.equal(got, ref)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    n = {"first_call": 3, "fewer_after_full": 2, "empty_shard": 0}[case]
+    zero = (0.0 - np.asarray(KW["mean"])) / np.asarray(KW["std"])
+    np.testing.assert_allclose(got[n:].numpy(),
+                               np.broadcast_to(zero[:, None, None], got[n:].shape),
+                               atol=1e-5, rtol=0)
 
 
 def test_staging_keeps_a_bounded_number_of_shapes():
