@@ -34,6 +34,7 @@ import torch
 
 from ..errors import ImageError
 from ..utils import captured
+from ..utils import logging as tracing
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +452,9 @@ class Preprocessor:
         batch bucket and (Hp, Wp) given or taken from the batch: the staged
         route (class docstring). A mesh shard passes the whole batch's
         (Hp, Wp) and its own rows, which may be none: then every row is
-        the normalised zero image."""
+        the normalised zero image. Timed as the span ``preprocess.call``
+        (``utils.logging``; attr ``drained``: the device's current stream had
+        no pending work as the call began, always true on the CPU)."""
         if not arrays and batch_bucket is None:
             raise ImageError("Empty batch")
         device = self.device if device is None else torch.device(device)
@@ -459,9 +462,12 @@ class Preprocessor:
             device = torch.device("cuda", torch.cuda.current_device())
         bb = batch_bucket or bucket_batch(len(arrays))
         ph, pw = padded or self.padded_size(arrays)
-        with torch.inference_mode(), self._lock:
-            entry, pairs = self._stage(arrays, device, bb, ph, pw)
-            return self._resize(entry, pairs)
+        # on the card, whether the stream this call enqueues on had drained
+        drained = device.type != "cuda" or torch.cuda.current_stream(device).query()
+        with tracing.span("preprocess.call", drained=drained):
+            with torch.inference_mode(), self._lock:
+                entry, pairs = self._stage(arrays, device, bb, ph, pw)
+                return self._resize(entry, pairs)
 
     def _staging_for(self, device: torch.device, bb: int, ph: int, pw: int) -> _Staging:
         """The shape's staging buffers (made at its first call; the least
@@ -493,21 +499,24 @@ class Preprocessor:
         they may hold pixels (``_Staging.zero_past``) and each image written
         once into the shape's host buffer (after the last copy out of it has
         finished), its slot index beside it, and the unique matrices' device
-        pairs. The caller holds ``_lock``."""
-        entry = self._staging_for(device, bb, ph, pw)
-        if entry.copied is not None:
-            entry.copied.synchronize()
-        entry.zero_past(len(arrays))
-        with warnings.catch_warnings():
-            # decoded images are read-only arrays; their tensors are only read
-            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-            for i, a in enumerate(arrays):
-                h, w = a.shape[:2]
-                entry.host[i, :h, :w].copy_(torch.from_numpy(np.ascontiguousarray(a)))
-        pairs, slots = _unique_sizes(
-            arrays, lambda w, h: self._device_weights(device, w, h, ph, pw))
-        entry.host_idx.copy_(torch.tensor(slots + [0] * (bb - len(slots)), dtype=torch.int64))
-        return entry, pairs
+        pairs. The caller holds ``_lock``. Timed as the span
+        ``preprocess.stage``."""
+        with tracing.span("preprocess.stage"):
+            entry = self._staging_for(device, bb, ph, pw)
+            if entry.copied is not None:
+                entry.copied.synchronize()
+            entry.zero_past(len(arrays))
+            with warnings.catch_warnings():
+                # decoded images are read-only arrays; their tensors are only read
+                warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                for i, a in enumerate(arrays):
+                    h, w = a.shape[:2]
+                    entry.host[i, :h, :w].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            pairs, slots = _unique_sizes(
+                arrays, lambda w, h: self._device_weights(device, w, h, ph, pw))
+            entry.host_idx.copy_(torch.tensor(slots + [0] * (bb - len(slots)),
+                                              dtype=torch.int64))
+            return entry, pairs
 
     def _norm(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         if device not in self._norms:

@@ -7,21 +7,36 @@ thread pool decodes the next batches while the device embeds the current
 one. Kernel launches are asynchronous, so the pipeline keeps batch N's
 rows on the device (``embed_images_device``) until batch N+1 has been
 launched, and only then reads N back.
+
+Each ``embed_iter`` call numbers its batches from 0: the spans of batch b
+(``utils.logging``), its preprocess's and its read-back's
+(``pipeline.read_back``), share the trace ``("embed_iter-<k>", b)``, k
+numbering the calls in the process.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import itertools
 from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 
 from ..errors import InferenceError
+from ..utils import logging as tracing
 from ..utils.images import to_rgb_array
+
+_calls = itertools.count()
 
 
 def _read_back(embs, n: int) -> np.ndarray:
-    return embs[:n].float().cpu().numpy()
+    with tracing.span("pipeline.read_back"):
+        return embs[:n].float().cpu().numpy()
+
+
+def _read_back_batch(trace, embs, n: int) -> np.ndarray:
+    with tracing.in_trace(trace):
+        return _read_back(embs, n)
 
 
 class EmbedPipeline:
@@ -60,6 +75,8 @@ class EmbedPipeline:
             return chunk or None
 
         embed_dev = getattr(self.embedder, "embed_images_device", None)
+        call = f"embed_iter-{next(_calls)}"
+        batch_numbers = itertools.count()
 
         with cf.ThreadPoolExecutor(self.decode_workers) as pool:
             pending: list[list[cf.Future]] = []
@@ -72,7 +89,7 @@ class EmbedPipeline:
             # batch N's read-back happens only after batch N+1 has been
             # staged and launched, so N+1's upload and compute overlap the
             # wait for N
-            dev_pending: list[tuple[Any, int]] = []
+            dev_pending: list[tuple[tuple, Any, int]] = []
             while pending:
                 try:
                     arrays = [fut.result() for fut in pending.pop(0)]
@@ -82,17 +99,19 @@ class EmbedPipeline:
                     if embed_dev is None:  # duck-typed, no async variant
                         yield self.embedder.embed_images(arrays)
                         continue
-                    dev_pending.append(embed_dev(arrays))
+                    trace = (call, next(batch_numbers))
+                    with tracing.in_trace(trace):
+                        dev_pending.append((trace, *embed_dev(arrays)))
                 except Exception:
                     # a failed batch must not swallow the earlier batches
                     # still in flight: yield them, then raise
-                    for embs, n in dev_pending:
-                        yield _read_back(embs, n)
+                    for pending_batch in dev_pending:
+                        yield _read_back_batch(*pending_batch)
                     raise
                 while len(dev_pending) > 1:
-                    yield _read_back(*dev_pending.pop(0))
-            for embs, n in dev_pending:
-                yield _read_back(embs, n)
+                    yield _read_back_batch(*dev_pending.pop(0))
+            for pending_batch in dev_pending:
+                yield _read_back_batch(*pending_batch)
 
     def embed_all(self, images: Sequence[Any]) -> np.ndarray:
         """Embed a full collection, returning [N, D]."""

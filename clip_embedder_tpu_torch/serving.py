@@ -27,6 +27,7 @@ runs through the sharded embedders of ``parallel`` over the mesh.
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import queue
 import threading
@@ -34,11 +35,12 @@ import time
 from collections import Counter, defaultdict, deque
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Iterable, Sequence
+from typing import Any, Callable, Iterable, NamedTuple, Sequence
 
 import numpy as np
 
 from .errors import ClipError, InferenceError
+from .utils import logging as tracing
 from .utils.images import to_rgb_array
 from .utils.logging import get_logger, timed
 
@@ -85,6 +87,15 @@ def warmup(
 
 
 _STOP = object()
+_batcher_numbers = itertools.count()
+
+
+class _Submitted(NamedTuple):
+    """What a queued request carries for its ``serving.queue`` span."""
+
+    at: int          # time.perf_counter_ns() at submission
+    number: int      # its request number in the batcher
+    profiled: bool   # a profiler session ran at submission
 
 
 class ServerMetrics:
@@ -159,6 +170,12 @@ class MicroBatcher:
 
     Thread-safe; a context manager. A failed forward fails exactly the
     callers whose items were in that window; later windows are unaffected.
+
+    Spans (``utils.logging``): ``serving.queue`` for each request, from its
+    submission to the start of the ``embed_fn`` call that carries it (trace
+    ``(name, request number)``, ``name`` being ``batcher-<k>``, numbered in
+    the process), and ``serving.step`` around each ``embed_fn`` call (trace
+    ``(name + ".step", micro-batch number)``, attr ``items``).
     """
 
     def __init__(
@@ -181,6 +198,8 @@ class MicroBatcher:
         self._submit_lock = threading.Lock()
         self.batches = 0   # windows run
         self.items = 0     # items embedded
+        self.name = f"batcher-{next(_batcher_numbers)}"
+        self._requests = itertools.count()
         self._worker = threading.Thread(target=self._run, name="clip-microbatcher",
                                         daemon=True)
         self._worker.start()
@@ -193,7 +212,8 @@ class MicroBatcher:
         with self._submit_lock:
             if self._closed:
                 raise InferenceError("MicroBatcher is closed")
-            self._queue.put((item, fut))
+            self._queue.put((item, fut, _Submitted(time.perf_counter_ns(), next(self._requests),
+                                                   tracing.profiling())))
         return fut
 
     def embed(self, item: Any) -> np.ndarray:
@@ -230,7 +250,7 @@ class MicroBatcher:
     # -- collector ----------------------------------------------------------
 
     def _run(self) -> None:
-        logger = get_logger()
+        steps = itertools.count()
         while True:
             first = self._queue.get()
             if first is _STOP:
@@ -250,11 +270,17 @@ class MicroBatcher:
                     stop = True
                     break
                 window.append(nxt)
-            items = [item for item, _ in window]
+            items = [item for item, _, _ in window]
+            started = time.perf_counter_ns()
+            for _, _, sub in window:
+                tracing.record("serving.queue", sub.at, started, trace=(self.name, sub.number),
+                               profiled=sub.profiled)
             try:
-                rows = self._embed_fn(items)
+                with tracing.span("serving.step", (f"{self.name}.step", next(steps)),
+                                  items=len(items)):
+                    rows = self._embed_fn(items)
             except Exception as e:  # to this window's callers
-                for _, fut in window:
+                for _, fut, _ in window:
                     fut.set_exception(e)
             except BaseException as e:
                 # KeyboardInterrupt / SystemExit in embed_fn: fail this
@@ -263,7 +289,7 @@ class MicroBatcher:
                 err = InferenceError(f"embed_fn raised {type(e).__name__}; batcher closed")
                 with self._submit_lock:
                     self._closed = True
-                    for _, fut in window:
+                    for _, fut, _ in window:
                         fut.set_exception(err)
                     while True:
                         try:
@@ -277,14 +303,13 @@ class MicroBatcher:
                 if len(rows) != len(window):
                     err = InferenceError(
                         f"embed_fn returned {len(rows)} rows for {len(window)} items")
-                    for _, fut in window:
+                    for _, fut, _ in window:
                         fut.set_exception(err)
                 else:
-                    for (_, fut), row in zip(window, rows):
+                    for (_, fut, _), row in zip(window, rows):
                         fut.set_result(np.asarray(row))
             self.batches += 1
             self.items += len(window)
-            logger.debug("microbatch: %d items", len(window))
             if stop:
                 return
 
@@ -315,7 +340,9 @@ class ClipServer:
     - ``POST /v1/rank``: ``{"images_b64": [...], "text": "..."}`` →
       ``{"results": [[index, prob], ...]}``, descending
     - ``GET  /v1/metrics`` → :class:`ServerMetrics`' snapshot plus the
-      micro-batch counts
+      micro-batch counts and the process's CUDA graph captures by what they
+      hold (``captures``: the ``graphs.captures`` counter of
+      ``utils.logging``)
 
     Client errors (bad JSON, an undecodable image, an empty batch) are 400
     with ``{"error": <class>, "message": ...}``; a ``ClipError`` while the
@@ -396,6 +423,7 @@ class ClipServer:
                     snap = server.metrics.snapshot()
                     snap["micro_batches"] = {"vision": server._vision_batcher.batches,
                                              "text": server._text_batcher.batches}
+                    snap["captures"] = tracing.counters().get("graphs.captures", {})
                     self._send(200, snap)
                 else:
                     self._send(404, {"error": "NotFound", "message": self.path})

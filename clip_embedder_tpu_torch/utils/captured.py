@@ -96,6 +96,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..errors import InferenceError
 from ..ops import cuda
+from . import logging as tracing
 
 aten = torch.ops.aten
 
@@ -233,29 +234,33 @@ class GraphSet:
         fixes TF32 for its f32 products while it is captured (None: as the
         process has it). The warm-up runs ``warmup()`` (default ``fn()``)
         eagerly on a side stream, where ``fn`` must not run twice (a train
-        step's update)."""
+        step's update). Counted in ``graphs.captures`` by ``what`` and timed
+        as the span ``graphs.capture`` (``utils.logging``), both around it."""
         t0 = time.perf_counter()
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with _capture_lock, _matmul_tf32(tf32):
-            with torch.cuda.stream(side):
-                (warmup or fn)()
-            current.wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            # keep_graph: the graph keeps its cudaGraph_t (``raw_cuda_graph``),
-            # whose kernel nodes a caller can read (chip_smoke.py counts them)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            try:
-                with _collector_paused(), torch.cuda.graph(graph, pool=self._pool,
-                                                           capture_error_mode="thread_local"):
-                    with cuda.tallied() as launches, HostReadGuard():
-                        output = fn()
-                graph.instantiate()
-            except RuntimeError as err:
-                raise CaptureError(f"{what} on {device} could not be captured as a CUDA "
-                                   f"graph: {err}") from err
+        tracing.count("graphs.captures", what)
+        with tracing.span("graphs.capture", what=what,
+                          shapes=[tuple(t.shape) for t in inputs]):
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with _capture_lock, _matmul_tf32(tf32):
+                with torch.cuda.stream(side):
+                    (warmup or fn)()
+                current.wait_stream(side)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                # keep_graph: the graph keeps its cudaGraph_t (``raw_cuda_graph``),
+                # whose kernel nodes a caller can read (chip_smoke.py counts them)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                try:
+                    with _collector_paused(), torch.cuda.graph(graph, pool=self._pool,
+                                                               capture_error_mode="thread_local"):
+                        with cuda.tallied() as launches, HostReadGuard():
+                            output = fn()
+                    graph.instantiate()
+                except RuntimeError as err:
+                    raise CaptureError(f"{what} on {device} could not be captured as a CUDA "
+                                       f"graph: {err}") from err
         return _Graph(graph, list(inputs), output, launches, time.perf_counter() - t0)
 
     def run(self, tower: nn.Module, device: torch.device, args, kwargs) -> torch.Tensor:

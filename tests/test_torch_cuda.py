@@ -1047,6 +1047,35 @@ def test_embed_images_device_rows_survive_the_next_call(dev):
     assert len(captured.graphs_of(emb.tower).graphs) == 1
 
 
+def test_the_recorder_changes_no_captured_row(dev, monkeypatch):
+    """A capture and a replay with the span recorder on, inside a profiler
+    session (so the spans around them enter its ranges too), give bitwise
+    the rows of a capture and a replay with it off; no span opens inside a
+    capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_embedder_tpu_torch.utils import logging as tracing
+
+    batch = _images(3)
+    monkeypatch.setattr(tracing, "RECORDING", False)
+    emb = _captured_clip().vision
+    off = [emb.embed_images_device(batch)[0].clone() for _ in range(2)]  # capture, replay
+    monkeypatch.setattr(tracing, "RECORDING", True)
+    tracing.record("test.mark", 0, 0)
+    mark = tracing.spans()[-1].seq
+    emb = _captured_clip().vision  # a new tower and preprocessor: their graphs anew
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = [emb.embed_images_device(batch)[0].clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    spans = [s for s in tracing.spans() if s.seq > mark]
+    captures = [s for s in spans if s.name == "graphs.capture"]
+    assert len(captures) == 2 and "the preprocess resize" in {s.attrs["what"] for s in captures}
+    assert all(s.profiled for s in spans)
+    assert not any(s.parent in {c.id for c in captures} for s in spans)
+    assert sum(s.name == "preprocess.call" for s in spans) == 2
+
+
 def test_launch_counts_stay_exact_after_replay(dev):
     import importlib.util
 

@@ -181,6 +181,11 @@ def test_end_to_end_with_real_embedder(clip):
 
 
 def test_warmup_runs_every_bucket(clip, monkeypatch, caplog):
+    from clip_embedder_tpu_torch.utils.logging import get_logger
+
+    # the logger's first call sets its level from CLIP_TPU_LOG: made here, it
+    # leaves caplog's level in force whichever test ran first
+    get_logger()
     calls = []
     for emb, name in ((clip.vision, "embed_images"), (clip.text, "embed_texts")):
         real = getattr(emb, name)
@@ -197,12 +202,22 @@ def test_warmup_runs_every_bucket(clip, monkeypatch, caplog):
 
 
 def test_trace_writes_a_chrome_trace(clip, tmp_path):
-    from clip_embedder_tpu_torch.utils.logging import trace
+    from clip_embedder_tpu_torch.utils.logging import span, trace
+
+    def other():
+        with span("test.other_thread"):
+            time.sleep(0.01)
 
     with trace(tmp_path / "t") as log_dir:
         clip.text.embed_texts(["a cat"])
+        worker = threading.Thread(target=other)  # as a micro-batcher's collector
+        worker.start()
+        worker.join(timeout=30)
+    assert not worker.is_alive()
     events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
     assert events
+    # every thread is profiled: the other thread's span is in the trace
+    assert [e["tid"] for e in events if e.get("name") == "test.other_thread"] == [worker.native_id]
 
 
 # -- ClipServer (tests/test_serving_http.py) ----------------------------------
@@ -364,6 +379,13 @@ def test_metrics_endpoint(served):
     assert any(k.startswith("/v1/embed/text:") for k in snap["errors"])
     assert snap["micro_batches"]["vision"] >= 1
     assert snap["uptime_s"] >= 0
+    # the process's CUDA graph captures by what they hold (none on the CPU)
+    from clip_embedder_tpu_torch.utils.logging import count
+
+    count("graphs.captures", "a probe")
+    with urllib.request.urlopen(_url(server, "/v1/metrics"), timeout=30) as r:
+        captures = json.loads(r.read())["captures"]
+    assert captures["a probe"] == snap["captures"].get("a probe", 0) + 1
 
 
 # -- a mesh-backed deployment (the mesh cases of tests/test_serving_http.py):
