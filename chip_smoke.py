@@ -6,6 +6,7 @@ card, in phases, and fail loudly if any phase fails.
     python3 chip_smoke.py --int8   # phases 1-2 for the int8 sources, phase 3's int8 kernels
     python3 chip_smoke.py --masks  # phases 1-2 for flash_packed, its time by mask form
     python3 chip_smoke.py --options  # phases 1-2 for kernel 2's sources, phase 3's options
+    python3 chip_smoke.py --rows   # phases 1-2 for block_rows, phase 3's row kernels
 
 1. environment — the card's name and power limit, torch/CUDA versions, the
    compute capability (must be 9.0);
@@ -35,7 +36,10 @@ card, in phases, and fail loudly if any phase fails.
    the default launch, both routes' int8 codes against the plain version's
    (all equal), and the int8 ones' batch-32 times at SO400M's and
    PE-Core's shapes (the first route's in f32) with their device time by
-   launch and the route that ran;
+   launch and the route that ran; the port's own row kernels
+   (``norm_rows``, ``act_rows``: a block's LayerNorm and MLP activation in
+   one pass each) against ``ops.layers``' plain functions at SO400M's and
+   PE-Core-bigG's batch-32 shapes, with their times beside the bytes bound;
 4. fixtures — ``tests/fixtures/golden_siglip`` and ``golden_model`` through
    ``Clip.from_local_dir(..., device="cuda")`` in f32 against their golden
    embeddings and classify results (4 heads x 16: no 128-lane head group, so
@@ -343,6 +347,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(iters))
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, as the towers run them (no host work between the launches; a
+    wrapper's Python can outlast a short kernel), CUDA events around each
+    of ``replays`` replays, the median over ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # loads the kernel's module outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def max_err(got, ref) -> float:
     return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
 
@@ -493,6 +523,80 @@ def phase_kernels(dev, peaks) -> dict:
             "ms": t_fl, "plain_ms": t_fl_plain, "bound_ms": b_fl, "bound_by": by_fl,
             "library_ms": t_fl_lib},
     }
+
+
+def row_inputs(shape, dtype, dev, seed=0):
+    """x of ``shape`` and a LayerNorm over its last axis, in ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2.5 + 0.3).to(dtype)
+    w = shape[-1]
+    ln = {"scale": (1 + 0.2 * torch.randn(w, generator=g, device=dev)).to(dtype),
+          "bias": (0.2 * torch.randn(w, generator=g, device=dev)).to(dtype)}
+    return ln, x
+
+
+# label, rows at batch 32, width, MLP hidden, activation
+ROW_MODELS = (("SO400M", 32 * 576, 1152, 4304, "gelu_tanh"),
+              ("PE-Core-bigG", 32 * 1025, 1536, 8960, "gelu"))
+
+
+def phase_row_kernels(dev, peaks) -> dict:
+    """``norm_rows`` and ``act_rows`` (``csrc/block_rows.cu``, the port's own
+    kernels) against ``ops.layers``' plain functions at SO400M's and
+    PE-Core-bigG's batch-32 shapes, bf16 within one rounding step (2^-7 of
+    the value) and f32, every activation; then their bf16 device times
+    (``graph_ms``) beside the plain function's, one PyTorch call's
+    (``F.layer_norm``; ``F.gelu`` on the bf16 tensor, which the port does
+    not call) and the bound: every element read once and written once (and
+    the LayerNorm's f32 scale and shift read once) over the card's bytes/s."""
+    import torch.nn.functional as F
+
+    from clip_embedder_tpu_torch.ops import layers, rows
+
+    say("[3] norm_rows and act_rows against ops.layers' plain functions (bf16: atol 1e-5, "
+        "rtol 2^-7, one rounding step; f32: 1e-5 LayerNorm, 1e-6 activations)")
+    for label, r, w, hidden, _ in ROW_MODELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            bf = dtype == torch.bfloat16
+            ln, x = row_inputs((r, w), dtype, dev)
+            got = rows.norm_rows(ln, x, eps=1e-6)
+            torch.cuda.synchronize()
+            hold(f"norm_rows {label} [{r}, {w}] {dtype}", [got],
+                 [layers.layer_norm(ln, x, eps=1e-6)], 1e-5, 2 ** -7 if bf else 1e-5)
+            _, h = row_inputs((r, hidden), dtype, dev, seed=1)
+            for name in rows.ACT_CODES:
+                got = rows.act_rows(h, name)
+                torch.cuda.synchronize()
+                hold(f"act_rows {name} {label} [{r}, {hidden}] {dtype}", [got],
+                     [layers.ACTIVATIONS[name](h)], 1e-5 if bf else 1e-6,
+                     2 ** -7 if bf else 1e-6)
+    say("[3] norm_rows and act_rows times at batch 32, bf16 (device time: 20 calls captured "
+        "in a CUDA graph, median of 10 replays; bound: bytes once over the card's bytes/s)")
+    out = {}
+    for label, r, w, hidden, act in ROW_MODELS:
+        ln, x = row_inputs((r, w), torch.bfloat16, dev)
+        _, h = row_inputs((r, hidden), torch.bfloat16, dev, seed=1)
+        approximate = "tanh" if act == "gelu_tanh" else "none"
+        runs = (("norm_rows", lambda: rows.norm_rows(ln, x, eps=1e-6),
+                 lambda: layers.layer_norm(ln, x, eps=1e-6),
+                 lambda: F.layer_norm(x, (w,), ln["scale"], ln["bias"], 1e-6), "F.layer_norm",
+                 4 * r * w + 8 * w, f"[{r}, {w}]"),
+                ("act_rows", lambda: rows.act_rows(h, act), lambda: layers.ACTIVATIONS[act](h),
+                 lambda: F.gelu(h, approximate=approximate), f"F.gelu({approximate})",
+                 4 * r * hidden, f"[{r}, {hidden}] {act}"))
+        for name, kern, plain, lib, lib_name, nbytes, shape in runs:
+            err = max_err([kern()], [plain()])
+            ms, plain_ms, lib_ms = graph_ms(kern), graph_ms(plain), graph_ms(lib)
+            bound = nbytes / peaks["bytes"] * 1e3
+            say(f"  {name} {label} {shape}: {ms:.4f} ms; plain {plain_ms:.4f} ms; {lib_name} "
+                f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({nbytes:.3e} B), "
+                f"{100 * bound / ms:.1f}% of it")
+            key = name if label == "SO400M" else f"{name}[pe_core]"
+            out[key] = {"name": name, "route": "cuda",
+                        "source": "clip_embedder_tpu_torch/csrc/block_rows.cu",
+                        "replaces": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+    return out
 
 
 def key_mask(b, s, dev):
@@ -1710,16 +1814,18 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
     # the main path driven cold (each bucket's first call captures its graph:
     # the warm-up forward, the capture and a replay, two forwards on the
     # device) and then warm (replays: one forward a call)
-    runs = {}
+    runs, row_runs = {}, {}
     for run in ("cold", "warm"):
         reset_launch_counts()
         embs = clip.vision.embed_images(images)
         n = launch_counts()
         after_embed = (n["ln_qkv"], n["flash_attention_packed"])
+        row_embed = tuple(row_launch_counts().values())
         results = clip.classify(images[0], LABELS)
         n = launch_counts()
         runs[run] = (after_embed, (n["ln_qkv"], n["flash_attention_packed"]),
                      {k: v for k, v in quant_launch_counts().items() if v})
+        row_runs[run] = (row_embed, tuple(row_launch_counts().values()))
     launches = runs["cold"][1]
     quant = {**runs["cold"][2], **runs["warm"][2]}
 
@@ -1728,8 +1834,10 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
         f"norms in [{norms.min():.6f}, {norms.max():.6f}]")
     say(f"  classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
     for run, (a, n, _) in runs.items():
-        say(f"  launches, {run}: after embed_images ln_qkv={a[0]} flash={a[1]}; "
-            f"after classify ln_qkv={n[0]} flash={n[1]}")
+        ra, rn = row_runs[run]
+        say(f"  launches, {run}: after embed_images ln_qkv={a[0]} flash={a[1]} "
+            f"norm_rows={ra[0]} act_rows={ra[1]}; after classify ln_qkv={n[0]} flash={n[1]} "
+            f"norm_rows={rn[0]} act_rows={rn[1]}")
     if embs.shape != (batch, vspec.cfg.embed_dim) or not np.isfinite(embs).all():
         raise AssertionError("embed_images returned bad embeddings")
     if np.abs(norms - 1).max() > 1e-2:
@@ -1743,6 +1851,14 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
             if a != (times * depth_v,) * 2 or n != (times * (2 * depth_v + depth_t),) * 2:
                 raise AssertionError(f"{run} run: kernel launches {a}/{n} are not {times} per "
                                      "layer per tower forward")
+            # each block's MLP half takes norm_rows and act_rows once; a vision
+            # forward's ln_post and map pool (its LayerNorm and MLP) add 2 and 1
+            vision = (depth_v + 2, depth_v + 1)
+            want = (tuple(times * v for v in vision),
+                    tuple(times * (2 * v + depth_t) for v in vision))
+            if row_runs[run] != want:
+                raise AssertionError(f"{run} run: norm_rows / act_rows launches "
+                                     f"{row_runs[run]}, expected {want}")
     say(f"  int8 attention launches (no path sets quant_qk / quant_pv): {quant}")
     if any(quant.values()):
         raise AssertionError("the main path launched an int8 attention kernel")
@@ -1755,6 +1871,7 @@ def phase_main_path(device, dtype=torch.bfloat16, *, layers=None, vocab_size=Non
         raise AssertionError("the kernel path disagrees with the eager path")
 
     out = {"launches": {"ln_qkv": launches[0], "flash_attention_packed": launches[1]},
+           "row_launches": dict(zip(_row_wrappers(), row_runs["cold"][1])),
            "quant_launches": quant, "embeddings": embs}
     if not timed:
         return out
@@ -1821,6 +1938,21 @@ def _wrappers() -> dict:
             "int8_linear_fused": int8_mlp.int8_linear_fused}
 
 
+def _row_wrappers() -> dict:
+    """The port's own row kernels (``ops.rows``), which replace no TPU
+    kernel: counted apart from ``_wrappers``' seven."""
+    from clip_embedder_tpu_torch.ops import rows
+
+    return {"norm_rows": rows.norm_rows, "act_rows": rows.act_rows}
+
+
+def row_launch_counts() -> dict:
+    """``launch_counts`` for the row kernels."""
+    if torch.cuda.is_available():
+        hold_graphs()
+    return {name: fn.launches for name, fn in _row_wrappers().items()}
+
+
 def launch_counts() -> dict:
     """Each wrapper's launch count. On the card every graph captured so far
     is first held to the kernels it holds (``hold_graphs``): a replay adds
@@ -1849,7 +1981,7 @@ def quant_launch_counts() -> dict:
 def reset_launch_counts() -> None:
     from clip_embedder_tpu_torch.ops import flash
 
-    for fn in _wrappers().values():
+    for fn in (*_wrappers().values(), *_row_wrappers().values()):
         fn.launches = 0
     for counts in ("mask_launches", "quant_launches", "route_launches"):
         setattr(flash.flash_attention_packed, counts,
@@ -1875,6 +2007,8 @@ MAIN_KERNELS = {
     "int8_mlp": ("int8_mlp", KACT),
     "int8_mlp_streamed": ("int8_mlp_streamed", KACT),
 }
+# csrc/block_rows.cu holds two wrappers' kernels: each launches one
+ROW_KERNELS = {"norm_kernel": "norm_rows", "act_kernel": "act_rows"}
 
 
 def device_launches(prof) -> dict:
@@ -1993,13 +2127,17 @@ def kernel_source(name: str) -> str | None:
 def port_launches(names) -> dict:
     """The launches a list of kernel names holds, by wrapper: its sources'
     main kernels (``MAIN_KERNELS``), with the packed kernel's rope passes
-    ("rope")."""
+    ("rope") and the row kernels (``ROW_KERNELS``)."""
     import re
 
-    n = dict.fromkeys(_wrappers(), 0)
+    n = dict.fromkeys([*_wrappers(), *_row_wrappers()], 0)
     n["rope"] = 0
     for name in names:
         src = kernel_source(name)
+        if src == "block_rows":
+            for kern, wrapper in ROW_KERNELS.items():
+                n[wrapper] += kern in name
+            continue
         if src not in MAIN_KERNELS:
             continue
         wrapper, main = MAIN_KERNELS[src]
@@ -2020,7 +2158,7 @@ def hold_graphs() -> None:
     which each replay adds to the wrapper's count."""
     from clip_embedder_tpu_torch.utils import captured
 
-    names = {id(fn): name for name, fn in _wrappers().items()}
+    names = {id(fn): name for name, fn in {**_wrappers(), **_row_wrappers()}.items()}
     for graphs in captured.graph_sets():
         for key, g in list(graphs.graphs.items()):
             if g in _held_graphs:
@@ -2238,11 +2376,11 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
         reset_launch_counts()
         embs = clip.vision.embed_images(images)
         results = clip.classify(images[0], LABELS)
-        counts = launch_counts()
+        counts, row_counts = launch_counts(), row_launch_counts()
         norms = np.linalg.norm(embs, axis=-1)
         say(f"  embed_images: {embs.shape}, norms in [{norms.min():.6f}, {norms.max():.6f}]; "
             f"classify: {[(lbl, round(p, 6)) for lbl, p in results]}")
-        say(f"  launches (one embed_images + one classify): {counts}")
+        say(f"  launches (one embed_images + one classify): {counts}; row kernels {row_counts}")
         if embs.shape != (batch, v.embed_dim) or not np.isfinite(embs).all():
             raise AssertionError(f"PE-Core {label}: embed_images returned bad embeddings")
         if np.abs(norms - 1).max() > 1e-2:
@@ -2256,7 +2394,7 @@ def phase_pe_core(device, dtype=torch.bfloat16, *, layers=None, vocab_size=None,
                 raise AssertionError(f"PE-Core {label}: launches {counts}, expected {want}")
 
         hold_towers(clip, vspec, tspec, embs, images, mode, f"PE-Core {label}")
-        out[label] = {"launches": counts, "vision_layers": v.layers}
+        out[label] = {"launches": counts, "row_launches": row_counts, "vision_layers": v.layers}
         if timed:
             out[label].update(time_embedder(clip.vision, arrays, f"PE-Core {label}"))
             out[label]["breakdown"] = profile_embedder(clip.vision, arrays, f"PE-Core {label}")
@@ -4905,6 +5043,7 @@ def int8_sass_report(libs) -> None:
 def main(argv) -> int:
     int8_only, masks_only, options_only = "--int8" in argv, "--masks" in argv, \
         "--options" in argv
+    rows_only = "--rows" in argv
     say("[1] environment")
     if not torch.cuda.is_available():
         say("  torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -4931,7 +5070,7 @@ def main(argv) -> int:
     t = time.perf_counter()
     libs = kernels.build_all(INT8_SOURCES if int8_only else ("flash_packed",) if masks_only
                              else ("flash_packed", "flash_int8", "flash_int8_tma") if options_only
-                             else None)
+                             else ("block_rows",) if rows_only else None)
     say(f"  built {sorted(libs)} in {time.perf_counter() - t:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for stem, path in sorted(libs.items()):
@@ -4939,6 +5078,10 @@ def main(argv) -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line:
                 say(f"  {stem}: {line.strip()}")
+    if rows_only:  # the row kernels alone: no result line
+        phase_row_kernels(dev, peaks)
+        say(card)
+        return 0
     if masks_only:  # the packed kernel's masked path alone: no result line
         mask_path_table(dev)
         say(card)
@@ -4963,6 +5106,7 @@ def main(argv) -> int:
     record.update(phase_family_kernels(dev, peaks))
     record.update(phase_onnx_kernels(dev, peaks))
     record.update(phase_flash_options(dev, peaks))
+    record.update(phase_row_kernels(dev, peaks))
     fixtures = phase_fixtures("cuda")
     main_path = phase_main_path("cuda")
     int8_paths = phase_int8_paths("cuda", bf16_embeddings=main_path["embeddings"])
@@ -4992,6 +5136,10 @@ def main(argv) -> int:
         record[name]["launches"] = int8_paths["int8_all"]["launches"][name]
     record["int8_mlp_streamed"]["launches"] = pe_core["int8_all"]["launches"][
         "int8_mlp_streamed"]
+    # the row kernels: SO400M's from the main path, PE-Core's from its bf16 run
+    for name in _row_wrappers():
+        record[name]["launches"] = main_path["row_launches"][name]
+        record[f"{name}[pe_core]"]["launches"] = pe_core["bfloat16"]["row_launches"][name]
     for run in ("BiomedCLIP bfloat16", "coca_ViT-L-14 bfloat16"):
         form = masked[run]["form"]
         record[f"flash_attention_packed[{form}_mask]"]["launches"] = \

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..errors import ConfigError
 from ..ops.attention import multi_head_attention
-from ..ops.layers import ACTIVATIONS, gelu, layer_norm, linear, mlp
+from ..ops.layers import ACTIVATIONS, gelu, layer_norm, linear, mlp, norm
 from ..ops.normalize import l2_normalize
 from ..ops.rope import axial_rope_table, head_tiled_tables
 from ..weights import ParamTree, unstack
@@ -214,7 +214,9 @@ def patchify(x: torch.Tensor, patch_size: int, channels_first: bool = False) -> 
 def block_forward(p, x: torch.Tensor, *, heads: int, act, ln_eps: float, impl: str,
                   mask=None, rope=None) -> torch.Tensor:
     """One pre-LN transformer block over the block tree ``p``: x + attn(ln1(x)),
-    then x + mlp(ln2(x)), with optional layer scale (``ls1``/``ls2``)."""
+    then x + mlp(ln2(x)), with optional layer scale (``ls1``/``ls2``). On a
+    kernel impl the MLP half's LayerNorm and activation take ``ops.rows``'
+    kernels where they take the call (``ops.layers.mlp``)."""
     if "ls1" in p:
         h = multi_head_attention(p["attn"], x, num_heads=heads, mask=mask, impl=impl,
                                  pre_ln=p["ln1"], ln_eps=ln_eps, rope=rope)
@@ -223,9 +225,10 @@ def block_forward(p, x: torch.Tensor, *, heads: int, act, ln_eps: float, impl: s
         x = multi_head_attention(p["attn"], x, num_heads=heads, mask=mask, impl=impl,
                                  pre_ln=p["ln1"], ln_eps=ln_eps, residual=x, rope=rope)
     if "ls2" in p:
-        h = mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps)
+        h = mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps, impl=impl)
         return x + h * p["ls2"]
-    return mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps, residual=True)
+    return mlp(p["mlp"], x, activation=act, pre_ln=p["ln2"], ln_eps=ln_eps, residual=True,
+               impl=impl)
 
 
 class Block(ParamTree):
@@ -322,15 +325,16 @@ class ViT(ParamTree):
             return None
         return _rope_tables(self.cfg, device)
 
-    def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
+    def _map_pool(self, x: torch.Tensor, impl: str = "eager") -> torch.Tensor:
         """timm AttentionPoolLatent: a learned probe cross-attends over the
-        tokens (plain attention on every impl), then a residual MLP."""
+        tokens (plain attention on every impl), then a residual MLP (its
+        LayerNorm and activation routed by ``impl``, as a block's)."""
         cfg, p = self.cfg, self["attn_pool"]
         probe = p["probe"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
         pooled = multi_head_attention(p["attn"], probe, kv=x,
                                       num_heads=cfg.pool_heads or cfg.heads)
-        pooled = pooled + mlp(p["mlp"], layer_norm(p["ln"], pooled, eps=cfg.ln_eps),
-                              activation=self.act)
+        pooled = pooled + mlp(p["mlp"], norm(p["ln"], pooled, eps=cfg.ln_eps, impl=impl),
+                              activation=self.act, impl=impl)
         return pooled[:, 0]
 
     def _attn_pool(self, x: torch.Tensor) -> torch.Tensor:
@@ -352,7 +356,10 @@ class ViT(ParamTree):
                 channels_first: bool = False, normalize: bool = True,
                 remat: bool = False) -> torch.Tensor:
         """[B, H, W, 3] preprocessed pixels ([B, 3, H, W] with
-        ``channels_first``) → [B, embed_dim]. ``remat``: ``run_blocks``."""
+        ``channels_first``) → [B, embed_dim]. ``remat``: ``run_blocks``. On
+        a kernel ``attn_impl``, ``ln_pre``, ``ln_post`` and the map pool's
+        LayerNorm and MLP take ``ops.rows``' kernels where they take the
+        call, as the blocks' MLP halves do."""
         cfg = self.cfg
         x = linear(self["patch_embed"], patchify(pixels, cfg.patch_size, channels_first))
         b = x.shape[0]
@@ -369,7 +376,7 @@ class ViT(ParamTree):
             x = torch.cat(prefix + [x], dim=1) if prefix else x
             x = x + pos
         if cfg.use_ln_pre:
-            x = layer_norm(self["ln_pre"], x, eps=cfg.ln_eps)
+            x = norm(self["ln_pre"], x, eps=cfg.ln_eps, impl=attn_impl)
 
         x = run_blocks(self.blocks, x, remat=remat, impl=attn_impl,
                        rope=self.rope_tables(x.device))
@@ -377,16 +384,18 @@ class ViT(ParamTree):
         if cfg.pool == "attn":
             pooled = self._attn_pool(x)
         elif cfg.pool == "map":
-            pooled = self._map_pool(layer_norm(self["ln_post"], x, eps=cfg.ln_eps))
+            pooled = self._map_pool(norm(self["ln_post"], x, eps=cfg.ln_eps, impl=attn_impl),
+                                    attn_impl)
         elif cfg.pool == "gap":
             start = cfg.prefix_tokens
             if cfg.norm_after_pool:
-                pooled = layer_norm(self["ln_post"], x[:, start:].mean(dim=1), eps=cfg.ln_eps)
+                pooled = norm(self["ln_post"], x[:, start:].mean(dim=1), eps=cfg.ln_eps,
+                              impl=attn_impl)
             else:
-                x = layer_norm(self["ln_post"], x, eps=cfg.ln_eps)
+                x = norm(self["ln_post"], x, eps=cfg.ln_eps, impl=attn_impl)
                 pooled = x[:, start:].mean(dim=1)
         else:  # cls / tok
-            pooled = layer_norm(self["ln_post"], x[:, 0], eps=cfg.ln_eps)
+            pooled = norm(self["ln_post"], x[:, 0], eps=cfg.ln_eps, impl=attn_impl)
 
         if cfg.use_proj and "proj" in self:
             proj = self["proj"]

@@ -15,6 +15,10 @@ Counterpart of ``clip_embedder_tpu.ops.attention``. ``impl`` selects:
   the packed kernel only, the bf16 exp when the head dim is below 96 (as
   the JAX package's ``pallas_fast``).
 
+On the kernel impls the block's other LayerNorm and its MLP's activation
+take ``ops.rows``' single-pass kernels too (``ops.layers.norm``,
+``ops.layers.activate``, routed from ``ops.layers.mlp``).
+
 Cross-attention (``kv=``, e.g. the map-pool probe) ends on
 ``attention_core`` on every impl, as in the JAX package. On every impl a
 quantized out-projection with a residual takes the fused int8 linear with
@@ -28,11 +32,10 @@ import torch
 
 from .flash import flash_attention, flash_attention_packed, head_group
 from .int8_mlp import fits_fused_linear, int8_linear_fused
-from .layers import layer_norm, linear, promote
+from .layers import KERNEL_IMPLS, layer_norm, linear, promote
 from .qkv import fits_fused_qkv, fits_fused_qkv_int8, ln_qkv, ln_qkv_int8
 from .rope import apply_rope
 
-KERNEL_IMPLS = ("kernel", "kernel_fast")
 ATTN_IMPLS = ("eager",) + KERNEL_IMPLS
 
 

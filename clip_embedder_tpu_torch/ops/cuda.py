@@ -229,13 +229,16 @@ def _tensors(node):
             yield from _tensors(node[k])
 
 
+def requires_grad(*operands) -> bool:
+    """Whether autograd is on and a tensor among ``operands`` (tensors, or
+    trees of them: dicts, ``ParamTree``s, lists) requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(operands))
+
+
 def no_grad_operands(what: str, *operands) -> None:
-    """Raise when autograd is on and a tensor among ``operands`` (tensors,
-    or trees of them: dicts, ``ParamTree``s, lists) requires grad: the
-    kernel behind ``what`` has no backward."""
-    if not torch.is_grad_enabled():
-        return
-    if any(t.requires_grad for t in _tensors(operands)):
+    """Raise when ``requires_grad(*operands)``: the kernel behind ``what``
+    has no backward."""
+    if requires_grad(*operands):
         raise RuntimeError(f"{what}: an operand requires grad, and the CUDA kernel has no "
                            "backward; call it under torch.no_grad() or use the eager impl")
 

@@ -10,6 +10,12 @@ contract:
   rounding to the activation dtype (``torch.addmm``; on the card cuBLAS
   applies the bias in its f32 epilogue).
 
+On the kernel impls (``KERNEL_IMPLS``) a block's LayerNorm and its MLP's
+activation go through ``norm`` and ``activate``: each runs the single-pass
+CUDA kernel of ``ops.rows`` where that kernel takes the call (a CUDA tensor
+in f32 or bf16, a width it takes, no operand that requires grad), and the
+plain function otherwise; the eager impl always runs the plain function.
+
 Parameters use the JAX package's layout (see ``weights.py``): a linear is
 ``{"w": [in, out], "b": [out]}`` (or, quantized by ``ops.quant``,
 ``{"w_q", "w_scale", "b"}``), a LayerNorm ``{"scale": [d], "bias": [d]}``.
@@ -29,9 +35,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from . import rows
 from .int8_mlp import (fits_fused_linear, fits_fused_mlp, fits_streamed_mlp, int8_linear_fused,
                        int8_mlp, int8_mlp_streamed)
 from .quant import int8_linear
+
+# the impls that run the port's CUDA kernels (``ops.attention`` names them all)
+KERNEL_IMPLS = ("kernel", "kernel_fast")
 
 
 def promote(dtype: torch.dtype) -> torch.dtype:
@@ -79,6 +89,24 @@ def layer_norm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"].to(ct) + params["bias"].to(ct)
     return y.to(x.dtype)
+
+
+def norm(params, x: torch.Tensor, *, eps: float = 1e-5, impl: str = "eager") -> torch.Tensor:
+    """``layer_norm``; on a kernel impl ``rows.norm_rows`` (the same
+    function in one pass) where its kernel takes x."""
+    if impl in KERNEL_IMPLS and rows.takes(x, params) and rows.fits_norm(x):
+        return rows.norm_rows(params, x, eps=eps)
+    return layer_norm(params, x, eps=eps)
+
+
+def activate(activation: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+             impl: str = "eager") -> torch.Tensor:
+    """``activation(x)``; on a kernel impl ``rows.act_rows`` (the same
+    function in one pass) where its kernel takes x and the activation."""
+    name = ACTIVATION_NAMES.get(activation)
+    if impl in KERNEL_IMPLS and name in rows.ACT_CODES and rows.takes(x):
+        return rows.act_rows(x, name)
+    return activation(x)
 
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
@@ -134,6 +162,7 @@ def mlp(
     pre_ln=None,
     ln_eps: float = 1e-6,
     residual: bool = False,
+    impl: str = "eager",
 ) -> torch.Tensor:
     """Transformer MLP block: [LayerNorm →] linear → act → linear.
 
@@ -142,7 +171,10 @@ def mlp(
     fused int8 MLP kernel (``ops.int8_mlp``, LayerNorm and residual inside)
     where ``fits_fused_mlp`` holds, the streamed one (per-slab
     requantization) where ``fits_streamed_mlp`` holds, as the JAX package
-    routes them; elsewhere the unfused int8 linears run.
+    routes them; elsewhere the unfused int8 linears run. An unquantized
+    block on a kernel impl (``impl``) runs its LayerNorm and activation
+    through ``norm`` and ``activate``; the products stay ``torch.addmm``
+    with their biases.
     """
     if residual and pre_ln is None:
         raise ValueError("mlp(residual=True) requires pre_ln")
@@ -155,9 +187,10 @@ def mlp(
         if name and fits_streamed_mlp(params, name, x.numel() // x.shape[-1], x):
             return int8_mlp_streamed(params, x, activation=name, pre_ln=pre_ln,
                                      ln_eps=ln_eps, add_residual=residual)
+        impl = "eager"  # the unfused int8 route stays as it is
     res = x if residual else None
     if pre_ln is not None:
-        x = layer_norm(pre_ln, x, eps=ln_eps)
-    h = activation(linear(params["fc"], x))
+        x = norm(pre_ln, x, eps=ln_eps, impl=impl)
+    h = activate(activation, linear(params["fc"], x), impl)
     h = linear(params["proj"], h)
     return h if res is None else res + h

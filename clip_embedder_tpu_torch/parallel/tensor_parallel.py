@@ -257,7 +257,8 @@ class TPViT(ViT):
                                for r, d in enumerate(self.devices)]
         return self._rope[key]
 
-    def _map_pool(self, x: torch.Tensor) -> torch.Tensor:
+    def _map_pool(self, x: torch.Tensor, impl: str = "eager") -> torch.Tensor:
+        # ``impl`` unread: the sharded forward runs eager (``parallel.embed``)
         cfg, p = self.cfg, self["attn_pool"]
         probe = p["probe"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
         pooled = self.pool_attn(probe, kv=x)

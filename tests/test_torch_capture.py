@@ -27,7 +27,7 @@ from clip_embedder_tpu_torch import Clip, onnx_exec
 from clip_embedder_tpu_torch.models import convnext, eva02, fastvit, hf_text, mct, resnet
 from clip_embedder_tpu_torch.models import text_transformer, vit
 from clip_embedder_tpu_torch.models.build import TowerSpec
-from clip_embedder_tpu_torch.ops import cuda, int8_mlp, qkv
+from clip_embedder_tpu_torch.ops import cuda, int8_mlp, qkv, rows
 from clip_embedder_tpu_torch.text import text_tower
 from clip_embedder_tpu_torch.utils import captured
 from clip_embedder_tpu_torch.vision import build_tower, quantize_params
@@ -115,10 +115,12 @@ def one_thread():
 
 @pytest.fixture()
 def card_gates(monkeypatch):
-    """The int8 gates as on the card: the fused wrappers (their plain
-    versions on the CPU) where the card launches the kernels."""
+    """The int8 gates and the block rows' gate as on the card: the fused
+    wrappers and ``ops.rows``' (their plain versions on the CPU) where the
+    card launches the kernels."""
     monkeypatch.setattr(int8_mlp, "on_card", lambda x: True)
     monkeypatch.setattr(qkv, "on_card", lambda x: True)
+    monkeypatch.setattr(rows, "on_card", lambda x: x.dtype in cuda.DTYPE_CODES)
 
 
 @pytest.mark.parametrize("name,impl,mode", list(_cases(VISION)))

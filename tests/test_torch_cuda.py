@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from clip_embedder_tpu_torch.ops import flash, int8_mlp, qkv
+from clip_embedder_tpu_torch.ops import flash, int8_mlp, layers, qkv, rows
 from clip_embedder_tpu_torch.ops.attention import causal_mask
 from clip_embedder_tpu_torch.ops.quant import quantize_weight
 from clip_embedder_tpu_torch.ops.rope import axial_rope_table, head_tiled_tables
@@ -868,7 +868,7 @@ def test_every_wrapper_launches_on_its_tensors_device(dev):
     dt = torch.bfloat16
     wrappers = (qkv.ln_qkv, flash.flash_attention_packed, flash.flash_attention,
                 qkv.ln_qkv_int8, int8_mlp.int8_linear_fused, int8_mlp.int8_mlp,
-                int8_mlp.int8_mlp_streamed)
+                int8_mlp.int8_mlp_streamed, rows.norm_rows, rows.act_rows)
     before = [fn.launches for fn in wrappers]
     params, pre_ln, x = _qkv_inputs(2 * 61, 256, dt, last)
     got = qkv.ln_qkv(params, pre_ln, x)
@@ -895,6 +895,8 @@ def test_every_wrapper_launches_on_its_tensors_device(dev):
                            {"chunk": 256})):
         assert_rows_close(fn(mlp, x, pre_ln=pre_ln, add_residual=True, **kw),
                           plain(mlp, x, pre_ln=pre_ln, add_residual=True, **kw), dt)
+    assert_row_kernel_close(rows.norm_rows(pre_ln, x), layers.layer_norm(pre_ln, x), dt)
+    assert_row_kernel_close(rows.act_rows(x, "gelu"), layers.gelu(x), dt)
     torch.cuda.synchronize(last)
     assert [fn.launches - b for fn, b in zip(wrappers, before)] == [1] * len(wrappers)
     assert torch.cuda.current_device() == 0
@@ -938,6 +940,10 @@ def _guard_call(name, dev):
             int8_mlp.int8_mlp_streamed,
             lambda: int8_mlp.int8_mlp_streamed(mlp, x, pre_ln=pre_ln, chunk=256), x,
             lambda: int8_mlp.int8_mlp_streamed_plain(mlp, x, pre_ln=pre_ln, chunk=256)),
+        "norm_rows": (rows.norm_rows, lambda: rows.norm_rows(pre_ln, x), pre_ln["bias"],
+                      lambda: layers.layer_norm(pre_ln, x)),
+        "act_rows": (rows.act_rows, lambda: rows.act_rows(x, "gelu_tanh"), x,
+                     lambda: layers.gelu_tanh(x)),
     }
     return calls[name]
 
@@ -945,7 +951,7 @@ def _guard_call(name, dev):
 @pytest.mark.parametrize("name", ["ln_qkv", "flash_attention_packed",
                                   "flash_attention_packed[quant]", "flash_attention",
                                   "ln_qkv_int8", "int8_linear_fused", "int8_mlp",
-                                  "int8_mlp_streamed"])
+                                  "int8_mlp_streamed", "norm_rows", "act_rows"])
 def test_wrapper_refuses_an_operand_that_requires_grad(dev, name):
     """With autograd on, a wrapper raises before it launches when an operand
     requires grad (its kernel has no backward: the fresh output would end
@@ -967,6 +973,124 @@ def test_wrapper_refuses_an_operand_that_requires_grad(dev, name):
             assert_rows_close(g, r, torch.bfloat16)
         else:
             torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2)
+
+
+# -- a block's LayerNorm and MLP activation (ops.rows, csrc/block_rows.cu) ---
+
+def assert_row_kernel_close(got, ref, dtype, f32_tol=1e-5):
+    """The row kernels against ``ops.layers``' plain functions on the card:
+    in bf16 within one rounding step (2^-7 of the value; the f32 results
+    before the one rounding differ by the sums' order and libm's last bit);
+    in f32 within ``f32_tol``."""
+    tol = (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (f32_tol, f32_tol)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol[0], rtol=tol[1])
+
+
+def _row_inputs(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2.5 + 0.3).to(dtype)
+    w = shape[-1]
+    ln = {"scale": (1 + 0.2 * torch.randn(w, generator=g, device=dev)).to(dtype),
+          "bias": (0.2 * torch.randn(w, generator=g, device=dev)).to(dtype)}
+    return ln, x
+
+
+# SO400M's and PE-Core-bigG's batch-32 rows, a ragged row count, the small
+# widths of the fixtures and of a 1280-wide text tower
+@pytest.mark.parametrize("shape", [(18432, 1152), (32800, 1536), (1003, 1152), (5, 64),
+                                   (7, 1280), (3, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_rows_kernel_matches_plain(dev, shape, dtype):
+    ln, x = _row_inputs(dev, shape, dtype, seed=shape[0])
+    before = rows.norm_rows.launches
+    got = rows.norm_rows(ln, x, eps=1e-6)
+    torch.cuda.synchronize()
+    assert rows.norm_rows.launches == before + 1
+    assert_row_kernel_close(got, layers.layer_norm(ln, x, eps=1e-6), dtype)
+
+
+# the MLP hiddens of SO400M and PE-Core-bigG at batch 32, a ragged row
+# count, and a size of no whole 16-byte pieces (the tail past them)
+@pytest.mark.parametrize("shape", [(18432, 4304), (32800, 8960), (1003, 4304), (7, 13)])
+@pytest.mark.parametrize("act", sorted(rows.ACT_CODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_rows_kernel_matches_plain(dev, shape, act, dtype):
+    _, x = _row_inputs(dev, shape, dtype, seed=shape[1])
+    before = rows.act_rows.launches
+    got = rows.act_rows(x, act)
+    torch.cuda.synchronize()
+    assert rows.act_rows.launches == before + 1
+    assert_row_kernel_close(got, layers.ACTIVATIONS[act](x), dtype, f32_tol=1e-6)
+
+
+def test_row_kernels_refuse_what_they_do_not_take(dev):
+    ln, x = _row_inputs(dev, (4, 12), torch.bfloat16, seed=3)
+    with pytest.raises(ValueError, match="width 12"):
+        rows.norm_rows(ln, x)
+    _, x = _row_inputs(dev, (4, 64), torch.float16, seed=4)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        rows.act_rows(x, "gelu")
+    _, x = _row_inputs(dev, (4, 128), torch.bfloat16, seed=5)
+    with pytest.raises(ValueError, match="contiguous"):
+        rows.act_rows(x[:, ::2], "gelu")
+
+
+def test_row_kernels_replay_in_a_captured_graph_set(dev):
+    """Both kernels captured in a ``GraphSet``: the capture records one
+    launch of each, and a replay on new inputs gives bitwise the eager
+    calls' rows and adds those launches to the counts."""
+    from clip_embedder_tpu_torch.utils import captured
+
+    ln, x = _row_inputs(dev, (2 * 576, 1152), torch.bfloat16, seed=21)
+    _, h = _row_inputs(dev, (2 * 576, 4304), torch.bfloat16, seed=22)
+
+    def fn():
+        return rows.norm_rows(ln, x, eps=1e-6), rows.act_rows(h, "gelu_tanh")
+
+    graph = captured.GraphSet().capture(fn, dev, (x, h), what="the block rows")
+    assert graph.launches == {(rows.norm_rows, "launches", None): 1,
+                              (rows.act_rows, "launches", None): 1}
+    x.copy_(_row_inputs(dev, x.shape, torch.bfloat16, seed=23)[1])
+    h.copy_(_row_inputs(dev, h.shape, torch.bfloat16, seed=24)[1])
+    before = (rows.norm_rows.launches, rows.act_rows.launches)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (rows.norm_rows.launches, rows.act_rows.launches) == (before[0] + 1, before[1] + 1)
+    for g, e in zip(graph.output, fn()):
+        assert torch.equal(g, e)
+
+
+def test_kernel_impl_block_launches_each_row_kernel_once(dev):
+    """A kernel-impl block at SO400M's shapes (width 1152, 16 x 72 heads,
+    MLP 4304, gelu_tanh, bf16): one launch each of ln_qkv and the packed
+    attention for its attention half, and of norm_rows and act_rows for its
+    MLP half; its rows agree with the eager block's."""
+    from clip_embedder_tpu_torch.models import vit
+
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def t(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    d, hidden = 1152, 4304
+    p = {"ln1": {"scale": 1 + t(d, scale=0.1), "bias": t(d, scale=0.1)},
+         "ln2": {"scale": 1 + t(d, scale=0.1), "bias": t(d, scale=0.1)},
+         "attn": {n: {"w": t(d, d, scale=d ** -0.5), "b": t(d, scale=0.1)}
+                  for n in ("q", "k", "v", "out")},
+         "mlp": {"fc": {"w": t(d, hidden, scale=d ** -0.5), "b": t(hidden, scale=0.1)},
+                 "proj": {"w": t(hidden, d, scale=hidden ** -0.5), "b": t(d, scale=0.1)}}}
+    x = t(2, 576, d, scale=1.0)
+    wrappers = (qkv.ln_qkv, flash.flash_attention_packed, rows.norm_rows, rows.act_rows)
+    before = [fn.launches for fn in wrappers]
+    with torch.inference_mode():
+        got = vit.block_forward(p, x, heads=16, act=layers.gelu_tanh, ln_eps=1e-6,
+                                impl="kernel")
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(wrappers, before)] == [1, 1, 1, 1]
+        ref = vit.block_forward(p, x, heads=16, act=layers.gelu_tanh, ln_eps=1e-6,
+                                impl="eager")
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == [1, 1, 1, 1]
+    assert _cos(got.reshape(-1, d), ref.reshape(-1, d)) >= 1 - 1e-4
 
 
 # -- the captured forwards (utils.captured) ----------------------------------

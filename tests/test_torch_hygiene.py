@@ -54,15 +54,21 @@ def test_lint_clean():
 
 
 def test_kernel_sources_are_present_and_noted():
-    """Each kernel source says which TPU kernel it replaces, what bounds it
+    """Each kernel source says which TPU kernel it replaces (or, for the
+    port's own, that it replaces none and why it was added), what bounds it
     on the H100, and what its design does about that."""
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["flash_bhsd.cu", "flash_int8.cu", "flash_int8_tma.cu",
-                                         "flash_packed.cu", "int8_linear.cu", "int8_mlp.cu",
-                                         "int8_mlp_streamed.cu", "ln_qkv.cu", "ln_qkv_int8.cu"]
+    assert [s.name for s in sources] == ["block_rows.cu", "flash_bhsd.cu", "flash_int8.cu",
+                                         "flash_int8_tma.cu", "flash_packed.cu",
+                                         "int8_linear.cu", "int8_mlp.cu", "int8_mlp_streamed.cu",
+                                         "ln_qkv.cu", "ln_qkv_int8.cu"]
+    port_own = {"block_rows.cu"}
     for src in sources:
         head = src.read_text()[:3000]
-        assert "Replaces the TPU kernel clip_embedder_tpu/ops/" in head
+        if src.name in port_own:
+            assert "Replaces no TPU kernel: " in head
+        else:
+            assert "Replaces the TPU kernel clip_embedder_tpu/ops/" in head
         assert "What bounds it on the H100" in head
         assert "What the design does about that" in head
         assert 'extern "C" int' in src.read_text()
