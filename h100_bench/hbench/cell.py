@@ -4,7 +4,7 @@ window, read its metrics, then judge its answers against the reference.
 Everything a cell is made of is found by name: the workload in
 ``BENCHMARK.json``, its configuration's file, its traffic mix
 (``traffic/<name>.json``), the mix's shape (a module of ``hbench.drivers``),
-the configuration's layout and reference (``hbench.weights``,
+the configuration's layout and reference (``hbench.layouts``,
 ``hbench.reference``) and each per-layer metric's reader
 (``metrics/<name>.py``)."""
 

@@ -12,26 +12,15 @@ from pathlib import Path
 
 import torch
 
-# the program's resolved field for each published width of the config file
-RESOLVED = {
-    "image_size": "image_size", "patch_size": "patch_size", "width": "width",
-    "layers": "layers", "heads": "heads", "mlp_hidden": "mlp_hidden",
-    "embed_dim": "embed_dim", "activation": "activation", "class_token": "use_class_token",
-    "ln_pre": "use_ln_pre", "pool": "pool", "proj": "use_proj", "ln_eps": "ln_eps",
-    "rope_2d": "rope_2d", "tokens": "seq_len", "layer_scale": "use_layer_scale",
-}
+from . import layouts
 
 
-def resolved_widths(cfg) -> dict:
-    got = {k: getattr(cfg, attr) for k, attr in RESOLVED.items()}
-    got["pool_heads"] = cfg.pool_heads or cfg.heads
-    got["pool_mlp_hidden"] = cfg.pool_mlp_hidden or cfg.mlp_hidden
-    return got
-
-
-def check_resolved(v: dict, cfg) -> None:
-    got = resolved_widths(cfg)
-    wrong = {k: (v[k], got[k]) for k in got if v.get(k) != got[k]}
+def check_resolved(config: dict, cfg) -> None:
+    """Stop the run where the program's resolved tower (``cfg``) departs
+    from a width the configuration's ``vision`` states, by the keys that
+    its layout's ``resolved`` reads."""
+    v, got = config["vision"], layouts.of(config).resolved(cfg)
+    wrong = {k: (v.get(k), got[k]) for k in got if v.get(k) != got[k]}
     if wrong:
         raise SystemExit("the program resolves another tower than the configuration states "
                          f"(key: (stated, resolved)): {wrong}")
@@ -49,7 +38,7 @@ def build(config: dict, tree: dict, device, quantize: str | None = None):
     oc = OpenClipConfig.from_dict({"model_cfg": config["open_clip"],
                                    "preprocess_cfg": config["preprocess"]})
     spec = resolve_vision(oc.model_cfg)
-    check_resolved(config["vision"], spec.cfg)
+    check_resolved(config, spec.cfg)
     validate_tower_pytree(tree, spec, source="the benchmark's weight tree")
     dtype = getattr(torch, config["dtype"])
     tower = build_tower(spec, quantize_params(tree, spec, quantize, device, dtype))

@@ -64,22 +64,3 @@ def attention_work(b: int, h: int, s: int, d: int, *, rope: bool = False) -> tup
         flop += 3.0 * 2 * b * s * h * d
         nbytes += 2 * 4 * s * h * d
     return flop, nbytes
-
-
-def vision_flop_per_image(v: dict) -> float:
-    """Model FLOP of one image through a ViT tower: patch embedding, per
-    block q/k/v, the output projection, the MLP and attention's 4·S²·W; the
-    MAP pool (one query: its q and output projection, k/v over the tokens,
-    attention, its MLP) and the projection. Padding rows are not images."""
-    w, m, s = v["width"], v["mlp_hidden"], v["tokens"]
-    p = v["patch_size"]
-    patches = (v["image_size"] // p) ** 2
-    flop = 2.0 * patches * p * p * 3 * w
-    per_block = 2.0 * s * w * 3 * w + 2.0 * s * w * w + 2 * 2.0 * s * w * m + 4.0 * s * s * w
-    flop += v["layers"] * per_block
-    if v["pool"] == "map":
-        flop += 2.0 * w * w + 2.0 * s * w * 2 * w + 4.0 * s * w + 2.0 * w * w
-        flop += 2 * 2.0 * w * v["pool_mlp_hidden"]
-    if v["proj"]:
-        flop += 2.0 * w * v["embed_dim"]
-    return flop

@@ -11,8 +11,8 @@ import pytest
 
 import tiny  # noqa: F401
 from hbench.cell import BENCH_DIR
-from hbench.roofline import (PEAKS, attention_work, bound_s, ln_qkv_work, peaks_for,
-                             vision_flop_per_image)
+from hbench.layouts.vit import flop_per_image as vision_flop_per_image
+from hbench.roofline import PEAKS, attention_work, bound_s, ln_qkv_work, peaks_for
 
 SXM = PEAKS["sxm"]
 

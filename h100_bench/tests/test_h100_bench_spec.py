@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 
 import tiny  # noqa: F401  (puts the benchmark and the repo on sys.path)
+from hbench import layouts
 from hbench.cell import BENCH_DIR, ROOT, cell_files, load_benchmark, reader, reports
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -19,6 +20,7 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
 WIDTHS = re.compile(r"(hidden|intermediate|latent|state|proj|head|width|expansion|_dim$|_rank$"
                     r"|experts_per_tok)")
+LAYOUT_FUNCTIONS = ("leaves", "resolved", "flop_per_image", "shrink")
 
 BENCH = load_benchmark()
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
@@ -61,7 +63,8 @@ def test_cell_found_by_name(name):
     assert len(wl["why"]) <= 200
     driver = importlib.import_module(f"hbench.drivers.{traffic['shape']}")
     assert callable(driver.run)
-    assert config["layout"] in importlib.import_module("hbench.weights").LAYOUTS
+    layout = layouts.of(config)
+    assert all(callable(getattr(layout, f, None)) for f in LAYOUT_FUNCTIONS), layout.__name__
     e2e = [m["name"] for m in BENCH["end_to_end"] if reports(m, name, set())]
     assert "setup_s" in e2e and len(e2e) >= 2
     moved = set(e2e)

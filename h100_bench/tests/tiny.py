@@ -18,21 +18,13 @@ TINY_SIZES = [[64, 64], [80, 64], [96, 72], [48, 80], [128, 96], [40, 40]]
 
 def shrink(config: dict, traffic: dict, *, layers: int = 2, width: int = 128,
            heads: int = 2, mlp: int = 256) -> tuple[dict, dict]:
-    """The configuration at ``width``/``layers``/``heads``/``mlp`` and an
-    image of 4 × 4 patches, through the program's own override hooks
-    (``vit_cfg``, ``pe_cfg``), and the traffic mix at a CPU's scale."""
+    """The configuration at ``width``/``layers``/``heads``/``mlp``, cut by
+    its layout's ``shrink`` (the program's own override hook), and the
+    traffic mix at a CPU's scale."""
+    from hbench import layouts
+
     config, traffic = copy.deepcopy(config), copy.deepcopy(traffic)
-    v, oc = config["vision"], config["open_clip"]["vision_cfg"]
-    image = 4 * v["patch_size"]
-    pool_mlp = 4 * width if v["rope_2d"] else mlp
-    v.update(image_size=image, width=width, layers=layers, heads=heads, head_dim=width // heads,
-             mlp_hidden=mlp, tokens=16 + (1 if v["class_token"] else 0),
-             pool_heads=v["pool_heads"] if v["rope_2d"] else heads, pool_mlp_hidden=pool_mlp)
-    if not v["proj"]:
-        v["embed_dim"] = width
-    oc["image_size"] = image
-    key = "pe_cfg" if v["rope_2d"] else "vit_cfg"
-    oc[key] = {"width": width, "layers": layers, "heads": heads, "mlp_hidden": mlp}
+    layouts.of(config).shrink(config, width=width, layers=layers, heads=heads, mlp=mlp)
     traffic.update(sizes=TINY_SIZES, pool_images=24, check_rows=8)
     if traffic["shape"] == "pipeline_closed":
         traffic.update(batch_size=8, warm_batches=2,
